@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit; the kernels' build time (the CUDA
-     sparse conv with nvcc into build/torch_kernels/, the Triton masked
-     statistics at its first launch);
+     sparse convs with nvcc into build/torch_kernels/, the Triton masked
+     statistics and their VJP at their first launch);
   2. kernels: the sparse-conv gather-GEMM on the inputs of each of the 12
-     encoder convs of a full-width B=6 KITTI forward, and the masked
-     statistics at [480000, 4] and [96000, 64], each against its plain
-     PyTorch version on the card, with times, bounds and a one-call PyTorch
-     yardstick;
+     encoder convs of a full-width B=6 KITTI forward; its dgrad and wgrad on
+     the inputs (feats, g, idx, backward index) of the 12 convs captured
+     from one full-width B=6 train step; the masked statistics at
+     [480000, 4] and [96000, 64]; their VJP at [480000, 4], [480000, 128]
+     and [96000, 64] (f32 and bf16). Each against its plain PyTorch version
+     on the card, with times, bounds and a one-call PyTorch yardstick;
   3. serving: the full-width SECOND VoxelNetConfig (bf16, random weights from
      the seed) answers requests of 6 synthetic frames of 20000 points each,
      clean and with attack=True, through cli/export.export_serving; the
      launch counters are zeroed just before and read just after; outputs are
      checked for shape and finiteness, and a float32 forward on a small grid
-     and its decode + rotated NMS are held against the same on the CPU.
+     and its decode + rotated NMS are held against the same on the CPU;
+  4. training: train/loop.Trainer on the same full-width config at B=6 with
+     20000-point synthetic frames carrying GT boxes, the host plan (native
+     plan + anchor assignment, train/loop.HostPlanBuilder) built in the
+     prefetch thread by run_training's own pipeline (cli/common.with_plans
+     behind prefetch_iterator); one warm-up step, then TRAIN_STEPS timed
+     steps at epoch 3 (adversary on) with the launch counters zeroed before
+     and read after; the steps after the PREFETCHED_STEPS whose plans were
+     built ahead give the steady-state frames/s. Checks finite losses,
+     positives, moved detector and adversary weights and the per-step
+     launch counts; prints ms per step, frames/s and each plan build's
+     native-plan and anchor-assignment ms. A
+     float32 train step's gradients on a small grid are held against the
+     same step on the CPU.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -44,6 +59,32 @@ SPARSE_CONV_RTOL = 1e-2
 MASKED_STATS_RTOL = 1e-4
 # float32 forward on the card (TF32 off) vs the CPU: summation order only
 E2E_F32_RTOL = 1e-3
+# wgrad: float32 sums of the same bf16 products in another order
+WGRAD_RTOL = 1e-4
+# masked-stats VJP: the same float32 formula; bf16 outputs round once (2^-8)
+STATS_BWD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# float32 train-step gradients, card vs CPU: summation order through the
+# whole step (the CPU parity tests measure 1e-4 of each tensor's largest
+# entry against JAX); tensors whose true gradient is 0 are held to 1e-6 of
+# the largest gradient of the model
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_GRAD_FLOOR = 1e-6
+
+# kernel launches per train step, derived from the code: each of the 12
+# encoder convs runs the forward, the dgrad (every conv's input needs a
+# gradient: the adversary's delta reaches conv_input's features) and the
+# wgrad once; the masked statistics run under the perturber's std
+# normalisation (input without gradient: forward only), its 5 train-mode
+# MaskedBatchNorms, perturbation_losses and the 12 encoder MaskedBatchNorms
+# -> 19 forwards and 18 VJPs
+TRAIN_LAUNCHES = {"sparse_conv": 12, "sparse_conv_dgrad": 12, "sparse_conv_wgrad": 12,
+                  "masked_stats": 19, "masked_stats_bwd": 18}
+
+# timed train steps; the prefetch queue (depth 2) and the plan its producer
+# holds are full when the timing starts, so the first PREFETCHED_STEPS steps
+# find their plans built and the rest show the steady state
+TRAIN_STEPS = 8
+PREFETCHED_STEPS = 3
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -60,6 +101,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call: the kernels' own time under torch.profiler,
+    without the host's launch gaps that cuda_ms sees when a call's host work
+    outlasts its kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
 
 
 def bound_ms(nbytes: float, ops: float, peak: str):
@@ -111,7 +169,8 @@ def check_sparse_conv(captured, torch):
 
 
 def check_masked_stats(torch, shapes, seed):
-    from robustpointclouds_tpu_torch.kernels.masked_stats import masked_stats, masked_stats_ref
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        _stats, masked_stats, masked_stats_ref)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
@@ -126,14 +185,129 @@ def check_masked_stats(torch, shapes, seed):
         if not (err <= MASKED_STATS_RTOL * scale) or cnt.item() != rcnt.item():
             raise RuntimeError(f"masked_stats [{n},{c}]: max error {err} over {scale}, "
                                f"count {cnt.item()} vs {rcnt.item()}")
+        # ms: the public call as serving makes it (no gradient: the launch
+        # itself); raw_ms: that launch (_stats) alone; autograd_ms: the
+        # public call on an input that needs a gradient (the autograd
+        # Function, as in training); device_ms: the kernels' device time
         t = cuda_ms(lambda: masked_stats(x, mask))
+        t_raw = cuda_ms(lambda: _stats(x, mask))
+        xg = x.detach().requires_grad_(True)
+        t_fn = cuda_ms(lambda: masked_stats(xg, mask))
+        t_dev = device_ms(lambda: _stats(x, mask))
         t_plain = cuda_ms(lambda: masked_stats_ref(x, mask), iters=5)
         t_lib = cuda_ms(lambda: torch.var_mean(x[mask].float(), dim=0, unbiased=False), iters=5)
         nbytes = x.numel() * x.element_size() + n + (2 * c + 1) * 4
         b_ms, by = bound_ms(nbytes, 5.0 * n * c, "f32")
-        rows.append(dict(n=n, c=c, dtype=str(dtype).replace("torch.", ""), ms=t,
-                         plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=by,
+        rows.append(dict(n=n, c=c, dtype=str(dtype).replace("torch.", ""), ms=t, raw_ms=t_raw,
+                         autograd_ms=t_fn, device_ms=t_dev, plain_ms=t_plain, library_ms=t_lib,
+                         bound_ms=b_ms, bound_by=by, max_abs_err=err))
+    return rows
+
+
+def check_sparse_conv_bwd(captured, torch):
+    """K1 dgrad and wgrad on the (feats, weight, idx, bwd_idx, mirror, g) of
+    the 12 convs of one train step, each against its plain version."""
+    from robustpointclouds_tpu_torch.kernels.sparse_conv import (
+        backward_kernel, sparse_conv_dgrad, sparse_conv_ref, sparse_conv_wgrad,
+        sparse_conv_wgrad_ref)
+
+    rows = []
+    tot = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                 "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0} for key in ("dgrad", "wgrad")}
+    for name, feats, kernel, idx, bwd_idx, mirror, g in captured:
+        n, cin = feats.shape
+        m, k = idx.shape
+        cout = kernel.shape[1]
+        eb = feats.element_size()
+        w_bwd = backward_kernel(kernel, k, mirror)
+        # dgrad: the forward's kernel on (g, w_bwd, bwd_idx)
+        out = sparse_conv_dgrad(g, w_bwd, bwd_idx)
+        ref = sparse_conv_ref(g, w_bwd, bwd_idx)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = max(ref.float().abs().max().item(), 1e-6)
+        if not (err <= SPARSE_CONV_RTOL * scale) or not torch.isfinite(out).all():
+            raise RuntimeError(f"sparse_conv_dgrad {name}: max error {err} over scale {scale}")
+        g_pad = torch.cat([g, g.new_zeros(1, cout)], 0)
+        bflat = bwd_idx.reshape(-1).long()
+        t = cuda_ms(lambda: sparse_conv_dgrad(g, w_bwd, bwd_idx))
+        t_plain = cuda_ms(lambda: sparse_conv_ref(g, w_bwd, bwd_idx), iters=5)
+        t_lib = cuda_ms(lambda: torch.matmul(
+            torch.index_select(g_pad, 0, bflat).view(n, k * cout), w_bwd), iters=5)
+        hits = int((bwd_idx < m).sum().item())
+        nbytes = bwd_idx.numel() * 4 + m * cout * eb + w_bwd.numel() * eb + n * cin * eb
+        ops = 2.0 * hits * cin * cout
+        b_ms, by = bound_ms(nbytes, ops, "bf16_tensor")
+        rows.append(dict(kernel="dgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
+                         ms=t, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=by,
                          max_abs_err=err))
+        _add(tot["dgrad"], t, t_plain, t_lib, b_ms, nbytes, ops, err)
+        # wgrad: dW [K*Cin, Cout] float32 over the forward index
+        dw = sparse_conv_wgrad(feats, g, idx)
+        ref = sparse_conv_wgrad_ref(feats, g, idx)
+        torch.cuda.synchronize()
+        err = (dw - ref).abs().max().item()
+        scale = max(ref.abs().max().item(), 1e-6)
+        if not (err <= WGRAD_RTOL * scale) or not torch.isfinite(dw).all():
+            raise RuntimeError(f"sparse_conv_wgrad {name}: max error {err} over scale {scale}")
+        feats_pad = torch.cat([feats, feats.new_zeros(1, cin)], 0)
+        flat = idx.reshape(-1).long()
+        t = cuda_ms(lambda: sparse_conv_wgrad(feats, g, idx))
+        t_plain = cuda_ms(lambda: sparse_conv_wgrad_ref(feats, g, idx), iters=5)
+        t_lib = cuda_ms(lambda: torch.matmul(
+            torch.index_select(feats_pad, 0, flat).view(m, k * cin).t(), g), iters=5)
+        hits = int((idx < n).sum().item())
+        nbytes = idx.numel() * 4 + n * cin * eb + m * cout * eb + k * cin * cout * 4
+        ops = 2.0 * hits * cin * cout
+        b_ms, by = bound_ms(nbytes, ops, "bf16_tensor")
+        rows.append(dict(kernel="wgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
+                         ms=t, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=by,
+                         max_abs_err=err))
+        _add(tot["wgrad"], t, t_plain, t_lib, b_ms, nbytes, ops, err)
+    for v in tot.values():
+        v["bound_by"] = "bytes" if v["bytes_ms"] >= v["ops_ms"] else "operations"
+    return rows, tot
+
+
+def _add(acc, t, t_plain, t_lib, b_ms, nbytes, ops, err):
+    acc["ms"] += t
+    acc["plain_ms"] += t_plain
+    acc["library_ms"] += t_lib
+    acc["bound_ms"] += b_ms
+    acc["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+    acc["ops_ms"] += ops / PEAK_OPS["bf16_tensor"] * 1e3
+    acc["err"] = max(acc["err"], err)
+
+
+def check_masked_stats_bwd(torch, shapes, seed):
+    """K2's VJP against its plain version; no single PyTorch call computes it."""
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        masked_stats, masked_stats_bwd, masked_stats_bwd_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for n, c, dtype in shapes:
+        x = (torch.randn(n, c, device="cuda", generator=g) * 3 + 1).to(dtype)
+        mask = torch.rand(n, device="cuda", generator=g) > 0.75
+        gm = torch.randn(c, device="cuda", generator=g)
+        gv = torch.randn(c, device="cuda", generator=g)
+        mean, _, cnt = masked_stats(x, mask)
+        dx = masked_stats_bwd(x, mask, mean, cnt, gm, gv)
+        ref = masked_stats_bwd_ref(x, mask, mean, cnt, gm, gv)
+        torch.cuda.synchronize()
+        err = (dx.float() - ref.float()).abs().max().item()
+        scale = max(ref.float().abs().max().item(), 1e-6)
+        dname = str(dtype).replace("torch.", "")
+        if not err <= STATS_BWD_RTOL[dname] * scale:
+            raise RuntimeError(f"masked_stats_bwd [{n},{c}] {dname}: max error {err} over {scale}")
+        t = cuda_ms(lambda: masked_stats_bwd(x, mask, mean, cnt, gm, gv))
+        t_dev = device_ms(lambda: masked_stats_bwd(x, mask, mean, cnt, gm, gv))
+        t_plain = cuda_ms(lambda: masked_stats_bwd_ref(x, mask, mean, cnt, gm, gv), iters=5)
+        nbytes = 2 * x.numel() * x.element_size() + n + (3 * c + 1) * 4
+        b_ms, by = bound_ms(nbytes, 5.0 * n * c, "f32")
+        rows.append(dict(n=n, c=c, dtype=dname, ms=t, device_ms=t_dev, plain_ms=t_plain,
+                         library_ms=None,
+                         bound_ms=b_ms, bound_by=by, max_abs_err=err))
     return rows
 
 
@@ -154,17 +328,32 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
+    from robustpointclouds_tpu_torch.cli.common import (
+        prefetch_iterator, synthetic_loader, with_plans)
     from robustpointclouds_tpu_torch.cli.export import export_serving
     from robustpointclouds_tpu_torch.data.native_plan import build_plan_native
     from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
     from robustpointclouds_tpu_torch.kernels import _build
-    from robustpointclouds_tpu_torch.kernels.masked_stats import masked_stats
-    from robustpointclouds_tpu_torch.kernels.sparse_conv import sparse_conv
+    from robustpointclouds_tpu_torch.kernels.masked_stats import masked_stats, masked_stats_bwd
+    from robustpointclouds_tpu_torch.kernels.sparse_conv import (
+        sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
     from robustpointclouds_tpu_torch.models.detection import anchor_head_predict
     from robustpointclouds_tpu_torch.models.voxelnet import (
         AdversarialVoxelNet, VoxelNetConfig, init_weights, plan_to_device)
     from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d
     from robustpointclouds_tpu_torch.ops.voxelize import VoxelizerConfig
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    counters = {"sparse_conv": sparse_conv, "sparse_conv_dgrad": sparse_conv_dgrad,
+                "sparse_conv_wgrad": sparse_conv_wgrad, "masked_stats": masked_stats,
+                "masked_stats_bwd": masked_stats_bwd}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -181,10 +370,12 @@ def main() -> int:
     _build.load_library("sparse_conv")
     nvcc_s = time.time() - t0
     t0 = time.time()
-    masked_stats(torch.ones(64, 4, device=dev), torch.ones(64, dtype=torch.bool, device=dev))
+    xs = torch.ones(64, 4, device=dev, requires_grad=True)
+    ms_mean, ms_var, _ = masked_stats(xs, torch.ones(64, dtype=torch.bool, device=dev))
+    (ms_mean.sum() + ms_var.sum()).backward()  # the VJP kernel's first launch
     torch.cuda.synchronize()
     triton_s = time.time() - t0
-    print(f"build: sparse_conv nvcc {nvcc_s:.1f} s, masked_stats triton first launch "
+    print(f"build: sparse_conv nvcc {nvcc_s:.1f} s, masked_stats + VJP triton first launches "
           f"{triton_s:.1f} s", flush=True)
 
     # ---- the full-width model and a B=6 request stream
@@ -227,14 +418,61 @@ def main() -> int:
     for r in stats_rows:
         print("masked_stats " + json.dumps(r), flush=True)
 
+    # the trainer (full width, bf16, B=6) and its input pipeline: host plans
+    # (native plan + anchor assignment) built in the prefetch thread
+    trainer = Trainer(cfg, TrainConfig(), device=dev)
+    trainer.init_state(args.seed)
+    builder = trainer.make_plan_builder()
+    loader = synthetic_loader(6, 1 + TRAIN_STEPS, num_points=20000, seed=args.seed,
+                              point_range=cfg.voxelizer.point_cloud_range)
+    train_iter = prefetch_iterator(with_plans(builder, loader(0)))
+
+    # warm-up train step, capturing each conv's inputs and output cotangent
+    train_captured, grads_out = [], {}
+
+    def capture_inputs(mod, a, name):
+        train_captured.append((name, a[0].detach().contiguous(),
+                               mod.img2col_kernel(a[0].dtype).detach(), a[1], a[2], a[3]))
+
+    def capture_g(mod, a, out, name):
+        out.register_hook(lambda g: grads_out.__setitem__(name, g.contiguous()))
+
+    convs = [(n, m) for n, m in trainer.model.named_modules() if isinstance(m, SparseConv3d)]
+    hooks = [m.register_forward_pre_hook(lambda mod, a, name=n: capture_inputs(mod, a, name))
+             for n, m in convs]
+    hooks += [m.register_forward_hook(lambda mod, a, out, name=n: capture_g(mod, a, out, name))
+              for n, m in convs]
+    batch, tplan = next(train_iter)
+    t0 = time.perf_counter()
+    warm_logs = trainer.train_step(batch, epoch=3, plan=tplan)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    for h in hooks:
+        h.remove()
+    if len(train_captured) != 12 or len(grads_out) != 12:
+        raise RuntimeError(f"expected 12 sparse convs in the train step, saw "
+                           f"{len(train_captured)} inputs and {len(grads_out)} cotangents")
+    print(f"train warm-up step: {warm_ms:.1f} ms, loss {float(warm_logs['loss']):.4f}, "
+          f"num_pos {float(warm_logs['num_pos']):.0f}", flush=True)
+    bwd_rows, bwd_tot = check_sparse_conv_bwd(
+        [(*c, grads_out[c[0]]) for c in train_captured], torch)
+    del train_captured, grads_out
+    for r in bwd_rows:
+        print("sparse_conv_bwd " + json.dumps(r), flush=True)
+    stats_bwd_rows = check_masked_stats_bwd(
+        torch, [(480000, 4, torch.float32), (480000, 128, torch.float32),
+                (480000, 128, torch.bfloat16), (96000, 64, torch.float32),
+                (96000, 64, torch.bfloat16)], args.seed)
+    for r in stats_bwd_rows:
+        print("masked_stats_bwd " + json.dumps(r), flush=True)
+
     # ---- phase 3: serving
     requests = [(request_batch(), attack) for attack in (False, True)
                 for _ in range(args.requests)]
     for (p, m), attack in requests[:1] + requests[args.requests:args.requests + 1]:
         serve(p, m, build_plan_native(p, m, cfg.voxelizer, 4), attack=attack)  # warm-up
     torch.cuda.synchronize()
-    sparse_conv.launches = 0
-    masked_stats.launches = 0
+    zero_counts()
     timings = []
     for (p, m), attack in requests:
         t0 = time.perf_counter()
@@ -251,10 +489,12 @@ def main() -> int:
             raise RuntimeError("label out of range")
         timings.append(dict(attack=attack, plan_ms=(t1 - t0) * 1e3, serve_ms=(t2 - t1) * 1e3,
                             valid=int(valid.sum())))
-    launches = {"sparse_conv": sparse_conv.launches, "masked_stats": masked_stats.launches}
+    launches = read_counts()
     n_clean = n_attack = args.requests
-    if launches["sparse_conv"] != 12 * (n_clean + n_attack) or launches["masked_stats"] != 2 * n_attack:
-        raise RuntimeError(f"unexpected kernel launches on the main path: {launches}")
+    expected = {"sparse_conv": 12 * (n_clean + n_attack), "sparse_conv_dgrad": 0,
+                "sparse_conv_wgrad": 0, "masked_stats": 2 * n_attack, "masked_stats_bwd": 0}
+    if launches != expected:
+        raise RuntimeError(f"unexpected kernel launches on the serving path: {launches}")
     for t in timings:
         print("request " + json.dumps(t), flush=True)
     for attack in (False, True):
@@ -263,6 +503,63 @@ def main() -> int:
               f"{sum(t['serve_ms'] for t in sel) / len(sel):.3f}, mean plan_ms "
               f"{sum(t['plan_ms'] for t in sel) / len(sel):.3f}; per request: sparse_conv 12 "
               f"launches, masked_stats {2 if attack else 0}", flush=True)
+
+    # ---- phase 4: training, timed steps at epoch 3 (adversary on)
+    names = ("middle_encoder.conv_input.0.weight", "backbone.blocks.0.0.weight",
+             "adversary.mlp_0.weight", "adversary.mlp_out.weight")
+    params = dict(trainer.model.named_parameters())
+    before = {k: params[k].detach().clone() for k in names}
+    torch.cuda.synchronize()
+    zero_counts()
+    steps = []
+    t_all = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch, tplan = next(train_iter)
+        t1 = time.perf_counter()
+        logs = trainer.train_step(batch, epoch=3, plan=tplan)
+        logs = {k: float(v) for k, v in logs.items()}  # waits for the step
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise RuntimeError(f"non-finite train logs: {logs}")
+        if logs["num_pos"] <= 0:
+            raise RuntimeError("train step without positive anchors")
+        steps.append(dict(wait_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3, loss=logs["loss"],
+                          num_pos=logs["num_pos"], l2=logs["perturbation_l2_norm"]))
+    train_s = time.perf_counter() - t_all
+    train_launches = read_counts()
+    for rest in train_iter:  # drain the prefetch thread
+        pass
+    expected = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    if train_launches != expected:
+        raise RuntimeError(f"unexpected kernel launches on the training path: {train_launches}, "
+                           f"expected {expected}")
+    if int(trainer.state.nan_count) != 0:
+        raise RuntimeError("NaN steps during the timed training")
+    for k in names:
+        if torch.equal(before[k], params[k].detach()):
+            raise RuntimeError(f"parameter {k} did not move in training")
+    for st in steps:
+        print("train step " + json.dumps(st), flush=True)
+    mean_step = sum(st["step_ms"] for st in steps) / len(steps)
+    # in the steady state each step waits for as long as the plan build
+    # outlasts a step
+    steady = steps[PREFETCHED_STEPS:]
+    steady_s = sum(st["wait_ms"] + st["step_ms"] for st in steady) / 1e3
+    builds = list(builder.timings)
+    for key in ("native_ms", "assign_ms", "plan_ms"):
+        print(f"plan build {key} (prefetch thread, {len(builds)} builds): "
+              f"{json.dumps([b[key] for b in builds])}", flush=True)
+    print(f"training B=6 full width: mean step_ms {mean_step:.3f} (host clock, step to "
+          f"synchronise); {6 * len(steps) / train_s:.3f} frames/s over all {len(steps)} "
+          f"timed steps; steady state over the last {len(steady)}: "
+          f"{6 * len(steady) / steady_s:.3f} frames/s, mean wait for a plan "
+          f"{sum(st['wait_ms'] for st in steady) / len(steady):.3f} ms; mean plan build "
+          f"{sum(b['plan_ms'] for b in builds) / len(builds):.3f} ms (native plan "
+          f"{sum(b['native_ms'] for b in builds) / len(builds):.3f}, anchor assignment "
+          f"{sum(b['assign_ms'] for b in builds) / len(builds):.3f}); per step: "
+          + ", ".join(f"{k} {v}" for k, v in TRAIN_LAUNCHES.items()), flush=True)
 
     # ---- small-input reference: float32 forward on the card vs on the CPU
     small = cfg._replace(
@@ -301,6 +598,42 @@ def main() -> int:
     print(f"small-grid float32 forward and decode + NMS ({int(cv.sum())} detections): "
           f"card agrees with the CPU", flush=True)
 
+    # small-grid float32 train step: gradients on the card vs on the CPU
+    import robustpointclouds_tpu_torch.nn.perturber as perturber
+
+    perturber.PERT_BF16 = False
+    tb = synthetic_kitti_batch(np.random.RandomState(args.seed + 2), batch_size=2, num_points=600,
+                               max_gt=8, num_objects=3,
+                               point_range=small.voxelizer.point_cloud_range)
+    grads = []
+    sd = None
+    for d in (torch.device("cpu"), dev):
+        tr = Trainer(small, TrainConfig(), device=d)
+        tr.init_state(args.seed, state_dict=sd)
+        sd = sd or {k: v.cpu() for k, v in tr.model.state_dict().items()}
+        splan_t = tr.make_plan_builder()(tb.points, tb.points_mask, tb.gt_boxes, tb.gt_labels,
+                                         tb.gt_mask)
+        gt, splan_d = tr._to_device(tb, splan_t)
+        g_d, logs_d, nan_d = tr._grads(gt, 5.0, splan_d)
+        if bool(nan_d):
+            raise RuntimeError(f"small-grid train step on {d} is a NaN step")
+        grads.append(({k: v.cpu() for k, v in g_d.items()}, float(logs_d["loss"])))
+    perturber.PERT_BF16 = True
+    (gc, lc), (gg, lg) = grads
+    gmax = max(v.abs().max().item() for v in gc.values())
+    worst = 0.0
+    for k, ref in gc.items():
+        scale = max(ref.abs().max().item(), TRAIN_GRAD_FLOOR * gmax / TRAIN_GRAD_RTOL)
+        err = (gg[k] - ref).abs().max().item()
+        worst = max(worst, err / scale)
+        if not err <= TRAIN_GRAD_RTOL * scale:
+            raise RuntimeError(f"small-grid float32 train gradient {k}: card vs CPU error {err} "
+                               f"over scale {scale}")
+    if not abs(lc - lg) <= 1e-4 * abs(lc):
+        raise RuntimeError(f"small-grid float32 train loss: card {lg} vs CPU {lc}")
+    print(f"small-grid float32 train step: {len(gc)} gradients agree card vs CPU "
+          f"(worst {worst:.2e} of scale), loss {lg:.6f} vs {lc:.6f}", flush=True)
+
     k2 = stats_rows[0]
     kernels = [
         {"name": "sparse_conv", "route": "cuda",
@@ -317,6 +650,23 @@ def main() -> int:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]
+    for key in ("dgrad", "wgrad"):
+        t = bwd_tot[key]
+        kernels.append(
+            {"name": f"sparse_conv_{key}", "route": "cuda",
+             "source": "robustpointclouds_tpu_torch/csrc/sparse_conv.cu",
+             "replaces": "robustpointclouds_tpu/kernels/mp_gather.py:192",
+             "launches": train_launches[f"sparse_conv_{key}"], "max_abs_err": t["err"],
+             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kb = stats_bwd_rows[0]
+    kernels.append(
+        {"name": "masked_stats_bwd", "route": "triton",
+         "source": "robustpointclouds_tpu_torch/kernels/masked_stats_triton.py",
+         "replaces": "robustpointclouds_tpu/kernels/masked_stats.py:102",
+         "launches": train_launches["masked_stats_bwd"], "max_abs_err": kb["max_abs_err"],
+         "ms": kb["ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
+         "bound_by": kb["bound_by"], "library_ms": None})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

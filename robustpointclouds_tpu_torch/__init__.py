@@ -10,9 +10,10 @@ Layering (bottom-up):
   ops/       box geometry, coder, anchors, NMS, sparse-index helpers
   nn/        torch modules (VFE, SparseEncoder, SECOND, SECONDFPN,
              Anchor3DHead, VoxelPerturber, MaskedBatchNorm)
-  models/    AdversarialVoxelNet + anchor-head decoding
+  models/    AdversarialVoxelNet, anchor-head targets, losses and decoding
+  train/     the adversarial train step (two optimizer chains, NaN ladder)
   data/      native sparse-plan builder (ctypes over csrc/plan.cpp),
              synthetic KITTI-like scenes
-  tools/     weight bridge from the JAX package's parameter trees
-  cli/       the serving forward
+  tools/     weight bridge from the JAX package's parameter trees, profilers
+  cli/       the serving forward and the training entry point
 """

@@ -1,4 +1,4 @@
-"""Triton source of the masked-statistics kernel (see kernels/masked_stats.py).
+"""Triton sources of the masked-statistics kernel and its VJP (see kernels/masked_stats.py).
 
 This module imports triton at the top, so it is imported only from inside
 the launching function, on a machine that has Triton and a card.
@@ -15,6 +15,16 @@ blocks run in parallel and in no order, so the reduction is two passes:
      running total).
 What bounds it: one read of x and the mask; a few flops per byte, so bytes.
 The partials are about 1/BLOCK_N of x and stay in L2.
+
+`_bwd_kernel` replaces the analytic VJP `_stats_bwd`
+(robustpointclouds_tpu/kernels/masked_stats.py:102), which XLA fuses into
+one elementwise pass on the TPU:
+    dx = m * (g_mean + 2 * g_var * (x - mean)) / max(cnt, 1)
+One program per BLOCK_N rows reads x and the mask once and writes dx once in
+x's dtype; the per-channel vectors stay in registers. Bound by bytes (a few
+flops per element, no tensor-core work), so Triton issues the same traffic a
+CUDA kernel would. A missing g_mean or g_var (HAS_GMEAN / HAS_GVAR = 0)
+counts as zero.
 """
 import torch
 import triton
@@ -90,3 +100,40 @@ def launch(x, mask_u8, mean, var, cnt, n_rows: int, n_cols: int):
     block_p = max(16, min(128, 8192 // block_c))
     _combine_kernel[(1,)](part_cnt, part_mean, part_m2, mean, var, cnt, n_parts, n_cols,
                           BLOCK_P=block_p, BLOCK_C=block_c, num_warps=4)
+
+
+@triton.jit
+def _bwd_kernel(x_ptr, m_ptr, mean_ptr, cnt_ptr, gm_ptr, gv_ptr, dx_ptr, n_rows, n_cols,
+                HAS_GMEAN: tl.constexpr, HAS_GVAR: tl.constexpr,
+                BLOCK_N: tl.constexpr, BLOCK_C: tl.constexpr):
+    pid = tl.program_id(0)
+    rows = pid * BLOCK_N + tl.arange(0, BLOCK_N)
+    cols = tl.arange(0, BLOCK_C)
+    rmask = rows < n_rows
+    cmask = cols < n_cols
+    lmask = rmask[:, None] & cmask[None, :]
+    offs = rows[:, None].to(tl.int64) * n_cols + cols[None, :]
+    valid = tl.load(m_ptr + rows, mask=rmask, other=0).to(tl.float32)
+    inv_cnt = 1.0 / tl.maximum(tl.load(cnt_ptr), 1.0)
+    d = tl.zeros([BLOCK_N, BLOCK_C], dtype=tl.float32)
+    if HAS_GMEAN:
+        gm = tl.load(gm_ptr + cols, mask=cmask, other=0.0)
+        d += gm[None, :]
+    if HAS_GVAR:
+        x = tl.load(x_ptr + offs, mask=lmask, other=0.0).to(tl.float32)
+        mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
+        gv = tl.load(gv_ptr + cols, mask=cmask, other=0.0)
+        d += 2.0 * gv[None, :] * (x - mean[None, :])
+    dx = valid[:, None] * d * inv_cnt
+    tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=lmask)
+
+
+def launch_bwd(x, mask_u8, mean, cnt, g_mean, g_var, dx, n_rows: int, n_cols: int):
+    """dx (preallocated in x's dtype) on the current stream; g_mean / g_var may be None."""
+    block_c = max(triton.next_power_of_2(n_cols), 2)
+    block_n = max(16, min(1024, 8192 // block_c))
+    _bwd_kernel[(triton.cdiv(n_rows, block_n),)](
+        x, mask_u8, mean, cnt, mean if g_mean is None else g_mean,
+        mean if g_var is None else g_var, dx, n_rows, n_cols,
+        HAS_GMEAN=g_mean is not None, HAS_GVAR=g_var is not None,
+        BLOCK_N=block_n, BLOCK_C=block_c, num_warps=4)

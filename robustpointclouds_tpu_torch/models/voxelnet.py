@@ -5,6 +5,10 @@ VoxelPerturber behind the gradient-reversal `grad_scale`) -> HardSimpleVFE ->
 SparseEncoder -> SECONDBackbone -> SECONDFPN -> Anchor3DHead. The adversary
 runs in training from `adversary_start_epoch` on, and always with
 `attack=True` (the evaluation-under-attack mode).
+
+Training helpers: `anchor_assign_plan` (the host plan's anchor assignment,
+CPU torch in the prefetch thread) and `adversary_direct_terms` (the
+adversary's own loss terms, added to the single train scalar).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from ..ops import anchors as anchor_ops
 from ..ops.grad import grad_scale
 from ..ops.sparse import SparseGrid
 from ..ops.voxelize import VoxelizerConfig
+from ..ops import assigner
 from .detection import AnchorHeadConfig
 
 
@@ -207,3 +212,70 @@ def init_weights(model: AdversarialVoxelNet, generator: torch.Generator) -> None
                         mod.bias.fill_(-4.595 if name.endswith("conv_cls") else 0.0)
         elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.reset_parameters()
+
+
+def anchor_assign_plan(gt_boxes, gt_labels, gt_mask, cfg: VoxelNetConfig,
+                       anchors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Batched anchor Max-IoU assignment as a plan group (numpy arrays [B, A]).
+
+    Parameter-free (static anchors vs GT boxes), so the O(A*G) IoU matrix runs
+    on the host, in CPU torch, beside the native plan build; the device keeps
+    only the elementwise target encoding. `anchors`: (anchors, classes) CPU
+    tensors from cfg.make_anchors(), to skip rebuilding them per call.
+    """
+    if anchors is None:
+        a, c = cfg.make_anchors()
+        anchors = (torch.from_numpy(a), torch.from_numpy(c))
+    head = cfg.head
+    res = assigner.assign(anchors[0], anchors[1], torch.as_tensor(np.asarray(gt_boxes, np.float32)),
+                          torch.as_tensor(np.asarray(gt_labels, np.int32)),
+                          torch.as_tensor(np.asarray(gt_mask, bool)),
+                          head.pos_iou_thr, head.neg_iou_thr, head.min_pos_iou)
+    return {"labels": res.labels.numpy(), "matched_gt": res.matched_gt.numpy(),
+            "pos_mask": res.pos_mask.numpy(), "neg_mask": res.neg_mask.numpy()}
+
+
+def adversary_direct_terms(det_losses: Dict[str, torch.Tensor], adv_aux: Dict[str, torch.Tensor],
+                           epoch: float, regularization_weight: float = 0.02):
+    """Adversary-only loss terms, added to the single train scalar (with the
+    gradient reversal on the perturbation delta this is the reference's
+    adversary objective, adversarial_voxelnet.py:203-413):
+
+      -10*(l2 - 0.05) + 1.01*(3*intensity + 10*bias + 10*imbalance)
+      + reg_weight * reg_scale(epoch) * weak(l2) * l2
+
+    reg_scale = max(0.1, 1 - (epoch+1)/30); weak = 0.01/0.1/0.3/1 for l2 below
+    0.001/0.005/0.01/above (on the detached l2). Returns (total, logs); the
+    logs clamp the reference's way but never enter the gradient.
+    """
+    l2 = adv_aux["l2_norm"]
+    l2_magnitude = -10.0 * (l2 - 0.05)
+    aux_terms = (3.0 * adv_aux["intensity_loss"] + 10.0 * adv_aux["bias_loss"]
+                 + 10.0 * adv_aux["imbalance_loss"])
+    reg_scale = max(0.1, 1.0 - (float(epoch) + 1.0) / 30.0)
+    l2s = l2.detach()
+    weak = torch.where(l2s < 0.001, 0.01, torch.where(l2s < 0.005, 0.1,
+                                                      torch.where(l2s < 0.01, 0.3, 1.0)))
+    loss_reg = regularization_weight * reg_scale * weak * l2
+    total = l2_magnitude + 1.01 * aux_terms + loss_reg
+
+    det_total = l2.new_zeros(())
+    for k, v in det_losses.items():
+        if k.startswith("loss"):
+            det_total = det_total + torch.clamp(torch.nan_to_num(v), 0.0, 100.0)
+    det_total = torch.clamp(det_total, 0.0, 500.0)
+    zero = l2.new_zeros(())
+    logs = {
+        "loss_adversarial": torch.clamp(-det_total + l2_magnitude.detach(), -10.0, 10.0),
+        "loss_intensity": 3.0 * adv_aux["intensity_loss"],
+        "loss_bias": 10.0 * adv_aux["bias_loss"],
+        "loss_imbalance": 10.0 * adv_aux["imbalance_loss"],
+        "loss_l2_regularization": loss_reg,
+        "perturbation_l2_norm": l2s,
+        "l2_percentage": adv_aux.get("l2_percentage", zero).detach(),
+        "max_perturbation": adv_aux.get("max_perturbation", zero).detach(),
+        "mean_perturbation": adv_aux.get("mean_perturbation", zero).detach(),
+        "std_perturbation": adv_aux.get("std_perturbation", zero).detach(),
+    }
+    return total, logs

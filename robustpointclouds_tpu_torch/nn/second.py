@@ -39,15 +39,30 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm computed in float32, output in the input's dtype."""
+    """BatchNorm computed in float32, output in the input's dtype.
+
+    Train mode follows flax's nn.BatchNorm (the JAX backbone and neck): the
+    batch mean and the *biased* variance normalise the batch and update the
+    running stats (torch momentum 0.1 = flax momentum 0.9). torch's own
+    training-mode batch_norm would update running_var with the unbiased
+    variance, n/(n-1) larger.
+    """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-3, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, self.training, self.momentum, self.eps)
-        return y.to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, self.momentum, self.eps).to(x.dtype)
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * scale[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(x.dtype)
 
 
 class SECONDBackbone(nn.Module):

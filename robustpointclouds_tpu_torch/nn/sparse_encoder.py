@@ -6,7 +6,9 @@ z-padding 0); conv_out: strided k(3,1,1) s(2,1,1) (-> 128). Every conv is
 the gather-GEMM kernel (kernels/sparse_conv.py) over a dense neighbour
 index that ops/sparse.py derives from the host plan, followed by
 MaskedBatchNorm, ReLU and the row mask. A dense scatter and a z-fold end the
-encoder.
+encoder. Each conv also gets its backward index for the gather-only
+backward: a submanifold conv its own forward index read with mirrored taps,
+a strided conv (the three downs and conv_out) the plan's inverse `inv`.
 
 Module names follow the mmdet3d state_dict (`conv_input`,
 `encoder_layers.encoder_layerN.j`, `conv_out`, each a `0` conv + `1` BN
@@ -23,7 +25,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..kernels.sparse_conv import sparse_conv
+from ..kernels.sparse_conv import sparse_conv_train
 from ..ops import sparse
 from .layers import MaskedBatchNorm
 
@@ -57,8 +59,13 @@ class SparseConv3d(nn.Module):
         cout = self.weight.shape[0]
         return self.weight.permute(1, 2, 3, 4, 0).reshape(-1, cout).to(dtype).contiguous()
 
-    def forward(self, feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        return sparse_conv(feats.contiguous(), self.img2col_kernel(feats.dtype), idx)
+    def forward(self, feats: torch.Tensor, idx: torch.Tensor,
+                bwd_idx: torch.Tensor, mirror: bool) -> torch.Tensor:
+        """idx: forward index [M, K]; bwd_idx: the backward index (idx itself
+        with `mirror=True` for a submanifold conv, the inverse index for a
+        strided one). The weight's gradient stays float32."""
+        return sparse_conv_train(feats.contiguous(), self.img2col_kernel(torch.float32),
+                                 idx, bwd_idx, mirror)
 
 
 class SparseConvBlock(nn.Sequential):
@@ -71,9 +78,13 @@ class SparseConvBlock(nn.Sequential):
                          MaskedBatchNorm(out_channels, dtype=dtype))
         self.dtype = dtype
 
-    def forward(self, feats: torch.Tensor, out_mask: torch.Tensor,
-                idx: torch.Tensor) -> torch.Tensor:
-        out = self[0](feats.to(self.dtype), idx)
+    def forward(self, feats: torch.Tensor, out_mask: torch.Tensor, idx: torch.Tensor,
+                inv: torch.Tensor = None) -> torch.Tensor:
+        """Submanifold when `inv` is None, else strided with inverse index `inv`."""
+        if inv is None:
+            out = self[0](feats.to(self.dtype), idx, idx, True)
+        else:
+            out = self[0](feats.to(self.dtype), idx, inv, False)
         out = torch.relu(self[1](out, out_mask))
         return torch.where(out_mask[:, None], out, torch.zeros_like(out))
 
@@ -130,7 +141,7 @@ class SparseEncoder(nn.Module):
                 if i != 0 and j == 0:
                     st = plan[f"down{i}"]
                     down_idx = sparse.inverse_from_forward(st["inv"], st["ids"].shape[0])
-                    x = block(x, st["mask"], down_idx)
+                    x = block(x, st["mask"], down_idx, st["inv"])
                     shape = _down_shape(shape, *_down_geom(n_stages, i))
                     mask = st["mask"]
                     idx = relation_index(plan[f"rel{i}"], st["ids"])
@@ -138,7 +149,7 @@ class SparseEncoder(nn.Module):
                     x = block(x, mask, idx)
 
         st = plan["out"]
-        x = self.conv_out(x, st["mask"], st["idx"])
+        x = self.conv_out(x, st["mask"], st["idx"], st["inv"])
         out_grid = sparse.SparseGrid(st["ids"], st["coords"], st["mask"],
                                      _down_shape(shape, *_OUT_GEOM))
         dense = sparse.scatter_to_dense(x, out_grid)  # [B, Dz, H', W', C]

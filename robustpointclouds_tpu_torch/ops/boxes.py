@@ -1,7 +1,9 @@
 """Box geometry: rotated BEV IoU by polygon clipping (float32 throughout).
 
 Counterpart of robustpointclouds_tpu/ops/boxes.py (box_bev_corners,
-rotated_bev_iou and its clipping helpers, boxes3d_to_bev, limit_period).
+rotated_bev_iou and its clipping helpers, boxes3d_to_bev, limit_period, and
+the assigner's nearest_bev_boxes / aligned_bev_iou / nearest_bev_iou, which
+keep the JAX op order so the assignment is bit-equal).
 The JAX version vmaps a per-pair function; here every helper broadcasts over
 leading dimensions instead, so one call covers [..., N, M] pair grids
 (batch x class x pre-NMS boxes in ops/nms.py).
@@ -116,6 +118,36 @@ def rotated_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tenso
 def boxes3d_to_bev(boxes: torch.Tensor) -> torch.Tensor:
     """[..., 7] -> [..., 5] BEV box (x, y, dx, dy, yaw)."""
     return boxes[..., [0, 1, 3, 4, 6]]
+
+
+def nearest_bev_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """Rotation-snapped axis-aligned BEV boxes [..., 4] = (x1, y1, x2, y2) from
+    [..., 7] or [..., 5] BEV boxes (mmdet3d BboxOverlapsNearest3D): yaw snaps
+    to the nearest axis; the extents swap when the box is closer to vertical."""
+    if boxes.shape[-1] == 7:
+        boxes = boxes3d_to_bev(boxes)
+    x, y, dx, dy, yaw = boxes.unbind(-1)
+    rot = torch.abs(torch.remainder(yaw, math.pi))
+    swap = (rot > math.pi / 4) & (rot < 3 * math.pi / 4)
+    ex = torch.where(swap, dy, dx) * 0.5
+    ey = torch.where(swap, dx, dy) * 0.5
+    return torch.stack([x - ex, y - ey, x + ex, y + ey], dim=-1)
+
+
+def aligned_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of axis-aligned boxes: [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+    lt = torch.maximum(boxes_a[..., :, None, :2], boxes_b[..., None, :, :2])
+    rb = torch.minimum(boxes_a[..., :, None, 2:], boxes_b[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (boxes_a[..., 2] - boxes_a[..., 0]) * (boxes_a[..., 3] - boxes_a[..., 1])
+    area_b = (boxes_b[..., 2] - boxes_b[..., 0]) * (boxes_b[..., 3] - boxes_b[..., 1])
+    return inter / torch.clamp(area_a[..., :, None] + area_b[..., None, :] - inter, min=_EPS)
+
+
+def nearest_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """BboxOverlapsNearest3D IoU of 7-DoF boxes: [..., N, 7] x [..., M, 7] -> [..., N, M]."""
+    return aligned_bev_iou(nearest_bev_boxes(boxes_a), nearest_bev_boxes(boxes_b))
 
 
 def limit_period(val: torch.Tensor, offset: float = 0.5, period: float = math.pi) -> torch.Tensor:

@@ -13,8 +13,10 @@ class GradScale(torch.autograd.Function):
     perturbation delta)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, scale: float) -> torch.Tensor:
-        ctx.scale = float(scale)
+    def forward(ctx, x: torch.Tensor, scale) -> torch.Tensor:
+        # a float, or a 0-d tensor (the trainer's device-side kill switch
+        # enters the factor without a host sync)
+        ctx.scale = scale if isinstance(scale, torch.Tensor) else float(scale)
         return x.view_as(x)
 
     @staticmethod
