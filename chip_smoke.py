@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe and evaluation paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit; the kernels' build time (the CUDA
-     sparse convs with nvcc into build/torch_kernels/, the Triton masked
-     statistics and their VJP at their first launch);
+     sparse convs and gather probes with nvcc into build/torch_kernels/, one
+     nvcc per source, started together; the Triton masked statistics and
+     their VJP at their first launch);
   2. kernels: the sparse-conv gather-GEMM on the inputs of each of the 12
      encoder convs of a full-width B=6 KITTI forward; its dgrad and wgrad on
      the inputs (feats, g, idx, backward index) of the 12 convs captured
@@ -32,7 +33,24 @@ Phases (any failure exits non-zero and prints no result):
      launch counts; prints ms per step, frames/s and each plan build's
      native-plan and anchor-assignment ms. A
      float32 train step's gradients on a small grid are held against the
-     same step on the CPU.
+     same step on the CPU;
+  5. the gather probes: tools/probe_gather's main checks the four gather
+     kernels against their plain versions at the probe's small shape
+     (exact) and times the row and element gathers at the sparse conv's
+     table size against the bound, the plain version and index_select;
+  6. evaluation: phase 4's trained state is saved by the port's
+     CheckpointManager; cli/evaluate_kitti_3class's entry restores it and
+     scores the full-width model at B=6, clean, on synthetic 20000-point
+     frames and on tests/fixtures/kitti_mini through kitti_val_loader
+     (calib and 2D boxes give the 2d/aos metrics; padding rows are not
+     scored); evaluate_kitti_adversarial_attack's entry scores one
+     synthetic batch clean and under --method learned, and clean and under
+     --method pgd (10 steps). The launch counters are zeroed before each
+     entry and read after (per batch: clean 12 sparse-conv forwards; the
+     learned attack adds 12 forwards and 2 masked statistics; PGD-K adds
+     12*(K+1) forwards and 12*K input gradients, no weight gradient); each
+     batch's host plan, device and metric ms are printed, and the device's
+     idle share over one batch of each path under torch.profiler.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -41,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -85,6 +104,11 @@ TRAIN_LAUNCHES = {"sparse_conv": 12, "sparse_conv_dgrad": 12, "sparse_conv_wgrad
 # find their plans built and the rest show the steady state
 TRAIN_STEPS = 8
 PREFETCHED_STEPS = 3
+
+# evaluation: synthetic frames per clean entry and per attack entry (B=6)
+EVAL_CLEAN_FRAMES = 12
+EVAL_ATTACK_FRAMES = 6
+PGD_STEPS = 10  # evaluate_kitti_adversarial_attack's default
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -328,12 +352,16 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
+    from robustpointclouds_tpu_torch.cli import evaluate_kitti_3class as eval_cli
+    from robustpointclouds_tpu_torch.cli import evaluate_kitti_adversarial_attack as attack_cli
     from robustpointclouds_tpu_torch.cli.common import (
-        prefetch_iterator, synthetic_loader, with_plans)
+        prefetch_iterator, run_evaluation, synthetic_loader, with_plans)
     from robustpointclouds_tpu_torch.cli.export import export_serving
     from robustpointclouds_tpu_torch.data.native_plan import build_plan_native
     from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
     from robustpointclouds_tpu_torch.kernels import _build
+    from robustpointclouds_tpu_torch.kernels.gather import (
+        gather_elems, gather_onehot, gather_row_loop, gather_rows)
     from robustpointclouds_tpu_torch.kernels.masked_stats import masked_stats, masked_stats_bwd
     from robustpointclouds_tpu_torch.kernels.sparse_conv import (
         sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
@@ -342,14 +370,18 @@ def main() -> int:
         AdversarialVoxelNet, VoxelNetConfig, init_weights, plan_to_device)
     from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d
     from robustpointclouds_tpu_torch.ops.voxelize import VoxelizerConfig
+    from robustpointclouds_tpu_torch.tools import probe_gather
+    from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
     from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
 
     counters = {"sparse_conv": sparse_conv, "sparse_conv_dgrad": sparse_conv_dgrad,
                 "sparse_conv_wgrad": sparse_conv_wgrad, "masked_stats": masked_stats,
                 "masked_stats_bwd": masked_stats_bwd}
+    gather_counters = {"gather_rows": gather_rows, "gather_elems": gather_elems,
+                       "gather_row_loop": gather_row_loop, "gather_onehot": gather_onehot}
 
     def zero_counts():
-        for fn in counters.values():
+        for fn in (*counters.values(), *gather_counters.values()):
             fn.launches = 0
 
     def read_counts():
@@ -364,10 +396,12 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     t0 = time.time()
-    handles = [(n, *_build.start_build(n)) for n in ("sparse_conv",)]  # one nvcc per source
+    sources = ("sparse_conv", "gather_probe")
+    handles = [(n, *_build.start_build(n)) for n in sources]  # one nvcc per source
     for _, handle, so in handles:
         _build.finish_build(handle, so)
-    _build.load_library("sparse_conv")
+    for n in sources:
+        _build.load_library(n)
     nvcc_s = time.time() - t0
     t0 = time.time()
     xs = torch.ones(64, 4, device=dev, requires_grad=True)
@@ -375,7 +409,8 @@ def main() -> int:
     (ms_mean.sum() + ms_var.sum()).backward()  # the VJP kernel's first launch
     torch.cuda.synchronize()
     triton_s = time.time() - t0
-    print(f"build: sparse_conv nvcc {nvcc_s:.1f} s, masked_stats + VJP triton first launches "
+    print(f"build: sparse_conv + gather_probe nvcc {nvcc_s:.1f} s, masked_stats + VJP triton "
+          f"first launches "
           f"{triton_s:.1f} s", flush=True)
 
     # ---- the full-width model and a B=6 request stream
@@ -561,6 +596,16 @@ def main() -> int:
           f"{sum(b['assign_ms'] for b in builds) / len(builds):.3f}); per step: "
           + ", ".join(f"{k} {v}" for k, v in TRAIN_LAUNCHES.items()), flush=True)
 
+    # phase 6 starts from phase 4's trained state, saved by the port's
+    # checkpoint manager into the git-ignored work_dirs/
+    ckpt_dir = os.path.join(REPO, "work_dirs", "chip_smoke_eval")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt_dir).save(3, trainer)
+    print(f"checkpoint: the trained state saved as epoch 3 in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    del trainer, builder, train_iter
+
     # ---- small-input reference: float32 forward on the card vs on the CPU
     small = cfg._replace(
         voxelizer=VoxelizerConfig((0.0, -8.0, -3.0, 16.0, 8.0, 1.0), (0.5, 0.5, 0.125), 3, 512),
@@ -634,6 +679,103 @@ def main() -> int:
     print(f"small-grid float32 train step: {len(gc)} gradients agree card vs CPU "
           f"(worst {worst:.2e} of scale), loss {lg:.6f} vs {lc:.6f}", flush=True)
 
+    # ---- phase 5: the gather probes through their tool's entry point
+    zero_counts()
+    probe = probe_gather.main([])
+    probe_launches = {k: fn.launches for k, fn in gather_counters.items()}
+    wrong = [f"{r['label']} at [{r['n']}, {r['c']}] x {r['m']}"
+             for rows in probe.values() for r in rows if r["max_abs_err"] != 0.0]
+    if wrong:
+        raise RuntimeError(f"gather kernels disagree with their plain versions: {wrong}")
+    small = {r["kernel"]: r for r in probe["small"]}
+    scale = {r["kernel"]: r for r in probe["scale"]}
+    if set(scale) != {"gather_rows", "gather_elems"} or not all(probe_launches.values()):
+        raise RuntimeError(f"gather probe: timed {sorted(scale)}, launches {probe_launches}")
+    print(f"gather probe launches: {json.dumps(probe_launches)}", flush=True)
+
+    # ---- phase 6: evaluation through the CLIs' entry points, from the checkpoint
+    classes = cfg.class_names
+    lidar_keys = {f"{c}_{m}_{d}" for c in classes for m in ("3d", "bev")
+                  for d in ("easy", "moderate", "hard")} | {"mAP_3d_moderate", "num_frames"}
+    image_keys = {f"{c}_{m}_{d}" for c in classes for m in ("2d", "aos")
+                  for d in ("easy", "moderate", "hard")}
+
+    def expect(batches, fwd_per_batch, dgrad_per_batch=0, stats_per_batch=0):
+        return {"sparse_conv": fwd_per_batch * batches,
+                "sparse_conv_dgrad": dgrad_per_batch * batches, "sparse_conv_wgrad": 0,
+                "masked_stats": stats_per_batch * batches, "masked_stats_bwd": 0}
+
+    eval_summary = {}
+
+    def eval_entry(name, entry, argv, expected, keys, frames):
+        zero_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        res = entry(argv, timings=timings)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        got = read_counts()
+        if got != expected:
+            raise RuntimeError(f"eval {name}: kernel launches {got}, expected {expected}")
+        for run, r in res.items():
+            if r is None or set(r) != keys or r["num_frames"] != frames:
+                raise RuntimeError(f"eval {name} {run}: {r if r is None else sorted(set(r) ^ keys)}"
+                                   f", {None if r is None else r['num_frames']} frames")
+            t = timings[run]
+            for i, b in enumerate(t["batches"]):
+                print(f"eval {name} {run} batch {i}: " + json.dumps(b), flush=True)
+            mean = {k: sum(b[k] for b in t["batches"]) / len(t["batches"])
+                    for k in ("plan_ms", "device_ms", "metric_ms")}
+            mean["ap_ms"] = t["ap_ms"]
+            eval_summary[f"{name} {run}"] = mean
+            print(f"eval {name} {run} (B=6, full width, {len(t['batches'])} batches): mean per "
+                  f"batch " + ", ".join(f"{k} {v:.3f}" for k, v in mean.items())
+                  + f"; mAP_3d_moderate {r['mAP_3d_moderate']:.3f}", flush=True)
+        print(f"eval {name}: {wall_s:.2f} s through the entry point; launches {json.dumps(got)}",
+              flush=True)
+
+    kitti_mini = os.path.join(REPO, "tests", "fixtures", "kitti_mini")
+    n_clean = EVAL_CLEAN_FRAMES // 6
+    n_attack = EVAL_ATTACK_FRAMES // 6
+    eval_entry("clean synthetic", eval_cli.main,
+               ["--mode", "clean", "--checkpoint", ckpt_dir, "--synthetic", "--limit",
+                str(EVAL_CLEAN_FRAMES)], expect(n_clean, 12), lidar_keys, EVAL_CLEAN_FRAMES)
+    # the fixture's val split lists one frame: one batch of 1 frame + 5 padding rows
+    eval_entry("clean kitti_mini", eval_cli.main,
+               ["--mode", "clean", "--checkpoint", ckpt_dir, "--data-root", kitti_mini],
+               expect(1, 12), lidar_keys | image_keys, 1)
+    eval_entry("learned", attack_cli.main,
+               ["--checkpoint", ckpt_dir, "--synthetic", "--limit", str(EVAL_ATTACK_FRAMES),
+                "--method", "learned"],
+               expect(n_attack, 12 + 12, 0, 2), lidar_keys, EVAL_ATTACK_FRAMES)
+    eval_entry("pgd", attack_cli.main,
+               ["--checkpoint", ckpt_dir, "--synthetic", "--limit", str(EVAL_ATTACK_FRAMES),
+                "--method", "pgd", "--pgd-steps", str(PGD_STEPS)],
+               expect(n_attack, 12 + 12 * (PGD_STEPS + 1), 12 * PGD_STEPS), lidar_keys,
+               EVAL_ATTACK_FRAMES)
+
+    # the device's idle share over one synthetic batch of each path
+    etr = Trainer(cfg, TrainConfig(), device=dev)
+    etr.init_state(args.seed)
+    CheckpointManager(ckpt_dir).restore(etr)
+    ebatch = next(iter(synthetic_loader(6, 1, num_points=20000, seed=999,
+                                        point_range=cfg.voxelizer.point_cloud_range)(0)))
+    for name, kw in (("clean", {}), ("learned", dict(attack=True)),
+                     ("pgd", dict(attack=True, attack_method="pgd", attack_steps=PGD_STEPS))):
+        run_evaluation(etr, [ebatch], **kw)  # warm-up
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_evaluation(etr, [ebatch], **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        print(f"eval {name} under torch.profiler (one B=6 batch): device busy {busy_ms:.3f} ms "
+              f"of {wall_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}", flush=True)
+    del etr
+
     k2 = stats_rows[0]
     kernels = [
         {"name": "sparse_conv", "route": "cuda",
@@ -667,6 +809,18 @@ def main() -> int:
          "launches": train_launches["masked_stats_bwd"], "max_abs_err": kb["max_abs_err"],
          "ms": kb["ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
          "bound_by": kb["bound_by"], "library_ms": None})
+    probe_src = "robustpointclouds_tpu_torch/csrc/gather_probe.cu"
+    probe_tpu = "robustpointclouds_tpu/tools/probe_mosaic_gather.py"
+    for name, row, line in (("gather_rows", scale["gather_rows"], 118),
+                            ("gather_elems", scale["gather_elems"], 65),
+                            ("gather_row_loop", small["gather_row_loop"], 65),
+                            ("gather_onehot", small["gather_onehot"], 65)):
+        kernels.append(
+            {"name": name, "route": "cuda", "source": probe_src,
+             "replaces": f"{probe_tpu}:{line}", "launches": probe_launches[name],
+             "max_abs_err": max(small[name]["max_abs_err"], row["max_abs_err"]),
+             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,27 +1,38 @@
-"""Shared CLI machinery: the training driver and metric logging (counterpart of robustpointclouds_tpu/cli/common.py).
+"""Shared CLI machinery: the training and evaluation drivers and metric logging (counterpart of robustpointclouds_tpu/cli/common.py).
 
-One explicit loop: data -> host plan in the prefetch thread -> train step
--> NaN ladder at log boundaries, with the perturbation-metrics CSV dump
-matching the reference's `save_l2_norms` schema (voxel_perturber.py:411-432).
+Training is one explicit loop: data -> host plan in the prefetch thread ->
+train step -> NaN ladder at log boundaries, with the perturbation-metrics
+CSV dump matching the reference's `save_l2_norms` schema
+(voxel_perturber.py:411-432). Evaluation: host plan -> (attack) -> eval
+forward -> decode + NMS -> the KITTI AP metric.
 Ported: MetricsLogger (CSV and jsonl; no TensorBoard writer), the synthetic
-loader, the prefetch iterator, the tiny smoke config and run_training on one
-device. Not ported yet: the mesh / multi-host paths, validation, profiling,
-load_from, resume and checkpoints (ROADMAP.md, M7 and M10).
+loader, the prefetch iterator, the tiny smoke config, run_training on one
+device with its periodic and final checkpoints, and run_evaluation (clean,
+the learned attack, PGD / FGSM, flip TTA, result dumps). Not ported yet: the
+mesh / multi-host paths, validation inside training, profiling, load_from
+and resume (ROADMAP.md, M7 and M10).
 """
 from __future__ import annotations
 
 import csv
 import json
 import os
+import pickle
 import queue
 import threading
 import time
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from ..data.synthetic import PointCloudBatch, synthetic_kitti_batch
+from ..eval.attacks import make_plan_attack
+from ..eval.kitti_metric import KittiMetric
+from ..models.detection import anchor_head_predict
+from ..ops import boxes as box_ops
+from ..ops.nms import _suppression_sweep
+from ..train.checkpoint import CheckpointManager
 from ..train.hooks import NaNLadder, reinit_adversary_params
 from ..train.loop import HostPlanBuilder, Trainer
 
@@ -150,15 +161,21 @@ def tiny_voxelnet_cfg():
 
 def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointCloudBatch]],
                  work_dir: str, max_epochs: int, log_interval: int = 50, seed: int = 0,
-                 start_epoch: int = 0) -> Dict:
+                 start_epoch: int = 0, checkpoint_interval: int = 5,
+                 max_keep: int = 10) -> Dict:
     """The training loop on one device. The host plan (native index plan +
     anchor assignment) is built in the prefetch thread, overlapping the
     device step; `plan_build_ms` in the logs is the newest build's time,
-    which must stay below the step time for the input pipeline to be free."""
+    which must stay below the step time for the input pipeline to be free.
+    A checkpoint (train/checkpoint.py) is written into `work_dir` every
+    `checkpoint_interval` epochs and after the last, the newest `max_keep`
+    kept."""
     os.makedirs(work_dir, exist_ok=True)
     logger = MetricsLogger(work_dir)
     ladder = NaNLadder()
     plan_builder = trainer.make_plan_builder()
+    ckpt = CheckpointManager(work_dir, max_to_keep=max_keep,
+                             save_interval_epochs=checkpoint_interval)
 
     if trainer.state is None:
         trainer.init_state(seed)
@@ -188,10 +205,150 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
         dt = time.time() - epoch_t0
         print(f"[epoch {epoch}] done in {dt:.1f}s ({n_frames / max(dt, 1e-9):.2f} frames/s)",
               flush=True)
+        ckpt.maybe_save(epoch, trainer)
         if ladder.should_stop:
             break
+    ckpt.save(max_epochs - 1, trainer)
     logger.save_l2_norms()
     logger.save_history()
     history["wall_time_s"] = time.time() - t_start
     history["final_epoch"] = epoch
     return {"state": trainer.state, "history": history, "work_dir": work_dir}
+
+
+# the JAX driver reads `head.nms_iou_threshold`, which AnchorHeadConfig does
+# not have, so its flip-TTA merge always runs at its 0.01 default
+_TTA_NMS_THR = 0.01
+
+
+def _tta_merge_fn(nms_thr: float) -> Callable:
+    """Merge original + unflipped-flip detections [B, K, ...]: score-sort
+    each sample, then class-aware rotated-BEV NMS (mmdet3d
+    merge_aug_bboxes_3d semantics)."""
+    def merge(boxes, scores, labels, valid):
+        order = torch.argsort(-torch.where(valid, scores, torch.full_like(scores, -float("inf"))),
+                              dim=-1, stable=True)
+        b = torch.gather(boxes, 1, order[..., None].expand(*order.shape, boxes.shape[-1]))
+        s, lab, v = (torch.gather(t, 1, order) for t in (scores, labels, valid))
+        bev = box_ops.boxes3d_to_bev(b)
+        iou = box_ops.rotated_bev_iou(bev, bev)
+        same = lab[..., :, None] == lab[..., None, :]
+        keep = _suppression_sweep(torch.where(same, iou, torch.zeros_like(iou)), v, nms_thr)
+        return b, s, lab, v & keep
+
+    return merge
+
+
+def _flip_y(batch: PointCloudBatch) -> PointCloudBatch:
+    """The batch mirrored in y: points, and the GT boxes with their yaw (a
+    gradient attack's loss needs the GTs in the flipped frame)."""
+    pts = np.array(batch.points, np.float32)
+    pts[..., 1] *= -1.0
+    gt = np.array(batch.gt_boxes, np.float32)
+    gt[..., 1] *= -1.0
+    gt[..., 6] *= -1.0
+    return batch._replace(points=pts, gt_boxes=gt)
+
+
+def run_evaluation(trainer: Trainer, batches, attack: bool = False,
+                   dump_path: Optional[str] = None, tta: bool = False,
+                   attack_method: str = "learned", attack_steps: int = 10,
+                   timings: Optional[Dict] = None) -> Dict[str, float]:
+    """Clean or attack-mode evaluation of the trainer's model -> KITTI AP dict.
+
+    attack=True with attack_method "learned" forces the learned adversary
+    with the evaluation-attack bounds (the reference's
+    evaluate_kitti_adversarial_attack); "pgd" / "fgsm" attack the plan's
+    voxels with white-box gradients under the same physical envelope
+    (eval/attacks.py). dump_path: per-frame detections (frame_id, boxes_3d,
+    scores, labels) as a pickle. tta=True adds the y-flip test-time
+    augmentation: a second forward on the mirrored cloud, its detections
+    unflipped and merged by class-aware rotated NMS.
+
+    `batches` yields PointCloudBatches or (batch, metas) pairs from
+    data/kitti.kitti_val_loader; rows whose meta is not `valid` (padding of
+    the last short batch) are not scored. `timings`, when given, is filled
+    with "batches" (per batch: host-clock ms of the host plan, of the device
+    work up to the detections on the host, and of the metric updates) and
+    "ap_ms" (the final AP computation).
+    """
+    cfg = trainer.model_cfg
+    # 2d/aos compute only when the loader supplies image-plane metas
+    metric = KittiMetric(classes=tuple(cfg.class_names), metrics=("3d", "bev", "2d", "aos"))
+    plan_builder = trainer.make_plan_builder()
+    attack_fn = None
+    if attack and attack_method != "learned":
+        if attack_method == "fgsm":
+            attack_fn = make_plan_attack(trainer, steps=1, rel_step=1.0)
+        elif attack_method == "pgd":
+            attack_fn = make_plan_attack(trainer, steps=attack_steps)
+        else:
+            raise ValueError(f"unknown attack_method {attack_method!r}")
+    merge = _tta_merge_fn(_TTA_NMS_THR) if tta else None
+    batch_times: List[Dict[str, float]] = []
+
+    def detect(batch):
+        """(detections on the device, host-plan seconds) of one batch."""
+        t0 = time.perf_counter()
+        plan = plan_builder(batch.points, batch.points_mask)  # no GTs: no assignment
+        t_plan = time.perf_counter() - t0
+        if attack_fn is not None:
+            # the gradient attack rewrites the plan's voxels; the forward then
+            # runs clean (the perturbation is already in the input)
+            outs = trainer.forward_eval(attack_fn(batch, plan), attack=False)
+        else:
+            outs = trainer.forward_eval(plan, attack=attack)
+        with torch.no_grad():
+            dets = anchor_head_predict(outs.cls_scores, outs.bbox_preds, outs.dir_preds,
+                                       trainer.anchors, cfg.head)
+        return dets, t_plan
+
+    n = 0
+    dumped = []
+    for item in batches:
+        # a bare PointCloudBatch is itself a NamedTuple: test it first
+        batch, metas = (item, None) if isinstance(item, PointCloudBatch) else item
+        t0 = time.perf_counter()
+        (boxes, scores, labels, mask), plan_s = detect(batch)
+        if tta:
+            (bf, sf, lf, mf), plan_f = detect(_flip_y(batch))
+            plan_s += plan_f
+            bf = bf.clone()
+            bf[..., 1] *= -1.0
+            bf[..., 6] *= -1.0
+            boxes, scores, labels, mask = merge(torch.cat([boxes, bf], 1),
+                                                torch.cat([scores, sf], 1),
+                                                torch.cat([labels, lf], 1),
+                                                torch.cat([mask, mf], 1))
+        boxes, scores, labels, mask = (t.cpu().numpy() for t in (boxes, scores, labels, mask))
+        t1 = time.perf_counter()
+        for b in range(batch.points.shape[0]):
+            meta = metas[b] if metas is not None else {}
+            if not meta.get("valid", True):
+                continue
+            metric.update_from_arrays(
+                gt_boxes=np.asarray(batch.gt_boxes[b]), gt_labels=np.asarray(batch.gt_labels[b]),
+                gt_mask=np.asarray(batch.gt_mask[b]), dt_boxes=boxes[b], dt_scores=scores[b],
+                dt_labels=labels[b], dt_mask=mask[b], gt_difficulty=meta.get("gt_difficulty"),
+                meta=meta)
+            if dump_path is not None:
+                m = np.asarray(mask[b], bool)
+                dumped.append({"frame_id": meta.get("frame_id", str(n)),
+                               "boxes_3d": boxes[b][m], "scores": scores[b][m],
+                               "labels": labels[b][m]})
+            n += 1
+        t2 = time.perf_counter()
+        batch_times.append({"plan_ms": plan_s * 1e3, "device_ms": (t1 - t0 - plan_s) * 1e3,
+                            "metric_ms": (t2 - t1) * 1e3})
+    t0 = time.perf_counter()
+    results = metric.compute()
+    if timings is not None:
+        timings["batches"] = batch_times
+        timings["ap_ms"] = (time.perf_counter() - t0) * 1e3
+    results["num_frames"] = n
+    if dump_path is not None:
+        os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
+        with open(dump_path, "wb") as f:
+            pickle.dump(dumped, f)
+        print(f"[dump] wrote {len(dumped)} frames of detections to {dump_path}", flush=True)
+    return results

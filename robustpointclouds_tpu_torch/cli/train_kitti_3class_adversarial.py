@@ -6,7 +6,9 @@
 
 The reference recipe (batch 6, the VoxelNetConfig / TrainConfig defaults) on
 synthetic scenes. `--steps N` is a debug run: one epoch of N steps, logging
-every step. Runs on the card unless `--cpu`. Every other flag of the JAX
+every step. Checkpoints (train/checkpoint.py) go to --work-dir every 5
+epochs and after the last; the evaluation CLIs score them. Runs on the card
+unless `--cpu`. Every other flag of the JAX
 CLI (the KITTI loader, --validate, --resume, --freeze-detector, --load-from,
 --devices, --amp, --profile, --config, --cfg-options, ...) raises "not
 ported yet".

@@ -1,7 +1,8 @@
-"""ctypes binding of the native sparse-plan builder (csrc/plan.cpp at the repo root).
+"""ctypes binding of the native sparse-plan builder (the port's csrc/plan.cpp).
 
-The port's own binding of the unchanged C++ builder that the JAX package
-binds in robustpointclouds_tpu/data/native_plan.py. It compiles into
+The port's own copy of the C++ builder that the JAX package binds in
+robustpointclouds_tpu/data/native_plan.py (the copy is byte for byte the
+same source, so the plans are bit-equal). It compiles into
 `build/torch_plan/libplan.so`, apart from the JAX package's build, so the
 two packages never race on one library, and returns the same dict of numpy
 arrays: voxels, masks, the batch-merge order, the merged grid and the
@@ -22,9 +23,9 @@ from typing import Optional
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "csrc", "plan.cpp")
-_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_plan")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "plan.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_plan")
 _SO = os.path.join(_BUILD_DIR, "libplan.so")
 
 # default SparseEncoder layout constants the C++ traversal is fixed to

@@ -1,7 +1,8 @@
 """Box geometry: rotated BEV IoU by polygon clipping (float32 throughout).
 
 Counterpart of robustpointclouds_tpu/ops/boxes.py (box_bev_corners,
-rotated_bev_iou and its clipping helpers, boxes3d_to_bev, limit_period, and
+rotated_bev_iou and its clipping helpers, boxes3d_to_bev, box3d_corners,
+rotated_iou_3d (the KITTI metric's 3D IoU), limit_period, and
 the assigner's nearest_bev_boxes / aligned_bev_iou / nearest_bev_iou, which
 keep the JAX op order so the assignment is bit-equal).
 The JAX version vmaps a per-pair function; here every helper broadcasts over
@@ -118,6 +119,32 @@ def rotated_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tenso
 def boxes3d_to_bev(boxes: torch.Tensor) -> torch.Tensor:
     """[..., 7] -> [..., 5] BEV box (x, y, dx, dy, yaw)."""
     return boxes[..., [0, 1, 3, 4, 6]]
+
+
+def box3d_corners(boxes: torch.Tensor) -> torch.Tensor:
+    """8 corners of 7-DoF boxes: [..., 7] -> [..., 8, 3], bottom 4 then top 4."""
+    bev = box_bev_corners(boxes3d_to_bev(boxes))  # [..., 4, 2]
+    z, dz = boxes[..., 2:3], boxes[..., 5:6]
+    zb = (z - dz * 0.5)[..., None, :].expand(*bev.shape[:-1], 1)
+    zt = (z + dz * 0.5)[..., None, :].expand(*bev.shape[:-1], 1)
+    return torch.cat([torch.cat([bev, zb], -1), torch.cat([bev, zt], -1)], dim=-2)
+
+
+def rotated_iou_3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise 3D IoU of 7-DoF boxes (rotated BEV overlap x z-overlap):
+    [..., N, 7] x [..., M, 7] -> [..., N, M]."""
+    inter_bev = rotated_bev_overlap(boxes3d_to_bev(boxes_a), boxes3d_to_bev(boxes_b))
+    za_lo = boxes_a[..., 2] - boxes_a[..., 5] * 0.5
+    za_hi = boxes_a[..., 2] + boxes_a[..., 5] * 0.5
+    zb_lo = boxes_b[..., 2] - boxes_b[..., 5] * 0.5
+    zb_hi = boxes_b[..., 2] + boxes_b[..., 5] * 0.5
+    z_overlap = torch.clamp(
+        torch.minimum(za_hi[..., :, None], zb_hi[..., None, :])
+        - torch.maximum(za_lo[..., :, None], zb_lo[..., None, :]), min=0.0)
+    inter = inter_bev * z_overlap
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=_EPS)
 
 
 def nearest_bev_boxes(boxes: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and its
-entry points refuse to fall back to the CPU when no card is there."""
+"""The port stands alone: it imports neither jax nor the JAX package, opens
+no path outside its own package but the build directory, and its entry
+points refuse to fall back to the CPU when no card is there."""
 import os
 import re
 import subprocess
@@ -38,13 +39,18 @@ _EXPECTED = {
     "robustpointclouds_tpu_torch.cli.common",
     "robustpointclouds_tpu_torch.cli.train_kitti_3class_adversarial",
     "robustpointclouds_tpu_torch.tools.profile_train",
+    "robustpointclouds_tpu_torch.kernels.gather", "robustpointclouds_tpu_torch.tools.probe_gather",
+    "robustpointclouds_tpu_torch.eval.kitti_metric", "robustpointclouds_tpu_torch.eval.attacks",
+    "robustpointclouds_tpu_torch.data.kitti", "robustpointclouds_tpu_torch.train.checkpoint",
+    "robustpointclouds_tpu_torch.cli.evaluate_kitti_3class",
+    "robustpointclouds_tpu_torch.cli.evaluate_kitti_adversarial_attack",
 }
 
 
 def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=300, check=True).stdout.split(None, 2)
-    assert int(out[0]) >= 28, out
+    assert int(out[0]) >= 38, out
     assert out[1].strip() == "[]", out
     assert _EXPECTED <= set(out[2].strip().split(",")), out
 
@@ -59,6 +65,32 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                 with open(path) as fh:
                     if pat.search(fh.read()):
                         offenders.append(path)
+    assert offenders == []
+
+
+def test_no_source_reaches_outside_the_package_but_build():
+    from robustpointclouds_tpu_torch.data import native_plan
+    from robustpointclouds_tpu_torch.kernels import _build
+
+    # the native sources it compiles are its own ...
+    assert native_plan._SRC == os.path.join(PKG_DIR, "csrc", "plan.cpp")
+    assert _build.CSRC_DIR == os.path.join(PKG_DIR, "csrc")
+    with open(native_plan._SRC, "rb") as a, open(os.path.join(REPO, "csrc", "plan.cpp"), "rb") as b:
+        assert a.read() == b.read()  # a byte-for-byte copy of the JAX package's builder
+    # ... and their builds go to the git-ignored build/ at the repo root
+    for d in (native_plan._BUILD_DIR, _build.BUILD_DIR):
+        assert os.path.relpath(d, REPO).split(os.sep)[0] == "build"
+    # every path built upward from a source file's own location names build/
+    up = re.compile(r"dirname\(\s*_PKG\s*\)|_REPO_ROOT|os\.pardir|['\"]\.\.['\"]|"
+                    r"dirname\(os\.path\.dirname\(os\.path\.dirname")
+    offenders = []
+    for root, _, files in os.walk(PKG_DIR):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                with open(path) as fh:
+                    offenders += [f"{path}:{i}" for i, line in enumerate(fh, 1)
+                                  if up.search(line) and '"build"' not in line]
     assert offenders == []
 
 

@@ -182,3 +182,63 @@ def test_masked_stats_autograd_launches_the_vjp(cuda_device):
     m2, v2, _ = masked_stats(xc, mask.cpu())
     (m2.sum() + v2.sum()).backward()
     assert (x.grad.cpu() - xc.grad).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("kernel", ["gather_rows", "gather_elems", "gather_row_loop",
+                                    "gather_onehot"])
+@pytest.mark.parametrize("dtype,n,c,m", [
+    (torch.float32, 512, 128, 256), (torch.float32, 777, 36, 4099),
+    (torch.bfloat16, 96, 64, 1001), (torch.bfloat16, 5000, 8, 12345)])
+def test_gather_kernels_match_plain_version(cuda_device, kernel, dtype, n, c, m):
+    import robustpointclouds_tpu_torch.kernels.gather as gmod
+
+    fn = getattr(gmod, kernel)
+    plain = gmod.gather_onehot_ref if kernel == "gather_onehot" else gmod.gather_ref
+    if kernel == "gather_onehot" and n * m > 10 ** 7:
+        m = 1000  # the one-hot product reads the whole table per 32 rows
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(n, c, device=cuda_device, generator=g).to(dtype)
+    # indices in [0, n]: n is the miss row and reads zeros; ragged m
+    idx = torch.randint(0, n + 1, (m,), device=cuda_device, generator=g, dtype=torch.int32)
+    idx[:3] = n
+    before = fn.launches
+    out = fn(x, idx)
+    assert fn.launches == before + 1 and out.dtype == dtype and out.shape == (m, c)
+    # a copy, and a float32 sum of one non-zero product: exact
+    assert torch.equal(out, plain(x, idx))
+    assert out[:3].abs().max().item() == 0.0
+
+
+def test_gather_rows_rejects_unaligned_rows(cuda_device):
+    from robustpointclouds_tpu_torch.kernels.gather import gather_rows
+
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # 6 floats = 24 bytes: not 16-byte vectors
+        gather_rows(torch.zeros(10, 6, device=cuda_device), idx)
+    with pytest.raises(TypeError):
+        gather_rows(torch.zeros(10, 8, device=cuda_device), idx.long())
+
+
+def test_pgd_launches_forward_and_dgrad_but_no_wgrad(cuda_device):
+    import numpy as np
+
+    from robustpointclouds_tpu_torch.cli.common import tiny_voxelnet_cfg
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.eval.attacks import make_plan_attack
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    cfg = tiny_voxelnet_cfg()
+    tr = Trainer(cfg, TrainConfig(), device=cuda_device)
+    tr.init_state(0)
+    b = synthetic_kitti_batch(np.random.RandomState(0), batch_size=2, num_points=512, max_gt=8,
+                              num_objects=3, point_range=cfg.voxelizer.point_cloud_range)
+    plan = tr.make_plan_builder()(b.points, b.points_mask)
+    counters = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad, masked_stats, masked_stats_bwd)
+    before = [fn.launches for fn in counters]
+    steps = 2
+    make_plan_attack(tr, steps=steps)(b, plan)
+    torch.cuda.synchronize()
+    launched = [fn.launches - n for fn, n in zip(counters, before)]
+    # per step: the 12 convs' forward and input gradient; eval-mode BN, no adversary
+    assert launched == [12 * steps, 12 * steps, 0, 0, 0]
+    assert all(p.requires_grad for p in tr.model.parameters())
