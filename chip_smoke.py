@@ -5,16 +5,21 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit; the kernels' build time (the CUDA
-     sparse convs and gather probes with nvcc into build/torch_kernels/, one
+     sparse convs -- the bf16 tensor-core kernels and the float32 CUDA-core
+     ones -- and the gather probes with nvcc into build/torch_kernels/, one
      nvcc per source, started together; the Triton masked statistics and
-     their VJP at their first launch);
+     their VJP at their first launch); the count of bf16 HMMA instructions
+     in the tensor-core library's SASS (cuobjdump), which must not be 0;
   2. kernels: the sparse-conv gather-GEMM on the inputs of each of the 12
      encoder convs of a full-width B=6 KITTI forward; its dgrad and wgrad on
      the inputs (feats, g, idx, backward index) of the 12 convs captured
      from one full-width B=6 train step; the masked statistics at
      [480000, 4] and [96000, 64]; their VJP at [480000, 4], [480000, 128]
      and [96000, 64] (f32 and bf16). Each against its plain PyTorch version
-     on the card, with times, bounds and a one-call PyTorch yardstick;
+     on the card, with times, bounds and a one-call PyTorch yardstick; each
+     bf16 sparse-conv kernel also beside the float32 route's CUDA-core
+     kernel on the same bf16 inputs (prev_ms), and the float32 route on the
+     same convs cast to float32 against its plain version;
   3. serving: the full-width SECOND VoxelNetConfig (bf16, random weights from
      the seed) answers requests of 6 synthetic frames of 20000 points each,
      clean and with attack=True, through cli/export.export_serving; the
@@ -33,7 +38,9 @@ Phases (any failure exits non-zero and prints no result):
      launch counts; prints ms per step, frames/s and each plan build's
      native-plan and anchor-assignment ms. A
      float32 train step's gradients on a small grid are held against the
-     same step on the CPU;
+     same step on the CPU; every sparse-conv launch of the bf16 main path
+     must take the tensor-core kernels, every one of the float32 small-grid
+     forward and train step the CUDA-core kernels;
   5. the gather probes: tools/probe_gather's main checks the four gather
      kernels against their plain versions at the probe's small shape
      (exact) and times the row and element gathers at the sparse conv's
@@ -74,6 +81,9 @@ PEAK_OPS = {"bf16_tensor": 989e12, "f32": 67e12}
 # bf16 outputs round once to 8 significant bits (2^-8 relative) after a
 # float32 sum in another order: hold errors to 1e-2 of the output's scale
 SPARSE_CONV_RTOL = 1e-2
+# the float32 route's forward and dgrad vs the plain float32 matmul (TF32
+# off): summation order only
+F32_CONV_RTOL = 1e-5
 # float32 statistics, one pass with Chan's merge vs two passes: 1e-4 of scale
 MASKED_STATS_RTOL = 1e-4
 # float32 forward on the card (TF32 off) vs the CPU: summation order only
@@ -150,14 +160,49 @@ def bound_ms(nbytes: float, ops: float, peak: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_sparse_conv(captured, torch):
-    """K1 on each captured (feats, kernel, idx) of the main path vs its plain version."""
-    from robustpointclouds_tpu_torch.kernels.sparse_conv import sparse_conv, sparse_conv_ref
+def abba_ms(fn, prev, iters: int = 10):
+    """Two designs of one function on the same inputs, timed in turns (new,
+    prev, prev, new): (new ms, prev ms)."""
+    a = cuda_ms(fn, iters)
+    b = cuda_ms(prev, iters)
+    c = cuda_ms(prev, iters)
+    d = cuda_ms(fn, iters)
+    return (a + d) / 2, (b + c) / 2
 
-    rows, worst = [], 0.0
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes_ms": 0.0, "ops_ms": 0.0}
+
+def _new_total():
+    return {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+            "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0}
+
+
+def _add(acc, row, nbytes, ops, peak):
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        acc[key] += row[key]
+    acc["prev_ms"] += row.get("prev_ms") or 0.0
+    acc["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+    acc["ops_ms"] += ops / PEAK_OPS[peak] * 1e3
+    acc["err"] = max(acc["err"], row["max_abs_err"])
+
+
+def _finish(tot):
+    for v in tot.values():
+        v["bound_by"] = "bytes" if v["bytes_ms"] >= v["ops_ms"] else "operations"
+    return tot
+
+
+def check_sparse_conv(captured, torch, f32: bool = False):
+    """K1 forward on each captured (feats, kernel, idx) of the main path vs
+    its plain version: the bf16 tensor-core kernel, timed beside the
+    CUDA-core kernel on the same inputs (prev_ms); with f32, the float32
+    route on the same convs cast to float32."""
+    from robustpointclouds_tpu_torch.kernels.sparse_conv import (
+        sparse_conv, sparse_conv_cuda_cores, sparse_conv_ref)
+
+    rows, tot = [], _new_total()
+    rtol, peak = (F32_CONV_RTOL, "f32") if f32 else (SPARSE_CONV_RTOL, "bf16_tensor")
     for name, feats, kernel, idx in captured:
+        if f32:
+            feats, kernel = feats.float(), kernel.float()
         n, cin = feats.shape
         m, k = idx.shape
         cout = kernel.shape[1]
@@ -166,12 +211,15 @@ def check_sparse_conv(captured, torch):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         scale = max(ref.float().abs().max().item(), 1e-6)
-        if not (err <= SPARSE_CONV_RTOL * scale) or not torch.isfinite(out).all():
-            raise RuntimeError(f"sparse_conv {name}: max error {err} over scale {scale}")
-        worst = max(worst, err)
+        if not (err <= rtol * scale) or not torch.isfinite(out).all():
+            raise RuntimeError(f"sparse_conv {feats.dtype} {name}: max error {err} over scale {scale}")
         feats_pad = torch.cat([feats, feats.new_zeros(1, cin)], 0)
         flat = idx.reshape(-1).long()
-        t = cuda_ms(lambda: sparse_conv(feats, kernel, idx))
+        if f32:
+            t, t_prev = cuda_ms(lambda: sparse_conv(feats, kernel, idx), iters=5), None
+        else:
+            t, t_prev = abba_ms(lambda: sparse_conv(feats, kernel, idx),
+                                lambda: sparse_conv_cuda_cores(feats, kernel, idx))
         t_plain = cuda_ms(lambda: sparse_conv_ref(feats, kernel, idx), iters=5)
         t_lib = cuda_ms(lambda: torch.matmul(
             torch.index_select(feats_pad, 0, flat).view(m, k * cin), kernel), iters=5)
@@ -179,17 +227,13 @@ def check_sparse_conv(captured, torch):
         eb = feats.element_size()
         nbytes = idx.numel() * 4 + n * cin * eb + kernel.numel() * eb + m * cout * eb
         ops = 2.0 * hits * cin * cout
-        b_ms, by = bound_ms(nbytes, ops, "bf16_tensor")
-        rows.append(dict(conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
-                         ms=t, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                         bound_by=by, max_abs_err=err))
-        tot["ms"] += t
-        tot["plain_ms"] += t_plain
-        tot["library_ms"] += t_lib
-        tot["bound_ms"] += b_ms
-        tot["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-        tot["ops_ms"] += ops / PEAK_OPS["bf16_tensor"] * 1e3
-    return rows, worst, tot, ("bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations")
+        b_ms, by = bound_ms(nbytes, ops, peak)
+        row = dict(conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits, ms=t,
+                   prev_ms=t_prev, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                   bound_by=by, max_abs_err=err)
+        rows.append(row)
+        _add(tot, row, nbytes, ops, peak)
+    return rows, _finish({"fwd": tot})["fwd"]
 
 
 def check_masked_stats(torch, shapes, seed):
@@ -228,17 +272,20 @@ def check_masked_stats(torch, shapes, seed):
     return rows
 
 
-def check_sparse_conv_bwd(captured, torch):
+def check_sparse_conv_bwd(captured, torch, f32: bool = False):
     """K1 dgrad and wgrad on the (feats, weight, idx, bwd_idx, mirror, g) of
-    the 12 convs of one train step, each against its plain version."""
+    the 12 convs of one train step, each against its plain version, as
+    check_sparse_conv does for the forward."""
     from robustpointclouds_tpu_torch.kernels.sparse_conv import (
-        backward_kernel, sparse_conv_dgrad, sparse_conv_ref, sparse_conv_wgrad,
-        sparse_conv_wgrad_ref)
+        backward_kernel, sparse_conv_cuda_cores, sparse_conv_dgrad, sparse_conv_ref,
+        sparse_conv_wgrad, sparse_conv_wgrad_cuda_cores, sparse_conv_wgrad_ref)
 
     rows = []
-    tot = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                 "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0} for key in ("dgrad", "wgrad")}
+    tot = {key: _new_total() for key in ("dgrad", "wgrad")}
+    rtol, peak = (F32_CONV_RTOL, "f32") if f32 else (SPARSE_CONV_RTOL, "bf16_tensor")
     for name, feats, kernel, idx, bwd_idx, mirror, g in captured:
+        if f32:
+            feats, kernel, g = feats.float(), kernel.float(), g.float()
         n, cin = feats.shape
         m, k = idx.shape
         cout = kernel.shape[1]
@@ -250,57 +297,60 @@ def check_sparse_conv_bwd(captured, torch):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         scale = max(ref.float().abs().max().item(), 1e-6)
-        if not (err <= SPARSE_CONV_RTOL * scale) or not torch.isfinite(out).all():
-            raise RuntimeError(f"sparse_conv_dgrad {name}: max error {err} over scale {scale}")
+        if not (err <= rtol * scale) or not torch.isfinite(out).all():
+            raise RuntimeError(f"sparse_conv_dgrad {g.dtype} {name}: max error {err} over scale "
+                               f"{scale}")
         g_pad = torch.cat([g, g.new_zeros(1, cout)], 0)
         bflat = bwd_idx.reshape(-1).long()
-        t = cuda_ms(lambda: sparse_conv_dgrad(g, w_bwd, bwd_idx))
+        if f32:
+            t, t_prev = cuda_ms(lambda: sparse_conv_dgrad(g, w_bwd, bwd_idx), iters=5), None
+        else:
+            t, t_prev = abba_ms(lambda: sparse_conv_dgrad(g, w_bwd, bwd_idx),
+                                lambda: sparse_conv_cuda_cores(g, w_bwd, bwd_idx))
         t_plain = cuda_ms(lambda: sparse_conv_ref(g, w_bwd, bwd_idx), iters=5)
         t_lib = cuda_ms(lambda: torch.matmul(
             torch.index_select(g_pad, 0, bflat).view(n, k * cout), w_bwd), iters=5)
         hits = int((bwd_idx < m).sum().item())
         nbytes = bwd_idx.numel() * 4 + m * cout * eb + w_bwd.numel() * eb + n * cin * eb
         ops = 2.0 * hits * cin * cout
-        b_ms, by = bound_ms(nbytes, ops, "bf16_tensor")
-        rows.append(dict(kernel="dgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
-                         ms=t, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=by,
-                         max_abs_err=err))
-        _add(tot["dgrad"], t, t_plain, t_lib, b_ms, nbytes, ops, err)
-        # wgrad: dW [K*Cin, Cout] float32 over the forward index
+        b_ms, by = bound_ms(nbytes, ops, peak)
+        row = dict(kernel="dgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
+                   ms=t, prev_ms=t_prev, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                   bound_by=by, max_abs_err=err)
+        rows.append(row)
+        _add(tot["dgrad"], row, nbytes, ops, peak)
+        # wgrad: dW [K*Cin, Cout] float32 over the forward index, bit-identical
+        # from call to call
         dw = sparse_conv_wgrad(feats, g, idx)
         ref = sparse_conv_wgrad_ref(feats, g, idx)
         torch.cuda.synchronize()
         err = (dw - ref).abs().max().item()
         scale = max(ref.abs().max().item(), 1e-6)
         if not (err <= WGRAD_RTOL * scale) or not torch.isfinite(dw).all():
-            raise RuntimeError(f"sparse_conv_wgrad {name}: max error {err} over scale {scale}")
+            raise RuntimeError(f"sparse_conv_wgrad {feats.dtype} {name}: max error {err} over "
+                               f"scale {scale}")
+        if not torch.equal(dw, sparse_conv_wgrad(feats, g, idx)):
+            raise RuntimeError(f"sparse_conv_wgrad {feats.dtype} {name}: not deterministic")
         feats_pad = torch.cat([feats, feats.new_zeros(1, cin)], 0)
         flat = idx.reshape(-1).long()
-        t = cuda_ms(lambda: sparse_conv_wgrad(feats, g, idx))
+        if f32:
+            t, t_prev = cuda_ms(lambda: sparse_conv_wgrad(feats, g, idx), iters=5), None
+        else:
+            t, t_prev = abba_ms(lambda: sparse_conv_wgrad(feats, g, idx),
+                                lambda: sparse_conv_wgrad_cuda_cores(feats, g, idx))
         t_plain = cuda_ms(lambda: sparse_conv_wgrad_ref(feats, g, idx), iters=5)
         t_lib = cuda_ms(lambda: torch.matmul(
             torch.index_select(feats_pad, 0, flat).view(m, k * cin).t(), g), iters=5)
         hits = int((idx < n).sum().item())
         nbytes = idx.numel() * 4 + n * cin * eb + m * cout * eb + k * cin * cout * 4
         ops = 2.0 * hits * cin * cout
-        b_ms, by = bound_ms(nbytes, ops, "bf16_tensor")
-        rows.append(dict(kernel="wgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
-                         ms=t, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=by,
-                         max_abs_err=err))
-        _add(tot["wgrad"], t, t_plain, t_lib, b_ms, nbytes, ops, err)
-    for v in tot.values():
-        v["bound_by"] = "bytes" if v["bytes_ms"] >= v["ops_ms"] else "operations"
-    return rows, tot
-
-
-def _add(acc, t, t_plain, t_lib, b_ms, nbytes, ops, err):
-    acc["ms"] += t
-    acc["plain_ms"] += t_plain
-    acc["library_ms"] += t_lib
-    acc["bound_ms"] += b_ms
-    acc["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-    acc["ops_ms"] += ops / PEAK_OPS["bf16_tensor"] * 1e3
-    acc["err"] = max(acc["err"], err)
+        b_ms, by = bound_ms(nbytes, ops, peak)
+        row = dict(kernel="wgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
+                   ms=t, prev_ms=t_prev, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                   bound_by=by, max_abs_err=err)
+        rows.append(row)
+        _add(tot["wgrad"], row, nbytes, ops, peak)
+    return rows, _finish(tot)
 
 
 def check_masked_stats_bwd(torch, shapes, seed):
@@ -380,12 +430,26 @@ def main() -> int:
     gather_counters = {"gather_rows": gather_rows, "gather_elems": gather_elems,
                        "gather_row_loop": gather_row_loop, "gather_onehot": gather_onehot}
 
+    conv_counters = {k: counters[k]
+                     for k in ("sparse_conv", "sparse_conv_dgrad", "sparse_conv_wgrad")}
+
     def zero_counts():
         for fn in (*counters.values(), *gather_counters.values()):
             fn.launches = 0
+        for fn in conv_counters.values():
+            fn.cuda_core_launches = 0
 
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
+
+    def read_core_counts():
+        """The sparse-conv launches that took the float32 route's CUDA-core kernels."""
+        return {k: fn.cuda_core_launches for k, fn in conv_counters.items()}
+
+    def expect_tensor_cores(path):
+        core = read_core_counts()
+        if any(core.values()):
+            raise RuntimeError(f"the bf16 {path} path reached the CUDA-core kernels: {core}")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -396,22 +460,30 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     t0 = time.time()
-    sources = ("sparse_conv", "gather_probe")
+    sources = ("sparse_conv_tc", "sparse_conv", "gather_probe")
     handles = [(n, *_build.start_build(n)) for n in sources]  # one nvcc per source
     for _, handle, so in handles:
         _build.finish_build(handle, so)
     for n in sources:
         _build.load_library(n)
     nvcc_s = time.time() - t0
+    # the tensor-core kernels must have compiled to bf16 tensor-core products
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", _build.library_path("sparse_conv_tc")],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hmma = sum(1 for line in sass.splitlines() if "HMMA" in line and "BF16" in line)
+    if hmma == 0:
+        raise RuntimeError("no bf16 HMMA instruction in the tensor-core sparse-conv library")
     t0 = time.time()
     xs = torch.ones(64, 4, device=dev, requires_grad=True)
     ms_mean, ms_var, _ = masked_stats(xs, torch.ones(64, dtype=torch.bool, device=dev))
     (ms_mean.sum() + ms_var.sum()).backward()  # the VJP kernel's first launch
     torch.cuda.synchronize()
     triton_s = time.time() - t0
-    print(f"build: sparse_conv + gather_probe nvcc {nvcc_s:.1f} s, masked_stats + VJP triton "
-          f"first launches "
-          f"{triton_s:.1f} s", flush=True)
+    print(f"build: sparse_conv_tc + sparse_conv + gather_probe nvcc {nvcc_s:.1f} s, "
+          f"masked_stats + VJP triton first launches {triton_s:.1f} s", flush=True)
+    print(f"sass: {hmma} bf16 HMMA instructions in "
+          f"{os.path.basename(_build.library_path('sparse_conv_tc'))}", flush=True)
 
     # ---- the full-width model and a B=6 request stream
     cfg = VoxelNetConfig()
@@ -443,10 +515,13 @@ def main() -> int:
         h.remove()
     if len(captured) != 12:
         raise RuntimeError(f"expected 12 sparse convs on the path, saw {len(captured)}")
-    conv_rows, conv_err, conv_tot, conv_by = check_sparse_conv(captured, torch)
+    conv_rows, conv_tot = check_sparse_conv(captured, torch)
+    f32_conv_rows, f32_conv_tot = check_sparse_conv(captured, torch, f32=True)
     del captured
     for r in conv_rows:
         print("sparse_conv " + json.dumps(r), flush=True)
+    for r in f32_conv_rows:
+        print("sparse_conv float32 " + json.dumps(r), flush=True)
     stats_rows = check_masked_stats(
         torch, [(480000, 4, torch.float32), (96000, 64, torch.float32),
                 (96000, 64, torch.bfloat16)], args.seed)
@@ -489,11 +564,21 @@ def main() -> int:
                            f"{len(train_captured)} inputs and {len(grads_out)} cotangents")
     print(f"train warm-up step: {warm_ms:.1f} ms, loss {float(warm_logs['loss']):.4f}, "
           f"num_pos {float(warm_logs['num_pos']):.0f}", flush=True)
-    bwd_rows, bwd_tot = check_sparse_conv_bwd(
-        [(*c, grads_out[c[0]]) for c in train_captured], torch)
-    del train_captured, grads_out
+    bwd_inputs = [(*c, grads_out[c[0]]) for c in train_captured]
+    bwd_rows, bwd_tot = check_sparse_conv_bwd(bwd_inputs, torch)
+    f32_bwd_rows, f32_bwd_tot = check_sparse_conv_bwd(bwd_inputs, torch, f32=True)
+    del train_captured, grads_out, bwd_inputs
     for r in bwd_rows:
         print("sparse_conv_bwd " + json.dumps(r), flush=True)
+    for r in f32_bwd_rows:
+        print("sparse_conv_bwd float32 " + json.dumps(r), flush=True)
+    for key, new, tot in (("sparse_conv", "fwd", conv_tot), ("sparse_conv_dgrad", "dgrad",
+                                                             bwd_tot["dgrad"]),
+                          ("sparse_conv_wgrad", "wgrad", bwd_tot["wgrad"])):
+        print(f"{key} over the 12 convs: tensor cores {tot['ms']:.4f} ms, CUDA-core kernel on the "
+              f"same bf16 inputs {tot['prev_ms']:.4f} ms ({tot['prev_ms'] / tot['ms']:.2f}x), "
+              f"index_select + matmul {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms",
+              flush=True)
     stats_bwd_rows = check_masked_stats_bwd(
         torch, [(480000, 4, torch.float32), (480000, 128, torch.float32),
                 (480000, 128, torch.bfloat16), (96000, 64, torch.float32),
@@ -525,6 +610,7 @@ def main() -> int:
         timings.append(dict(attack=attack, plan_ms=(t1 - t0) * 1e3, serve_ms=(t2 - t1) * 1e3,
                             valid=int(valid.sum())))
     launches = read_counts()
+    expect_tensor_cores("serving")
     n_clean = n_attack = args.requests
     expected = {"sparse_conv": 12 * (n_clean + n_attack), "sparse_conv_dgrad": 0,
                 "sparse_conv_wgrad": 0, "masked_stats": 2 * n_attack, "masked_stats_bwd": 0}
@@ -564,6 +650,7 @@ def main() -> int:
                           num_pos=logs["num_pos"], l2=logs["perturbation_l2_norm"]))
     train_s = time.perf_counter() - t_all
     train_launches = read_counts()
+    expect_tensor_cores("training")
     for rest in train_iter:  # drain the prefetch thread
         pass
     expected = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
@@ -620,6 +707,7 @@ def main() -> int:
     smodel.eval()
     with torch.no_grad():
         ref = smodel(None, None, False, 100, True, -1.0, plan_to_device(splan, torch.device("cpu")))
+        zero_counts()  # the float32 route's launches: this forward and the train step below
         got = smodel.to(dev)(None, None, False, 100, True, -1.0, plan_to_device(splan, dev))
     for name in ("cls_scores", "bbox_preds", "dir_preds"):
         r, g = getattr(ref, name), getattr(got, name).cpu()
@@ -664,6 +752,11 @@ def main() -> int:
             raise RuntimeError(f"small-grid train step on {d} is a NaN step")
         grads.append(({k: v.cpu() for k, v in g_d.items()}, float(logs_d["loss"])))
     perturber.PERT_BF16 = True
+    f32_launches = read_core_counts()
+    if f32_launches != {k: read_counts()[k] for k in f32_launches} or not all(
+            f32_launches.values()):
+        raise RuntimeError(f"float32 small-grid path: CUDA-core launches {f32_launches}, all "
+                           f"launches {read_counts()}")
     (gc, lc), (gg, lg) = grads
     gmax = max(v.abs().max().item() for v in gc.values())
     worst = 0.0
@@ -677,7 +770,8 @@ def main() -> int:
     if not abs(lc - lg) <= 1e-4 * abs(lc):
         raise RuntimeError(f"small-grid float32 train loss: card {lg} vs CPU {lc}")
     print(f"small-grid float32 train step: {len(gc)} gradients agree card vs CPU "
-          f"(worst {worst:.2e} of scale), loss {lg:.6f} vs {lc:.6f}", flush=True)
+          f"(worst {worst:.2e} of scale), loss {lg:.6f} vs {lc:.6f}; float32 forward + train "
+          f"step on the CUDA-core kernels: {json.dumps(f32_launches)}", flush=True)
 
     # ---- phase 5: the gather probes through their tool's entry point
     zero_counts()
@@ -777,14 +871,21 @@ def main() -> int:
     del etr
 
     k2 = stats_rows[0]
+    conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
+    core_src = "robustpointclouds_tpu_torch/csrc/sparse_conv.cu"
+    mp_gather = "robustpointclouds_tpu/kernels/mp_gather.py:192"
+
+    def conv_row(name, src, n_launches, tot, prev=True):
+        row = {"name": name, "route": "cuda", "source": src, "replaces": mp_gather,
+               "launches": n_launches, "max_abs_err": tot["err"], "ms": tot["ms"],
+               "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+               "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}
+        if prev:  # the CUDA-core kernel on the same bf16 inputs
+            row["prev_ms"] = tot["prev_ms"]
+        return row
+
     kernels = [
-        {"name": "sparse_conv", "route": "cuda",
-         "source": "robustpointclouds_tpu_torch/csrc/sparse_conv.cu",
-         "replaces": "robustpointclouds_tpu/kernels/mp_gather.py:192",
-         "launches": launches["sparse_conv"], "max_abs_err": conv_err,
-         "ms": conv_tot["ms"], "plain_ms": conv_tot["plain_ms"],
-         "bound_ms": conv_tot["bound_ms"], "bound_by": conv_by,
-         "library_ms": conv_tot["library_ms"]},
+        conv_row("sparse_conv", conv_src, launches["sparse_conv"], conv_tot),
         {"name": "masked_stats", "route": "triton",
          "source": "robustpointclouds_tpu_torch/kernels/masked_stats_triton.py",
          "replaces": "robustpointclouds_tpu/kernels/masked_stats.py:113",
@@ -793,14 +894,13 @@ def main() -> int:
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]
     for key in ("dgrad", "wgrad"):
-        t = bwd_tot[key]
-        kernels.append(
-            {"name": f"sparse_conv_{key}", "route": "cuda",
-             "source": "robustpointclouds_tpu_torch/csrc/sparse_conv.cu",
-             "replaces": "robustpointclouds_tpu/kernels/mp_gather.py:192",
-             "launches": train_launches[f"sparse_conv_{key}"], "max_abs_err": t["err"],
-             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        kernels.append(conv_row(f"sparse_conv_{key}", conv_src,
+                                train_launches[f"sparse_conv_{key}"], bwd_tot[key]))
+    # the float32 route: launches from the small-grid float32 forward + train step
+    for key, tot in (("", f32_conv_tot), ("_dgrad", f32_bwd_tot["dgrad"]),
+                     ("_wgrad", f32_bwd_tot["wgrad"])):
+        kernels.append(conv_row(f"sparse_conv{key}_f32", core_src,
+                                f32_launches[f"sparse_conv{key}"], tot, prev=False))
     kb = stats_bwd_rows[0]
     kernels.append(
         {"name": "masked_stats_bwd", "route": "triton",

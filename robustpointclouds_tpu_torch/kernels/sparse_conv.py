@@ -25,25 +25,50 @@ The backward mirrors the JAX custom VJPs (ops/subm_conv.py):
     for the float32 parameter.
 `SparseConvFunction` wraps the three as one autograd Function.
 
-A CUDA tensor launches the hand-written kernels (csrc/sparse_conv.cu, built
-on first use); a CPU tensor takes the plain PyTorch versions
-(`sparse_conv_ref`, `sparse_conv_wgrad_ref`), which the CPU tests hold
-against the JAX ops. Anything else raises. Each wrapper counts its launches.
+A CUDA tensor launches hand-written kernels, chosen by dtype:
+  * bfloat16, the main path's compute type, takes the tensor-core kernels of
+    csrc/sparse_conv_tc.cu (mma.sync bf16 -> float32 fed by cp.async row
+    gathers). Their launch plans (`gather_gemm_plan`, `wgrad_plan`) are plain
+    Python, so the CPU tests check that every launch of the encoder fits the
+    card's shared memory;
+  * float32 takes the CUDA-core kernels of csrc/sparse_conv.cu (float32 FMAs),
+    which the card's float32 checks are held to. `sparse_conv_cuda_cores` and
+    `sparse_conv_wgrad_cuda_cores` launch them on either dtype without
+    counting, so a bf16 run can time the two designs on the same inputs.
+Both sources build on first use. A CPU tensor takes the plain PyTorch
+versions (`sparse_conv_ref`, `sparse_conv_wgrad_ref`), which the CPU tests
+hold against the JAX ops; a CUDA tensor never does. Each public wrapper counts
+its launches (`.launches`) and, of those, the ones that went to the CUDA-core
+kernels (`.cuda_core_launches`).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ._build import load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the CUDA-core kernels (csrc/sparse_conv.cu)
 _THREADS = 256
 _WGRAD_MAX_PAIRS = 8192  # Cin*Cout: 32 float32 accumulators per thread
 _WGRAD_SMEM_FLOATS = 12288  # the staged hits: cap * (Cin + Cout) floats (48 KiB)
 _WGRAD_MAX_CAP = 512
 _WGRAD_SMS = 132  # an H100's SMs; the grid aims at a few resident blocks on each
+# the tensor-core kernels (csrc/sparse_conv_tc.cu; kPad, kStages, kMaxTaps,
+# kMaxTileM and kMaxCap there)
+_TC_PAD = 8  # bf16 appended to every shared-memory row: 16 bytes
+_TC_STAGES = 3
+_TC_MAX_TAPS = 32
+_TC_MAX_WIDTH = 128
+_TC_TILE_M = 64  # output rows a block: 4 warps of 16 rows
+_TC_WGRAD_THREADS = 256
+# the staged bf16 hits, cap * row bytes: the fastest of 64, 128 and 192 KiB (PERF.md)
+_TC_WGRAD_SMEM_BYTES = 131072
+_TC_WGRAD_MAX_CAP = 1024
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on an H100 (227 KB)
 
 
 def sparse_conv_ref(feats: torch.Tensor, kernel: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -72,6 +97,100 @@ def backward_kernel(kernel: torch.Tensor, k: int, mirror: bool) -> torch.Tensor:
     return w.transpose(1, 2).reshape(k * cout, kcin // k).contiguous()
 
 
+def _pad_width(width: int) -> int:
+    """The width a tensor-core kernel instance is built for: a power of two, >= 16."""
+    pad = 16
+    while pad < width:
+        pad *= 2
+    return pad
+
+
+def _tc_widths(what: str, cin: int, cout: int) -> tuple:
+    for name, v in (("Cin", cin), ("Cout", cout)):
+        if not (0 < v <= _TC_MAX_WIDTH and v % 4 == 0):
+            raise ValueError(f"{what}: bf16 {name}={v} must be a multiple of 4 in "
+                             f"[4, {_TC_MAX_WIDTH}]")
+    return _pad_width(cin), _pad_width(cout)
+
+
+class GatherGemmPlan(NamedTuple):
+    """Launch of the tensor-core gather-GEMM (csrc/sparse_conv_tc.cu)."""
+    tile_m: int  # output rows a block; 16 a warp
+    threads: int
+    cin_pad: int  # the kernel instance's widths (zero-padded in shared memory)
+    cout_pad: int
+    stages: int  # taps in flight in the ring
+    a_pitch: int  # bytes of one shared row of gathered inputs
+    w_pitch: int  # bytes of one shared row of weights (and of the output tile)
+    smem_bytes: int  # dynamic shared memory: the index tile + max(ring, output tile)
+
+
+def gather_gemm_plan(cin: int, cout: int, k: int) -> GatherGemmPlan:
+    """The launch plan of the bf16 forward/dgrad for [*, Cin] rows, K taps, Cout outputs."""
+    cin_pad, cout_pad = _tc_widths("sparse_conv", cin, cout)
+    if not 0 < k <= _TC_MAX_TAPS:
+        raise ValueError(f"sparse_conv: bf16 K={k} taps must be in [1, {_TC_MAX_TAPS}]")
+    tile = _TC_TILE_M
+    a_pitch, w_pitch = 2 * (cin_pad + _TC_PAD), 2 * (cout_pad + _TC_PAD)
+    stage = tile * a_pitch + cin_pad * w_pitch
+    smem = -(-tile * k * 4 // 16) * 16 + max(_TC_STAGES * stage, tile * w_pitch)
+    return GatherGemmPlan(tile, 2 * tile, cin_pad, cout_pad, _TC_STAGES, a_pitch, w_pitch, smem)
+
+
+class WgradPlan(NamedTuple):
+    """Launch of the tensor-core wgrad (csrc/sparse_conv_tc.cu)."""
+    rows_per_chunk: int
+    chunks: int  # grid: (chunks, K)
+    cap: int  # most hits staged per barrier
+    step: int  # index rows scanned per list step
+    cin_pad: int
+    cout_pad: int
+    a_pitch: int  # bytes of one shared row of gathered feats
+    g_pitch: int  # bytes of one shared row of g
+    smem_bytes: int  # max(staged rows + hit lists, the per-warp sums' merge)
+
+
+def _wgrad_chunks(m: int, k: int, cin: int, cout: int) -> tuple:
+    """(rows per chunk, chunks) of the wgrad grid, either design: the
+    (chunk, tap) grid aims at 8 blocks per SM when the [Cin, Cout] partial
+    is small (narrow convs: their time goes to scanning the index) and 4
+    otherwise (fewer partials to write and sum); rows per chunk are a
+    multiple of the 256 rows of the longest scan step."""
+    target = _WGRAD_SMS * (8 if cin * cout <= 1024 else 4)
+    chunks = min(max(1, -(-target // k)), max(1, -(-m // _THREADS)))
+    rows = -(-max(m, 1) // chunks)
+    rows = -(-rows // _THREADS) * _THREADS
+    return rows, -(-max(m, 1) // rows)
+
+
+def _wgrad_grid(m: int, k: int, cin: int, cout: int) -> tuple:
+    """(rows per chunk, chunks, cap) of the CUDA-core wgrad. cap: the most
+    hits staged per barrier, the largest power of two whose gathered float32
+    rows fit _WGRAD_SMEM_FLOATS."""
+    cap = _WGRAD_MAX_CAP
+    while cap > 2 and cap * (cin + cout) > _WGRAD_SMEM_FLOATS:
+        cap //= 2
+    return (*_wgrad_chunks(m, k, cin, cout), cap)
+
+
+def wgrad_plan(m: int, k: int, cin: int, cout: int) -> WgradPlan:
+    """The launch plan of the bf16 wgrad: the CUDA-core design's grid; cap the
+    largest power of two (16 to 1024) whose padded bf16 rows fit
+    _TC_WGRAD_SMEM_BYTES."""
+    cin_pad, cout_pad = _tc_widths("sparse_conv_wgrad", cin, cout)
+    a_pitch, g_pitch = 2 * (cin_pad + _TC_PAD), 2 * (cout_pad + _TC_PAD)
+    cap = _TC_WGRAD_MAX_CAP
+    while cap > 16 and cap * (a_pitch + g_pitch) > _TC_WGRAD_SMEM_BYTES:
+        cap //= 2
+    units = (cin_pad // 16) * (cout_pad // 16)  # 16x16 tiles over 8 warps
+    groups = 8 // units if units < 8 else 1
+    merge = 4 * groups * cin_pad * cout_pad if groups > 1 else 0
+    smem = max(cap * (a_pitch + g_pitch) + 4 * (2 * cap + 8), merge)
+    rows, chunks = _wgrad_chunks(m, k, cin, cout)
+    return WgradPlan(rows, chunks, cap, min(_TC_WGRAD_THREADS, cap // 2), cin_pad, cout_pad,
+                     a_pitch, g_pitch, smem)
+
+
 def _lib() -> ctypes.CDLL:
     lib = load_library("sparse_conv")
     fwd = lib.rpc_sparse_conv_fwd
@@ -89,6 +208,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _tc_lib() -> ctypes.CDLL:
+    lib = load_library("sparse_conv_tc")
+    fwd = lib.rpc_sparse_conv_tc_fwd
+    if fwd.argtypes is None:
+        i, i64, p = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+        fwd.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i, p]
+        fwd.restype = i
+        wg = lib.rpc_sparse_conv_tc_wgrad
+        wg.argtypes = [p, p, p, p, p, i64, i64, i, i, i, i, i, i64, i, i, i, i, p]
+        wg.restype = i
+    return lib
+
+
 def _check(name, feats, other, idx):
     if not (feats.is_cuda and other.device == feats.device and idx.device == feats.device):
         raise ValueError(f"{name}: all inputs must lie on one CUDA device")
@@ -103,23 +235,63 @@ def _check(name, feats, other, idx):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _launch_gather_gemm(name, feats, kernel, idx):
+def _check_aligned(name, *tensors):
+    """The tensor-core kernels copy 16-byte pieces: every base must be 16-byte aligned."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the tensor-core kernels need 16-byte aligned inputs")
+
+
+def _rc(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
+
+
+def _gather_gemm_shapes(name, feats, kernel, idx):
     _check(name, feats, kernel, idx)
     m, k = idx.shape
     cin, cout = feats.shape[1], kernel.shape[1]
     if kernel.shape[0] != k * cin:
         raise ValueError(f"{name}: kernel {tuple(kernel.shape)} does not match "
                          f"K={k} taps of Cin={cin}")
+    return m, k, cin, cout
+
+
+def sparse_conv_cuda_cores(feats: torch.Tensor, kernel: torch.Tensor, idx: torch.Tensor,
+                           name: str = "sparse_conv") -> torch.Tensor:
+    """The CUDA-core gather-GEMM (csrc/sparse_conv.cu) on float32 or bf16
+    CUDA tensors; counts nothing (the wrappers count)."""
+    m, k, cin, cout = _gather_gemm_shapes(name, feats, kernel, idx)
     if cout > _THREADS or _THREADS % cout != 0:
         raise ValueError(f"{name}: Cout={cout} must divide {_THREADS}")
     out = torch.empty((m, cout), dtype=feats.dtype, device=feats.device)
-    rc = _lib().rpc_sparse_conv_fwd(
+    _rc(name, _lib().rpc_sparse_conv_fwd(
         feats.data_ptr(), kernel.data_ptr(), idx.data_ptr(), out.data_ptr(),
         feats.shape[0], m, k, cin, cout,
-        _DTYPE_CODES[feats.dtype], torch.cuda.current_stream(feats.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
+        _DTYPE_CODES[feats.dtype], torch.cuda.current_stream(feats.device).cuda_stream))
+    return out
+
+
+def _gather_gemm_tc(name, feats, kernel, idx):
+    m, k, cin, cout = _gather_gemm_shapes(name, feats, kernel, idx)
+    plan = gather_gemm_plan(cin, cout, k)
+    _check_aligned(name, feats, kernel, idx)
+    out = torch.empty((m, cout), dtype=feats.dtype, device=feats.device)
+    _rc(name, _tc_lib().rpc_sparse_conv_tc_fwd(
+        feats.data_ptr(), kernel.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        feats.shape[0], m, k, cin, cout, plan.cin_pad, plan.cout_pad, plan.tile_m,
+        plan.smem_bytes, torch.cuda.current_stream(feats.device).cuda_stream))
+    return out
+
+
+def _gather_gemm(wrapper, name, feats, kernel, idx):
+    """bf16 -> the tensor-core kernel, float32 -> the CUDA-core one; counted."""
+    if feats.dtype == torch.bfloat16:
+        out = _gather_gemm_tc(name, feats, kernel, idx)
+    else:
+        out = sparse_conv_cuda_cores(feats, kernel, idx, name)
+        wrapper.cuda_core_launches += 1
+    wrapper.launches += 1
     return out
 
 
@@ -127,9 +299,7 @@ def sparse_conv(feats: torch.Tensor, kernel: torch.Tensor, idx: torch.Tensor) ->
     """feats [N, Cin], kernel [K*Cin, Cout], idx [M, K] int32 -> [M, Cout]."""
     if feats.device.type == "cpu":
         return sparse_conv_ref(feats, kernel, idx)
-    out = _launch_gather_gemm("sparse_conv", feats, kernel, idx)
-    sparse_conv.launches += 1
-    return out
+    return _gather_gemm(sparse_conv, "sparse_conv", feats, kernel, idx)
 
 
 def sparse_conv_dgrad(g: torch.Tensor, kernel_bwd: torch.Tensor, bwd_idx: torch.Tensor) -> torch.Tensor:
@@ -139,39 +309,23 @@ def sparse_conv_dgrad(g: torch.Tensor, kernel_bwd: torch.Tensor, bwd_idx: torch.
     The forward's gather-GEMM kernel, launched and counted on its own."""
     if g.device.type == "cpu":
         return sparse_conv_ref(g, kernel_bwd, bwd_idx)
-    out = _launch_gather_gemm("sparse_conv_dgrad", g, kernel_bwd, bwd_idx)
-    sparse_conv_dgrad.launches += 1
-    return out
+    return _gather_gemm(sparse_conv_dgrad, "sparse_conv_dgrad", g, kernel_bwd, bwd_idx)
 
 
-def _wgrad_grid(m: int, k: int, cin: int, cout: int) -> tuple:
-    """(rows per chunk, chunks, cap) of the wgrad launch. cap: the most
-    hits staged per barrier, the largest power of two whose gathered rows
-    fit _WGRAD_SMEM_FLOATS. The (chunk, tap) grid aims at 8 blocks per SM
-    when the [Cin, Cout] partial is small (narrow convs: their time goes to
-    scanning the index) and 4 otherwise (fewer partials to write and sum);
-    rows per chunk are a multiple of the 256 rows of the longest scan step."""
-    cap = _WGRAD_MAX_CAP
-    while cap > 2 and cap * (cin + cout) > _WGRAD_SMEM_FLOATS:
-        cap //= 2
-    target = _WGRAD_SMS * (8 if cin * cout <= 1024 else 4)
-    chunks = min(max(1, -(-target // k)), max(1, -(-m // _THREADS)))
-    rows = -(-max(m, 1) // chunks)
-    rows = -(-rows // _THREADS) * _THREADS
-    return rows, -(-max(m, 1) // rows), cap
-
-
-def sparse_conv_wgrad(feats: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """d_W [K*Cin, Cout] float32 from feats [N, Cin], g [M, Cout] and the
-    forward index [M, K]."""
-    if feats.device.type == "cpu":
-        return sparse_conv_wgrad_ref(feats, g, idx)
+def _wgrad_shapes(feats, g, idx):
     _check("sparse_conv_wgrad", feats, g, idx)
     m, k = idx.shape
-    cin, cout = feats.shape[1], g.shape[1]
-    pairs = cin * cout
     if g.shape[0] != m:
         raise ValueError(f"sparse_conv_wgrad: g has {g.shape[0]} rows, idx {m}")
+    return m, k, feats.shape[1], g.shape[1]
+
+
+def sparse_conv_wgrad_cuda_cores(feats: torch.Tensor, g: torch.Tensor,
+                                 idx: torch.Tensor) -> torch.Tensor:
+    """The CUDA-core wgrad (csrc/sparse_conv.cu) on float32 or bf16 CUDA
+    tensors; counts nothing."""
+    m, k, cin, cout = _wgrad_shapes(feats, g, idx)
+    pairs = cin * cout
     if cout > _THREADS or _THREADS % cout != 0:
         raise ValueError(f"sparse_conv_wgrad: Cout={cout} must divide {_THREADS}")
     if pairs > _WGRAD_MAX_PAIRS or pairs & (pairs - 1):
@@ -180,20 +334,44 @@ def sparse_conv_wgrad(feats: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -
     rows, chunks, cap = _wgrad_grid(m, k, cin, cout)
     partial = torch.empty((chunks, k * pairs), dtype=torch.float32, device=feats.device)
     dw = torch.empty((k * cin, cout), dtype=torch.float32, device=feats.device)
-    rc = _lib().rpc_sparse_conv_wgrad(
+    _rc("sparse_conv_wgrad", _lib().rpc_sparse_conv_wgrad(
         feats.data_ptr(), g.data_ptr(), idx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
         feats.shape[0], m, k, cin, cout, rows, chunks, cap,
-        _DTYPE_CODES[feats.dtype], torch.cuda.current_stream(feats.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"sparse_conv_wgrad: kernel launch failed with cudaError {rc}")
+        _DTYPE_CODES[feats.dtype], torch.cuda.current_stream(feats.device).cuda_stream))
+    return dw
+
+
+def _wgrad_tc(feats, g, idx):
+    m, k, cin, cout = _wgrad_shapes(feats, g, idx)
+    plan = wgrad_plan(m, k, cin, cout)
+    _check_aligned("sparse_conv_wgrad", feats, g, idx)
+    partial = torch.empty((plan.chunks, k * cin * cout), dtype=torch.float32, device=feats.device)
+    dw = torch.empty((k * cin, cout), dtype=torch.float32, device=feats.device)
+    _rc("sparse_conv_wgrad", _tc_lib().rpc_sparse_conv_tc_wgrad(
+        feats.data_ptr(), g.data_ptr(), idx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        feats.shape[0], m, k, cin, cout, plan.cin_pad, plan.cout_pad, plan.rows_per_chunk,
+        plan.chunks, plan.cap, plan.step, plan.smem_bytes,
+        torch.cuda.current_stream(feats.device).cuda_stream))
+    return dw
+
+
+def sparse_conv_wgrad(feats: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """d_W [K*Cin, Cout] float32 from feats [N, Cin], g [M, Cout] and the
+    forward index [M, K]."""
+    if feats.device.type == "cpu":
+        return sparse_conv_wgrad_ref(feats, g, idx)
+    if feats.dtype == torch.bfloat16:
+        dw = _wgrad_tc(feats, g, idx)
+    else:
+        dw = sparse_conv_wgrad_cuda_cores(feats, g, idx)
+        sparse_conv_wgrad.cuda_core_launches += 1
     sparse_conv_wgrad.launches += 1
     return dw
 
 
-sparse_conv.launches = 0
-sparse_conv_dgrad.launches = 0
-sparse_conv_wgrad.launches = 0
+for _fn in (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad):
+    _fn.launches = 0
+    _fn.cuda_core_launches = 0
 
 
 class SparseConvFunction(torch.autograd.Function):

@@ -12,8 +12,8 @@ import robustpointclouds_tpu_torch.kernels.sparse_conv as sparse_conv_module
 from robustpointclouds_tpu_torch.kernels.masked_stats import (
     masked_stats, masked_stats_bwd, masked_stats_bwd_ref, masked_stats_ref)
 from robustpointclouds_tpu_torch.kernels.sparse_conv import (
-    backward_kernel, sparse_conv, sparse_conv_dgrad, sparse_conv_ref, sparse_conv_train,
-    sparse_conv_wgrad, sparse_conv_wgrad_ref)
+    backward_kernel, sparse_conv, sparse_conv_cuda_cores, sparse_conv_dgrad, sparse_conv_ref,
+    sparse_conv_train, sparse_conv_wgrad, sparse_conv_wgrad_cuda_cores, sparse_conv_wgrad_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +53,188 @@ def test_sparse_conv_rejects_what_it_cannot_take(cuda_device):
         sparse_conv(feats, torch.zeros(27 * 4, 24, device=cuda_device), idx)
     with pytest.raises(TypeError):  # int64 index
         sparse_conv(feats, torch.zeros(27 * 4, 16, device=cuda_device), idx.long())
+
+
+# (Cin, Cout, K) of every conv of the full-width SECOND encoder
+ENCODER_CONVS = [(4, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27),
+                 (64, 64, 27), (64, 128, 3)]
+
+
+def _missing_to_n(idx, n):
+    """The plain versions read row n for a miss: map every index outside [0, n) there."""
+    return torch.where((idx < 0) | (idx >= n), torch.full_like(idx, n), idx)
+
+
+def _tc_index(dev, g, n, m, k):
+    """Random [m, k] indices with about 1 in 3 missing, as n, n + 7 and 2^31 - 1
+    and negative values; rows 64-127 (one whole tile) miss every tap."""
+    idx = torch.randint(0, 3 * n // 2, (m, k), device=dev, generator=g, dtype=torch.int32)
+    idx[idx >= n] = n
+    idx[::5, 0] = n + 7
+    idx[1::7, -1] = 2 ** 31 - 1
+    idx[2::11, k // 2] = -3
+    idx[64:128] = n
+    return idx
+
+
+def _local_index(dev, side=24, k_side=3):
+    """A sorted, spatially local submanifold index: the active sites of a
+    [side, side, side] grid where only the planes z = 0 and z = 2 are active, so
+    whole tiles of sorted rows miss every tap with dz = 0 rows of the other plane."""
+    z, y, x = torch.meshgrid(torch.arange(side), torch.arange(side), torch.arange(side),
+                             indexing="ij")
+    active = (z == 0) | (z == 2)
+    coords = torch.stack([z[active], y[active], x[active]], 1)  # sorted by (z, y, x)
+    n = coords.shape[0]
+    lut = torch.full((side + 2,) * 3, n, dtype=torch.int32)
+    lut[coords[:, 0] + 1, coords[:, 1] + 1, coords[:, 2] + 1] = torch.arange(n, dtype=torch.int32)
+    r = torch.arange(k_side) - k_side // 2
+    offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    nb = coords[:, None, :] + offs[None] + 1
+    inside = ((nb >= 0) & (nb < side + 2)).all(-1)
+    nb = nb.clamp(0, side + 1)
+    idx = torch.where(inside, lut[nb[..., 0], nb[..., 1], nb[..., 2]], torch.tensor(n, dtype=torch.int32))
+    return idx.to(dev).contiguous(), n
+
+
+@pytest.mark.parametrize("cin,cout,k", ENCODER_CONVS + [(16, 16, 1)])
+def test_sparse_conv_tensor_cores_encoder_widths(cuda_device, cin, cout, k):
+    # bf16 launches the tensor-core kernel (no CUDA-core launch is counted);
+    # M = 4037 is not a multiple of the 64-row tile
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n, m = 3000, 4037
+    feats = torch.randn(n, cin, device=cuda_device, generator=g).to(torch.bfloat16)
+    kernel = (torch.randn(k * cin, cout, device=cuda_device, generator=g) * 0.2).to(torch.bfloat16)
+    idx = _tc_index(cuda_device, g, n, m, k)
+    before = (sparse_conv.launches, sparse_conv.cuda_core_launches)
+    out = sparse_conv(feats, kernel, idx)
+    ref = sparse_conv_ref(feats, kernel, _missing_to_n(idx, n))
+    assert (sparse_conv.launches, sparse_conv.cuda_core_launches) == (before[0] + 1, before[1])
+    assert out.shape == (m, cout) and out.dtype == torch.bfloat16
+    # one bf16 output rounding (2^-8) after float32 sums in another order
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    assert out[64:128].abs().max().item() == 0.0  # the tile that misses every tap
+
+
+@pytest.mark.parametrize("tile_m", [16, 128])
+@pytest.mark.parametrize("cin,cout", [(32, 16), (4, 16), (64, 128), (128, 64)])
+def test_sparse_conv_tensor_cores_other_tile_rows(cuda_device, monkeypatch, tile_m, cin, cout):
+    # the kernel takes any multiple of 16 rows up to 128 (a warp per 16);
+    # (32, 16) at 128 rows needs exactly 48 KB of dynamic shared memory
+    monkeypatch.setattr(sparse_conv_module, "_TC_TILE_M", tile_m)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    n, m = 2000, 1537
+    feats = torch.randn(n, cin, device=cuda_device, generator=g).to(torch.bfloat16)
+    kernel = (torch.randn(27 * cin, cout, device=cuda_device, generator=g) * 0.2).to(torch.bfloat16)
+    idx = _tc_index(cuda_device, g, n, m, 27)
+    out = sparse_conv(feats, kernel, idx)
+    ref = sparse_conv_ref(feats, kernel, _missing_to_n(idx, n))
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("cin,cout,k", ENCODER_CONVS)
+@pytest.mark.parametrize("mirror", [True, False])
+def test_sparse_conv_dgrad_tensor_cores_encoder_widths(cuda_device, cin, cout, k, mirror):
+    # d_feats has Cin columns (4 for conv_input: the n-padded case); the
+    # gathered rows are g's Cout columns
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    n, m = 4037, 3000
+    grad = torch.randn(m, cout, device=cuda_device, generator=g).to(torch.bfloat16)
+    w = (torch.randn(k * cin, cout, device=cuda_device, generator=g) * 0.2).to(torch.bfloat16)
+    bwd_idx = _tc_index(cuda_device, g, m, n, k)
+    w_bwd = backward_kernel(w, k, mirror)
+    before = (sparse_conv_dgrad.launches, sparse_conv_dgrad.cuda_core_launches)
+    out = sparse_conv_dgrad(grad, w_bwd, bwd_idx)
+    ref = sparse_conv_ref(grad, w_bwd, _missing_to_n(bwd_idx, m))
+    assert (sparse_conv_dgrad.launches, sparse_conv_dgrad.cuda_core_launches) == (
+        before[0] + 1, before[1])
+    assert out.shape == (n, cin) and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 16), (16, 32), (64, 64)])
+def test_sparse_conv_tensor_cores_local_sorted_index(cuda_device, cin, cout):
+    # whole tiles of a sorted, local index miss some taps (dead taps are
+    # skipped as a whole); both kernels against the plain versions
+    idx, n = _local_index(cuda_device)
+    idx[128:192] = n  # and one tile that misses every tap
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    feats = torch.randn(n, cin, device=cuda_device, generator=g).to(torch.bfloat16)
+    kernel = (torch.randn(27 * cin, cout, device=cuda_device, generator=g) * 0.2).to(torch.bfloat16)
+    grad = torch.randn(n, cout, device=cuda_device, generator=g).to(torch.bfloat16)
+    out = sparse_conv(feats, kernel, idx)
+    ref = sparse_conv_ref(feats, kernel, idx)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    dw = sparse_conv_wgrad(feats, grad, idx)
+    dw_ref = sparse_conv_wgrad_ref(feats, grad, idx)
+    assert (dw - dw_ref).abs().max().item() <= 1e-4 * dw_ref.abs().max().item()
+
+
+@pytest.mark.parametrize("cin,cout,k", ENCODER_CONVS)
+def test_sparse_conv_wgrad_tensor_cores_encoder_widths(cuda_device, cin, cout, k):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    n, m = 3000, 4037
+    feats = torch.randn(n, cin, device=cuda_device, generator=g).to(torch.bfloat16)
+    grad = torch.randn(m, cout, device=cuda_device, generator=g).to(torch.bfloat16)
+    idx = _tc_index(cuda_device, g, n, m, k)
+    before = (sparse_conv_wgrad.launches, sparse_conv_wgrad.cuda_core_launches)
+    dw = sparse_conv_wgrad(feats, grad, idx)
+    ref = sparse_conv_wgrad_ref(feats, grad, _missing_to_n(idx, n))
+    assert (sparse_conv_wgrad.launches, sparse_conv_wgrad.cuda_core_launches) == (
+        before[0] + 1, before[1])
+    assert dw.shape == (k * cin, cout) and dw.dtype == torch.float32
+    # float32 sums of the same exact bf16 products in another order: 1e-4 of scale
+    assert (dw - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    # deterministic: fixed hit lists, fixed warp split, fixed-order reduce
+    assert torch.equal(dw, sparse_conv_wgrad(feats, grad, idx))
+
+
+@pytest.mark.parametrize("smem_bytes", [1536, 6144, 24576])
+@pytest.mark.parametrize("cin,cout", [(4, 16), (32, 64), (64, 128)])
+def test_sparse_conv_wgrad_tensor_cores_short_hit_lists(cuda_device, monkeypatch, smem_bytes,
+                                                        cin, cout):
+    # a small budget gives hit lists of 16-64 entries, flushed many times per tap
+    monkeypatch.setattr(sparse_conv_module, "_TC_WGRAD_SMEM_BYTES", smem_bytes)
+    feats, grad, idx = _conv_inputs(cuda_device, torch.bfloat16, 3000, 2500, cin, cout, 27, seed=3)
+    dw = sparse_conv_wgrad(feats, grad, idx)
+    ref = sparse_conv_wgrad_ref(feats, grad, idx)
+    assert (dw - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(dw, sparse_conv_wgrad(feats, grad, idx))
+
+
+def test_float32_takes_the_cuda_core_kernels(cuda_device):
+    # the float32 route: every wrapper counts a CUDA-core launch, and the
+    # CUDA-core kernels, launched directly, count nothing
+    feats, grad, idx = _conv_inputs(cuda_device, torch.float32, 2000, 1500, 16, 32, 27, seed=4)
+    kernel = torch.randn(27 * 16, 32, device=cuda_device) * 0.2
+    fns = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
+    before = [(f.launches, f.cuda_core_launches) for f in fns]
+    out = sparse_conv(feats, kernel, idx)
+    d_feats = sparse_conv_dgrad(grad, backward_kernel(kernel, 27, True), idx)
+    dw = sparse_conv_wgrad(feats, grad, idx)
+    assert [(f.launches, f.cuda_core_launches) for f in fns] == [(a + 1, b + 1) for a, b in before]
+    assert torch.equal(out, sparse_conv_cuda_cores(feats, kernel, idx))
+    assert torch.equal(dw, sparse_conv_wgrad_cuda_cores(feats, grad, idx))
+    assert [(f.launches, f.cuda_core_launches) for f in fns] == [(a + 1, b + 1) for a, b in before]
+    assert d_feats.shape == (idx.shape[0], 16)  # one row per backward-index row
+
+
+def test_tensor_cores_reject_what_they_cannot_take(cuda_device):
+    idx = torch.zeros(5, 27, dtype=torch.int32, device=cuda_device)
+    bf = torch.bfloat16
+    with pytest.raises(ValueError):  # 6 channels: not whole 8-byte pieces
+        sparse_conv(torch.zeros(10, 6, device=cuda_device, dtype=bf),
+                    torch.zeros(27 * 6, 16, device=cuda_device, dtype=bf), idx)
+    with pytest.raises(ValueError):  # wider than the largest instance
+        sparse_conv(torch.zeros(10, 256, device=cuda_device, dtype=bf),
+                    torch.zeros(27 * 256, 16, device=cuda_device, dtype=bf), idx)
+    with pytest.raises(ValueError):  # a base 8 bytes past a 16-byte boundary
+        sparse_conv(torch.zeros(11, 4, device=cuda_device, dtype=bf)[1:],
+                    torch.zeros(27 * 4, 16, device=cuda_device, dtype=bf), idx)
+    with pytest.raises(ValueError):  # more taps than the live-tap mask holds
+        sparse_conv(torch.zeros(10, 16, device=cuda_device, dtype=bf),
+                    torch.zeros(33 * 16, 16, device=cuda_device, dtype=bf),
+                    torch.zeros(5, 33, dtype=torch.int32, device=cuda_device))
 
 
 @pytest.mark.parametrize("n,c,dtype", [(480000, 4, torch.float32), (96000, 64, torch.bfloat16),
