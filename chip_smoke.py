@@ -6,20 +6,27 @@
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit; the kernels' build time (the CUDA
      sparse convs -- the bf16 tensor-core kernels and the float32 CUDA-core
-     ones -- and the gather probes with nvcc into build/torch_kernels/, one
-     nvcc per source, started together; the Triton masked statistics and
-     their VJP at their first launch); the count of bf16 HMMA instructions
-     in the tensor-core library's SASS (cuobjdump), which must not be 0;
+     ones --, the gather probes and the masked statistics / fused
+     MaskedBatchNorm with nvcc into build/torch_kernels/, one nvcc per
+     source, started together); the count of bf16 HMMA instructions in the
+     tensor-core library's SASS (cuobjdump), which must not be 0;
   2. kernels: the sparse-conv gather-GEMM on the inputs of each of the 12
      encoder convs of a full-width B=6 KITTI forward; its dgrad and wgrad on
      the inputs (feats, g, idx, backward index) of the 12 convs captured
      from one full-width B=6 train step; the masked statistics at
-     [480000, 4] and [96000, 64]; their VJP at [480000, 4], [480000, 128]
-     and [96000, 64] (f32 and bf16). Each against its plain PyTorch version
-     on the card, with times, bounds and a one-call PyTorch yardstick; each
-     bf16 sparse-conv kernel also beside the float32 route's CUDA-core
-     kernel on the same bf16 inputs (prev_ms), and the float32 route on the
-     same convs cast to float32 against its plain version;
+     [480000, 4] and [96000, 64]; the fused MaskedBatchNorm forward and
+     backward at the shapes of a train step's 17 BNs (bf16, train mode; the
+     perturber's ReLU, the encoder's ReLU + row mask) and in eval mode at
+     [480000, 128]; the statistics' VJP at [480000, 4], [480000, 128] and
+     [96000, 64] (f32 and bf16). Each against its plain PyTorch version on
+     the card, bit-identical on a repeat call where it reduces, with times,
+     bounds and a one-call PyTorch yardstick; each bf16 sparse-conv kernel
+     also beside the float32 route's CUDA-core kernel on the same bf16
+     inputs (prev_ms), and the float32 route on the same convs cast to
+     float32 against its plain version; each masked-statistics kernel beside
+     the first design's Triton kernels and eager ops on the same inputs
+     (prev_ms, timed in turns), its inputs cycled over copies that exceed the
+     L2 cache;
   3. serving: the full-width SECOND VoxelNetConfig (bf16, random weights from
      the seed) answers requests of 6 synthetic frames of 20000 points each,
      clean and with attack=True, through cli/export.export_serving; the
@@ -53,9 +60,10 @@ Phases (any failure exits non-zero and prints no result):
      scored); evaluate_kitti_adversarial_attack's entry scores one
      synthetic batch clean and under --method learned, and clean and under
      --method pgd (10 steps). The launch counters are zeroed before each
-     entry and read after (per batch: clean 12 sparse-conv forwards; the
-     learned attack adds 12 forwards and 2 masked statistics; PGD-K adds
-     12*(K+1) forwards and 12*K input gradients, no weight gradient); each
+     entry and read after (per batch: clean 12 sparse-conv forwards and 12
+     BN forwards; the learned attack adds 12 + 17 of them and 2 masked
+     statistics; PGD-K adds 12*(K+1) of each and 12*K input gradients of
+     each, no weight gradient and no bwd_reduce); each
      batch's host plan, device and metric ms are printed, and the device's
      idle share over one batch of each path under torch.profiler.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
@@ -77,6 +85,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # each kernel is the larger of bytes / memory rate and operations / peak
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16_tensor": 989e12, "f32": 67e12}
+L2_BYTES = 50_000_000  # an H100's L2 cache
 
 # bf16 outputs round once to 8 significant bits (2^-8 relative) after a
 # float32 sum in another order: hold errors to 1e-2 of the output's scale
@@ -92,6 +101,11 @@ E2E_F32_RTOL = 1e-3
 WGRAD_RTOL = 1e-4
 # masked-stats VJP: the same float32 formula; bf16 outputs round once (2^-8)
 STATS_BWD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# fused MaskedBatchNorm, bf16 in and out: y and dx round once to bf16 (2^-8)
+# after float32 arithmetic whose statistics and sums run in another order
+BN_RTOL = 1e-2
+# its d gamma / d beta: float32 sums of the same gated products in another order
+BN_PARAM_GRAD_RTOL = 1e-4
 # float32 train-step gradients, card vs CPU: summation order through the
 # whole step (the CPU parity tests measure 1e-4 of each tensor's largest
 # entry against JAX); tensors whose true gradient is 0 are held to 1e-6 of
@@ -103,11 +117,15 @@ TRAIN_GRAD_FLOOR = 1e-6
 # encoder convs runs the forward, the dgrad (every conv's input needs a
 # gradient: the adversary's delta reaches conv_input's features) and the
 # wgrad once; the masked statistics run under the perturber's std
-# normalisation (input without gradient: forward only), its 5 train-mode
-# MaskedBatchNorms, perturbation_losses and the 12 encoder MaskedBatchNorms
-# -> 19 forwards and 18 VJPs
+# normalisation (input without gradient: forward only) and
+# perturbation_losses (forward and VJP); the 17 train-mode MaskedBatchNorms
+# (the perturber's 5 and the encoder's 12) run the fused forward and
+# backward, each backward with bwd_reduce (their parameters train)
 TRAIN_LAUNCHES = {"sparse_conv": 12, "sparse_conv_dgrad": 12, "sparse_conv_wgrad": 12,
-                  "masked_stats": 19, "masked_stats_bwd": 18}
+                  "masked_stats": 2, "masked_stats_bwd": 1, "masked_batch_norm": 17,
+                  "masked_batch_norm_bwd": 17, "bwd_reduce": 17}
+# MaskedBatchNorms of a forward: the encoder's 12, plus the perturber's 5 under attack
+BN_CLEAN, BN_ATTACK = 12, 17
 
 # timed train steps; the prefetch queue (depth 2) and the plan its producer
 # holds are full when the timing starts, so the first PREFETCHED_STEPS steps
@@ -137,20 +155,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, by_kernel: dict = None) -> float:
     """Device time per call: the kernels' own time under torch.profiler,
     without the host's launch gaps that cuda_ms sees when a call's host work
-    outlasts its kernels."""
+    outlasts its kernels; `by_kernel` receives each kernel's share (ms a call)."""
+    import re
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):  # a profile that recorded no kernel at all is taken again
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    if by_kernel is not None:
+        for e in kernels:
+            name = re.search(r"(\w+_kernel)\b", e.key)
+            key = name.group(1) if name else e.key[:40]
+            by_kernel[key] = by_kernel.get(key, 0.0) + e.self_device_time_total / 1e3 / iters
     return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
 
 
@@ -236,7 +264,76 @@ def check_sparse_conv(captured, torch, f32: bool = False):
     return rows, _finish({"fwd": tot})["fwd"]
 
 
-def check_masked_stats(torch, shapes, seed):
+def l2_cold(torch, tensors):
+    """Copies of `tensors` to take in turn, enough to exceed the card's L2
+    twice, so that back-to-back timed calls read their inputs from device
+    memory, as the main path does, and not from L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    k = max(1, min(16, -(-2 * L2_BYTES // nbytes)))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(k - 1)]
+
+
+def in_turn(fn, sets):
+    """A call of fn on each set of arguments in turn."""
+    state = {"i": 0}
+
+    def call():
+        args = sets[state["i"] % len(sets)]
+        state["i"] += 1
+        return fn(*args)
+    return call
+
+
+def make_prev(torch):
+    """The first design of K2 on the card, kept as the yardstick `prev`: the
+    statistics and their VJP as the two Triton passes and the fused Triton VJP
+    (kernels/masked_stats_triton.py), and MaskedBatchNorm as those statistics
+    followed by the eager torch ops (nn/layers.py, ReLU, torch.where)."""
+    from robustpointclouds_tpu_torch.kernels import masked_stats_triton as tri
+
+    def stats(x, mask):
+        n, c = x.shape
+        out = torch.empty(2 * c + 1, dtype=torch.float32, device=x.device)
+        tri.launch(x, mask.view(torch.uint8), out[:c], out[c:2 * c], out[2 * c:], n, c)
+        return out[:c], out[c:2 * c], out[2 * c]
+
+    def stats_bwd(x, mask, mean, cnt, g_mean, g_var):
+        dx = torch.empty_like(x)
+        tri.launch_bwd(x, mask.view(torch.uint8), mean, cnt.reshape(1), g_mean, g_var, dx,
+                       x.shape[0], x.shape[1])
+        return dx
+
+    class Stats(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, mask):
+            mean, var, cnt = stats(x, mask)
+            ctx.save_for_backward(x, mask, mean, cnt)
+            ctx.mark_non_differentiable(cnt)
+            return mean, var, cnt
+
+        @staticmethod
+        def backward(ctx, g_mean, g_var, _):
+            x, mask, mean, cnt = ctx.saved_tensors
+            return stats_bwd(x, mask, mean, cnt, g_mean.contiguous(), g_var.contiguous()), None
+
+    def bn(x, mask, w, b, rm, rv, train, relu, row_mask, out_dtype):
+        if train:
+            mu, var, _ = Stats.apply(x, mask) if x.requires_grad else stats(x, mask)
+            with torch.no_grad():
+                rm.mul_(0.9).add_(0.1 * mu)
+                rv.mul_(0.9).add_(0.1 * var)
+        else:
+            mu, var = rm, rv
+        y = ((x.float() - mu) * torch.rsqrt(var + 1e-3) * w + b).to(out_dtype)
+        if relu:
+            y = torch.relu(y)
+        if row_mask:
+            y = torch.where(mask[:, None], y, torch.zeros_like(y))
+        return y
+    return stats, stats_bwd, bn
+
+
+def check_masked_stats(torch, shapes, seed, prev):
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
         _stats, masked_stats, masked_stats_ref)
 
@@ -253,22 +350,32 @@ def check_masked_stats(torch, shapes, seed):
         if not (err <= MASKED_STATS_RTOL * scale) or cnt.item() != rcnt.item():
             raise RuntimeError(f"masked_stats [{n},{c}]: max error {err} over {scale}, "
                                f"count {cnt.item()} vs {rcnt.item()}")
-        # ms: the public call as serving makes it (no gradient: the launch
-        # itself); raw_ms: that launch (_stats) alone; autograd_ms: the
-        # public call on an input that needs a gradient (the autograd
-        # Function, as in training); device_ms: the kernels' device time
-        t = cuda_ms(lambda: masked_stats(x, mask))
-        t_raw = cuda_ms(lambda: _stats(x, mask))
+        again = masked_stats(x, mask)
+        if not all(torch.equal(a, b) for a, b in zip(again, (mean, var, cnt))):
+            raise RuntimeError(f"masked_stats [{n},{c}]: a repeat call is not bit-identical")
+        # inputs in turn over copies that exceed L2. ms: the public call as
+        # serving makes it (no gradient: the launch itself), timed in turns
+        # with the Triton pair (prev_ms); raw_ms: that launch (_stats)
+        # alone; autograd_ms: the public call on an input that needs a
+        # gradient (the autograd Function); device_ms: the kernels' device time
+        sets = l2_cold(torch, (x, mask))
+        t, t_prev = abba_ms(in_turn(masked_stats, sets), in_turn(prev, sets))
+        t_raw = cuda_ms(in_turn(_stats, sets))
         xg = x.detach().requires_grad_(True)
         t_fn = cuda_ms(lambda: masked_stats(xg, mask))
-        t_dev = device_ms(lambda: _stats(x, mask))
-        t_plain = cuda_ms(lambda: masked_stats_ref(x, mask), iters=5)
-        t_lib = cuda_ms(lambda: torch.var_mean(x[mask].float(), dim=0, unbiased=False), iters=5)
-        nbytes = x.numel() * x.element_size() + n + (2 * c + 1) * 4
+        split = {}
+        t_dev = device_ms(in_turn(_stats, sets), by_kernel=split)
+        t_prev_dev = device_ms(in_turn(prev, sets))
+        t_plain = cuda_ms(in_turn(masked_stats_ref, sets), iters=5)
+        t_lib = cuda_ms(in_turn(lambda a, m: torch.var_mean(a[m].float(), dim=0, unbiased=False),
+                                sets), iters=5)
+        # the bytes this data needs: the mask, x on the rows it keeps, the outputs
+        nbytes = int(rcnt.item()) * c * x.element_size() + n + (2 * c + 1) * 4
         b_ms, by = bound_ms(nbytes, 5.0 * n * c, "f32")
-        rows.append(dict(n=n, c=c, dtype=str(dtype).replace("torch.", ""), ms=t, raw_ms=t_raw,
-                         autograd_ms=t_fn, device_ms=t_dev, plain_ms=t_plain, library_ms=t_lib,
-                         bound_ms=b_ms, bound_by=by, max_abs_err=err))
+        rows.append(dict(n=n, c=c, dtype=str(dtype).replace("torch.", ""), ms=t, prev_ms=t_prev,
+                         raw_ms=t_raw, autograd_ms=t_fn, device_ms=t_dev,
+                         prev_device_ms=t_prev_dev, plain_ms=t_plain, library_ms=t_lib,
+                         bound_ms=b_ms, bound_by=by, max_abs_err=err, device_kernels=split))
     return rows
 
 
@@ -353,7 +460,7 @@ def check_sparse_conv_bwd(captured, torch, f32: bool = False):
     return rows, _finish(tot)
 
 
-def check_masked_stats_bwd(torch, shapes, seed):
+def check_masked_stats_bwd(torch, shapes, seed, prev_bwd):
     """K2's VJP against its plain version; no single PyTorch call computes it."""
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
         masked_stats, masked_stats_bwd, masked_stats_bwd_ref)
@@ -374,15 +481,163 @@ def check_masked_stats_bwd(torch, shapes, seed):
         dname = str(dtype).replace("torch.", "")
         if not err <= STATS_BWD_RTOL[dname] * scale:
             raise RuntimeError(f"masked_stats_bwd [{n},{c}] {dname}: max error {err} over {scale}")
-        t = cuda_ms(lambda: masked_stats_bwd(x, mask, mean, cnt, gm, gv))
-        t_dev = device_ms(lambda: masked_stats_bwd(x, mask, mean, cnt, gm, gv))
-        t_plain = cuda_ms(lambda: masked_stats_bwd_ref(x, mask, mean, cnt, gm, gv), iters=5)
-        nbytes = 2 * x.numel() * x.element_size() + n + (3 * c + 1) * 4
+        if not torch.equal(dx, masked_stats_bwd(x, mask, mean, cnt, gm, gv)):
+            raise RuntimeError(f"masked_stats_bwd [{n},{c}]: a repeat call is not bit-identical")
+        sets = l2_cold(torch, (x, mask))
+        new = in_turn(lambda a, m: masked_stats_bwd(a, m, mean, cnt, gm, gv), sets)
+        old = in_turn(lambda a, m: prev_bwd(a, m, mean, cnt, gm, gv), sets)
+        t, t_prev = abba_ms(new, old)
+        t_dev = device_ms(new)
+        t_prev_dev = device_ms(old)
+        t_plain = cuda_ms(in_turn(lambda a, m: masked_stats_bwd_ref(a, m, mean, cnt, gm, gv),
+                                  sets), iters=5)
+        # the mask and x on the rows it keeps read once (dx is 0 elsewhere
+        # whatever x holds), dx written once
+        nbytes = (int(cnt.item()) + n) * c * x.element_size() + n + (3 * c + 1) * 4
         b_ms, by = bound_ms(nbytes, 5.0 * n * c, "f32")
-        rows.append(dict(n=n, c=c, dtype=dname, ms=t, device_ms=t_dev, plain_ms=t_plain,
-                         library_ms=None,
+        rows.append(dict(n=n, c=c, dtype=dname, ms=t, prev_ms=t_prev, device_ms=t_dev,
+                         prev_device_ms=t_prev_dev, plain_ms=t_plain, library_ms=None,
                          bound_ms=b_ms, bound_by=by, max_abs_err=err))
     return rows
+
+
+# every MaskedBatchNorm of one full-width train step, (name, N, C, count):
+# the perturber's five over the 480000 point slots (ReLU), the encoder's
+# twelve (ReLU + row mask), all bf16 in and out
+BN_TRAIN_SHAPES = [("perturber", 480000, 64, 3), ("perturber", 480000, 128, 2),
+                   ("encoder", 96000, 16, 2), ("encoder", 96000, 32, 3),
+                   ("encoder", 72000, 64, 3), ("encoder", 48000, 64, 3),
+                   ("encoder", 48000, 128, 1)]
+
+
+def check_masked_batch_norm(torch, seed, prev_bn):
+    """The fused MaskedBatchNorm forward and backward at the main path's
+    shapes, train mode (and the attack's eval mode at [480000, 128]), against
+    the plain versions, bit-identical on a repeat call, timed in turns with
+    the Triton statistics + eager ops (prev_ms) on the same inputs. Forward
+    ms: the call without gradient (serving); backward ms: the wrapper;
+    autograd_ms: the backward through autograd, the like of prev_ms. Bounds:
+    the bytes this data needs (each input read once, each output written
+    once) and the two-pass one (the forward reads x twice, the backward x and
+    g twice)."""
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        _bn_forward, _bn_ref, masked_batch_norm, masked_batch_norm_bwd,
+        masked_batch_norm_bwd_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.bfloat16
+    cases = [(name, n, c, count, True) for name, n, c, count in BN_TRAIN_SHAPES]
+    cases.append(("perturber eval", 480000, 128, 0, False))
+    rows = []
+    for name, n, c, count, train in cases:
+        relu, row_mask = True, name == "encoder"
+        x = (torch.randn(n, c, device="cuda", generator=gen) * 3 + 1).to(dt)
+        mask = torch.rand(n, device="cuda", generator=gen) > 0.75
+        w = 0.5 + torch.rand(c, device="cuda", generator=gen)
+        b = torch.randn(c, device="cuda", generator=gen)
+        rm = torch.randn(c, device="cuda", generator=gen)
+        rv = 0.5 + torch.rand(c, device="cuda", generator=gen)
+        gout = torch.randn(n, c, device="cuda", generator=gen).to(dt)
+        flags = (train, 0.1, 1e-3, relu, row_mask, dt)
+        y, mean, var, cnt = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)
+        ref = _bn_ref(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
+        err = (y.float() - ref.float()).abs().max().item()
+        if not err <= BN_RTOL * ref.float().abs().max().item():
+            raise RuntimeError(f"masked_batch_norm {name} [{n},{c}]: max error {err}")
+        grads = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                      row_mask, need_params=train)
+        refs = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                         row_mask)
+        bwd_err = 0.0
+        for got, r, tol in zip(grads, refs, (BN_RTOL, BN_PARAM_GRAD_RTOL, BN_PARAM_GRAD_RTOL)):
+            if got is None:
+                continue
+            e = (got.float() - r.float()).abs().max().item()
+            if not e <= tol * max(r.float().abs().max().item(), 1e-6):
+                raise RuntimeError(f"masked_batch_norm_bwd {name} [{n},{c}]: max error {e}")
+            bwd_err = max(bwd_err, e)
+        y2 = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
+        again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                      row_mask, need_params=train)
+        if not (torch.equal(y, y2) and all(p is None or torch.equal(p, q)
+                                           for p, q in zip(grads, again))):
+            raise RuntimeError(f"masked_batch_norm {name} [{n},{c}]: a repeat is not bit-identical")
+
+        sets = l2_cold(torch, (x, mask, gout, rm.clone(), rv.clone()))
+        new_f = in_turn(lambda a, m, _g, r1, r2: masked_batch_norm(
+            a, m, w, b, r1, r2, train, relu=relu, row_mask=row_mask, out_dtype=dt), sets)
+        old_f = in_turn(lambda a, m, _g, r1, r2: prev_bn(a, m, w, b, r1, r2, train, relu,
+                                                         row_mask, dt), sets)
+        t, t_prev = abba_ms(new_f, old_f)
+        split_f, split_b = {}, {}
+        t_dev, t_prev_dev = device_ms(new_f, by_kernel=split_f), device_ms(old_f)
+        t_plain = cuda_ms(in_turn(lambda a, m, _g, r1, r2: _bn_ref(a, m, w, b, r1, r2, *flags)[0],
+                                  sets), iters=5)
+        # the backward, through autograd (new and prev) and the wrapper alone
+        wg, bg = w.clone().requires_grad_(train), b.clone().requires_grad_(train)
+        graphs_new, graphs_old, wrapped = [], [], []
+        for a, m, gg, r1, r2 in sets:
+            xg = a.detach().requires_grad_(True)
+            leaves = (xg, wg, bg) if train else (xg,)
+            yn = masked_batch_norm(xg, m, wg, bg, r1, r2, train, relu=relu, row_mask=row_mask,
+                                   out_dtype=dt)
+            yo = prev_bn(xg, m, wg, bg, r1, r2, train, relu, row_mask, dt)
+            graphs_new.append((yn, leaves, gg))
+            graphs_old.append((yo, leaves, gg))
+            _, mn, vr, cn = _bn_forward(a, m, w, b, r1.clone(), r2.clone(), *flags)
+            wrapped.append((gg, a, m, mn, vr, cn))
+
+        def backward(yy, leaves, gg):
+            return torch.autograd.grad(yy, leaves, gg, retain_graph=True)
+        bnew, bold = in_turn(backward, graphs_new), in_turn(backward, graphs_old)
+        tb_fn, tb_prev = abba_ms(bnew, bold)
+        wrap = in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd(
+            gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask, need_params=train), wrapped)
+        tb = cuda_ms(wrap)
+        tb_dev, tb_prev_dev = device_ms(wrap, by_kernel=split_b), device_ms(bold)
+        tb_plain = cuda_ms(in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd_ref(
+            gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask), wrapped), iters=5)
+        del graphs_new, graphs_old, wrapped, sets
+
+        # bound_ms counts the bytes this data needs: x (and g) on
+        # every row, or with the row mask only on the rows it keeps (the
+        # statistics read no others), y or dx written once, the mask once;
+        # the two-pass bound reads x (and g) twice in train mode
+        eb, small = x.element_size(), 6 * c * 4
+        passes = 2 if train else 1
+        rows_in = int(mask.sum().item()) if row_mask else n
+        f_one = (rows_in + n) * c * eb + n + small
+        f_two = (passes + 1) * n * c * eb + passes * n + small
+        b_one = (2 * rows_in + n) * c * eb + n + small
+        b_two = (2 * passes + 1) * n * c * eb + passes * n + small
+        fb, fby = bound_ms(f_one, 8.0 * n * c, "f32")
+        bb, bby = bound_ms(b_one, 12.0 * n * c, "f32")
+        common = dict(name=name, n=n, c=c, count=count, train=train, relu=relu,
+                      row_mask=row_mask)
+        rows.append(dict(common, kernel="masked_batch_norm", ms=t, prev_ms=t_prev,
+                         device_ms=t_dev, prev_device_ms=t_prev_dev, plain_ms=t_plain,
+                         library_ms=None, bound_ms=fb, bound_by=fby,
+                         bound_two_pass_ms=f_two / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                         device_kernels=split_f))
+        rows.append(dict(common, kernel="masked_batch_norm_bwd", ms=tb, autograd_ms=tb_fn,
+                         prev_ms=tb_prev, device_ms=tb_dev, prev_device_ms=tb_prev_dev,
+                         plain_ms=tb_plain, library_ms=None, bound_ms=bb, bound_by=bby,
+                         bound_two_pass_ms=b_two / HBM_BYTES_PER_S * 1e3, max_abs_err=bwd_err,
+                         device_kernels=split_b))
+    return rows
+
+
+def bn_step_total(rows, kernel):
+    """One train step's sum over its 17 MaskedBatchNorms (count x each shape)."""
+    tot = {k: 0.0 for k in ("ms", "prev_ms", "device_ms", "prev_device_ms", "plain_ms",
+                            "bound_ms", "bound_two_pass_ms")}
+    err = 0.0
+    for r in rows:
+        if r["kernel"] == kernel and r["train"]:
+            for k in tot:
+                tot[k] += r["count"] * r[k]
+            err = max(err, r["max_abs_err"])
+    return dict(tot, max_abs_err=err)
 
 
 def main() -> int:
@@ -412,7 +667,8 @@ def main() -> int:
     from robustpointclouds_tpu_torch.kernels import _build
     from robustpointclouds_tpu_torch.kernels.gather import (
         gather_elems, gather_onehot, gather_row_loop, gather_rows)
-    from robustpointclouds_tpu_torch.kernels.masked_stats import masked_stats, masked_stats_bwd
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        masked_batch_norm, masked_batch_norm_bwd, masked_stats, masked_stats_bwd)
     from robustpointclouds_tpu_torch.kernels.sparse_conv import (
         sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
     from robustpointclouds_tpu_torch.models.detection import anchor_head_predict
@@ -426,7 +682,8 @@ def main() -> int:
 
     counters = {"sparse_conv": sparse_conv, "sparse_conv_dgrad": sparse_conv_dgrad,
                 "sparse_conv_wgrad": sparse_conv_wgrad, "masked_stats": masked_stats,
-                "masked_stats_bwd": masked_stats_bwd}
+                "masked_stats_bwd": masked_stats_bwd, "masked_batch_norm": masked_batch_norm,
+                "masked_batch_norm_bwd": masked_batch_norm_bwd}
     gather_counters = {"gather_rows": gather_rows, "gather_elems": gather_elems,
                        "gather_row_loop": gather_row_loop, "gather_onehot": gather_onehot}
 
@@ -438,9 +695,12 @@ def main() -> int:
             fn.launches = 0
         for fn in conv_counters.values():
             fn.cuda_core_launches = 0
+        masked_batch_norm_bwd.reduce_launches = 0
 
     def read_counts():
-        return {k: fn.launches for k, fn in counters.items()}
+        """Launches per wrapper; bwd_reduce: the BN backward calls that ran it."""
+        return {**{k: fn.launches for k, fn in counters.items()},
+                "bwd_reduce": masked_batch_norm_bwd.reduce_launches}
 
     def read_core_counts():
         """The sparse-conv launches that took the float32 route's CUDA-core kernels."""
@@ -460,7 +720,7 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     t0 = time.time()
-    sources = ("sparse_conv_tc", "sparse_conv", "gather_probe")
+    sources = ("sparse_conv_tc", "sparse_conv", "gather_probe", "masked_stats")
     handles = [(n, *_build.start_build(n)) for n in sources]  # one nvcc per source
     for _, handle, so in handles:
         _build.finish_build(handle, so)
@@ -474,14 +734,7 @@ def main() -> int:
     hmma = sum(1 for line in sass.splitlines() if "HMMA" in line and "BF16" in line)
     if hmma == 0:
         raise RuntimeError("no bf16 HMMA instruction in the tensor-core sparse-conv library")
-    t0 = time.time()
-    xs = torch.ones(64, 4, device=dev, requires_grad=True)
-    ms_mean, ms_var, _ = masked_stats(xs, torch.ones(64, dtype=torch.bool, device=dev))
-    (ms_mean.sum() + ms_var.sum()).backward()  # the VJP kernel's first launch
-    torch.cuda.synchronize()
-    triton_s = time.time() - t0
-    print(f"build: sparse_conv_tc + sparse_conv + gather_probe nvcc {nvcc_s:.1f} s, "
-          f"masked_stats + VJP triton first launches {triton_s:.1f} s", flush=True)
+    print(f"build: {' + '.join(sources)} nvcc in parallel {nvcc_s:.1f} s", flush=True)
     print(f"sass: {hmma} bf16 HMMA instructions in "
           f"{os.path.basename(_build.library_path('sparse_conv_tc'))}", flush=True)
 
@@ -522,11 +775,25 @@ def main() -> int:
         print("sparse_conv " + json.dumps(r), flush=True)
     for r in f32_conv_rows:
         print("sparse_conv float32 " + json.dumps(r), flush=True)
+    t0 = time.time()
+    prev_stats, prev_stats_bwd, prev_bn = make_prev(torch)
     stats_rows = check_masked_stats(
         torch, [(480000, 4, torch.float32), (96000, 64, torch.float32),
-                (96000, 64, torch.bfloat16)], args.seed)
+                (96000, 64, torch.bfloat16)], args.seed, prev_stats)
     for r in stats_rows:
         print("masked_stats " + json.dumps(r), flush=True)
+    bn_rows = check_masked_batch_norm(torch, args.seed, prev_bn)
+    for r in bn_rows:
+        print("masked_batch_norm " + json.dumps(r), flush=True)
+    bn_tot = {k: bn_step_total(bn_rows, k) for k in ("masked_batch_norm",
+                                                      "masked_batch_norm_bwd")}
+    for k, tot in bn_tot.items():
+        print(f"{k} over the 17 BNs of a train step: {tot['ms']:.4f} ms (device "
+              f"{tot['device_ms']:.4f}), Triton statistics + eager ops on the same inputs "
+              f"{tot['prev_ms']:.4f} ms (device {tot['prev_device_ms']:.4f}), bound "
+              f"{tot['bound_ms']:.4f} ms (two-pass {tot['bound_two_pass_ms']:.4f})", flush=True)
+    print(f"K2 checks and timing (Triton yardstick compiled at its first launch): "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     # the trainer (full width, bf16, B=6) and its input pipeline: host plans
     # (native plan + anchor assignment) built in the prefetch thread
@@ -582,7 +849,7 @@ def main() -> int:
     stats_bwd_rows = check_masked_stats_bwd(
         torch, [(480000, 4, torch.float32), (480000, 128, torch.float32),
                 (480000, 128, torch.bfloat16), (96000, 64, torch.float32),
-                (96000, 64, torch.bfloat16)], args.seed)
+                (96000, 64, torch.bfloat16)], args.seed, prev_stats_bwd)
     for r in stats_bwd_rows:
         print("masked_stats_bwd " + json.dumps(r), flush=True)
 
@@ -613,7 +880,9 @@ def main() -> int:
     expect_tensor_cores("serving")
     n_clean = n_attack = args.requests
     expected = {"sparse_conv": 12 * (n_clean + n_attack), "sparse_conv_dgrad": 0,
-                "sparse_conv_wgrad": 0, "masked_stats": 2 * n_attack, "masked_stats_bwd": 0}
+                "sparse_conv_wgrad": 0, "masked_stats": 2 * n_attack, "masked_stats_bwd": 0,
+                "masked_batch_norm": BN_CLEAN * n_clean + BN_ATTACK * n_attack,
+                "masked_batch_norm_bwd": 0, "bwd_reduce": 0}
     if launches != expected:
         raise RuntimeError(f"unexpected kernel launches on the serving path: {launches}")
     for t in timings:
@@ -623,7 +892,8 @@ def main() -> int:
         print(f"serving {'attack' if attack else 'clean'}: mean serve_ms "
               f"{sum(t['serve_ms'] for t in sel) / len(sel):.3f}, mean plan_ms "
               f"{sum(t['plan_ms'] for t in sel) / len(sel):.3f}; per request: sparse_conv 12 "
-              f"launches, masked_stats {2 if attack else 0}", flush=True)
+              f"launches, masked_stats {2 if attack else 0}, masked_batch_norm "
+              f"{BN_ATTACK if attack else BN_CLEAN}", flush=True)
 
     # ---- phase 4: training, timed steps at epoch 3 (adversary on)
     names = ("middle_encoder.conv_input.0.weight", "backbone.blocks.0.0.weight",
@@ -794,10 +1064,15 @@ def main() -> int:
     image_keys = {f"{c}_{m}_{d}" for c in classes for m in ("2d", "aos")
                   for d in ("easy", "moderate", "hard")}
 
-    def expect(batches, fwd_per_batch, dgrad_per_batch=0, stats_per_batch=0):
+    def expect(batches, fwd_per_batch, dgrad_per_batch=0, stats_per_batch=0, bn_per_batch=12,
+               bn_bwd_per_batch=0):
+        """Launches of an evaluation entry: eval-mode BNs with frozen
+        parameters, so no bwd_reduce and no wgrad."""
         return {"sparse_conv": fwd_per_batch * batches,
                 "sparse_conv_dgrad": dgrad_per_batch * batches, "sparse_conv_wgrad": 0,
-                "masked_stats": stats_per_batch * batches, "masked_stats_bwd": 0}
+                "masked_stats": stats_per_batch * batches, "masked_stats_bwd": 0,
+                "masked_batch_norm": bn_per_batch * batches,
+                "masked_batch_norm_bwd": bn_bwd_per_batch * batches, "bwd_reduce": 0}
 
     eval_summary = {}
 
@@ -841,11 +1116,13 @@ def main() -> int:
     eval_entry("learned", attack_cli.main,
                ["--checkpoint", ckpt_dir, "--synthetic", "--limit", str(EVAL_ATTACK_FRAMES),
                 "--method", "learned"],
-               expect(n_attack, 12 + 12, 0, 2), lidar_keys, EVAL_ATTACK_FRAMES)
+               expect(n_attack, 12 + 12, 0, 2, BN_CLEAN + BN_ATTACK), lidar_keys,
+               EVAL_ATTACK_FRAMES)
     eval_entry("pgd", attack_cli.main,
                ["--checkpoint", ckpt_dir, "--synthetic", "--limit", str(EVAL_ATTACK_FRAMES),
                 "--method", "pgd", "--pgd-steps", str(PGD_STEPS)],
-               expect(n_attack, 12 + 12 * (PGD_STEPS + 1), 12 * PGD_STEPS), lidar_keys,
+               expect(n_attack, 12 + 12 * (PGD_STEPS + 1), 12 * PGD_STEPS, 0,
+                      BN_CLEAN * (PGD_STEPS + 2), BN_CLEAN * PGD_STEPS), lidar_keys,
                EVAL_ATTACK_FRAMES)
 
     # the device's idle share over one synthetic batch of each path
@@ -884,14 +1161,26 @@ def main() -> int:
             row["prev_ms"] = tot["prev_ms"]
         return row
 
+    k2_src = "robustpointclouds_tpu_torch/csrc/masked_stats.cu"
+    k2_tpu = "robustpointclouds_tpu/kernels/masked_stats.py"
+
+    def k2_row(name, line, n_launches, row, bound_by="bytes"):
+        return {"name": name, "route": "cuda", "source": k2_src, "replaces": f"{k2_tpu}:{line}",
+                "launches": n_launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "prev_ms": row["prev_ms"], "device_ms": row["device_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row.get("bound_by", bound_by), "library_ms": row["library_ms"]}
+
     kernels = [
         conv_row("sparse_conv", conv_src, launches["sparse_conv"], conv_tot),
-        {"name": "masked_stats", "route": "triton",
-         "source": "robustpointclouds_tpu_torch/kernels/masked_stats_triton.py",
-         "replaces": "robustpointclouds_tpu/kernels/masked_stats.py:113",
-         "launches": launches["masked_stats"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+        k2_row("masked_stats", 113, launches["masked_stats"], k2),
+        # one train step's 17 BNs, summed; launches over the timed train steps
+        dict(k2_row("masked_batch_norm", 63, train_launches["masked_batch_norm"],
+                    dict(bn_tot["masked_batch_norm"], library_ms=None)),
+             bound_two_pass_ms=bn_tot["masked_batch_norm"]["bound_two_pass_ms"]),
+        dict(k2_row("masked_batch_norm_bwd", 102, train_launches["masked_batch_norm_bwd"],
+                    dict(bn_tot["masked_batch_norm_bwd"], library_ms=None)),
+             bound_two_pass_ms=bn_tot["masked_batch_norm_bwd"]["bound_two_pass_ms"]),
     ]
     for key in ("dgrad", "wgrad"):
         kernels.append(conv_row(f"sparse_conv_{key}", conv_src,
@@ -901,14 +1190,8 @@ def main() -> int:
                      ("_wgrad", f32_bwd_tot["wgrad"])):
         kernels.append(conv_row(f"sparse_conv{key}_f32", core_src,
                                 f32_launches[f"sparse_conv{key}"], tot, prev=False))
-    kb = stats_bwd_rows[0]
-    kernels.append(
-        {"name": "masked_stats_bwd", "route": "triton",
-         "source": "robustpointclouds_tpu_torch/kernels/masked_stats_triton.py",
-         "replaces": "robustpointclouds_tpu/kernels/masked_stats.py:102",
-         "launches": train_launches["masked_stats_bwd"], "max_abs_err": kb["max_abs_err"],
-         "ms": kb["ms"], "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
-         "bound_by": kb["bound_by"], "library_ms": None})
+    kernels.append(k2_row("masked_stats_bwd", 102, train_launches["masked_stats_bwd"],
+                          stats_bwd_rows[0]))
     probe_src = "robustpointclouds_tpu_torch/csrc/gather_probe.cu"
     probe_tpu = "robustpointclouds_tpu/tools/probe_mosaic_gather.py"
     for name, row, line in (("gather_rows", scale["gather_rows"], 118),

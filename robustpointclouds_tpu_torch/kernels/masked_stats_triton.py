@@ -1,7 +1,10 @@
-"""Triton sources of the masked-statistics kernel and its VJP (see kernels/masked_stats.py).
+"""Triton sources of the first masked-statistics kernel and its VJP, kept as a yardstick.
 
-This module imports triton at the top, so it is imported only from inside
-the launching function, on a machine that has Triton and a card.
+No path of the port launches these: kernels/masked_stats.py runs the CUDA
+kernels of csrc/masked_stats.cu. chip_smoke.py times this pair (and the
+eager MaskedBatchNorm ops that followed it) beside them on the same inputs
+as `prev`. This module imports triton at the top, so it is imported only
+from inside the launching function, on a machine that has Triton and a card.
 
 Replaces the Pallas kernel `masked_stats`
 (robustpointclouds_tpu/kernels/masked_stats.py:113, `_kernel` at :32). The

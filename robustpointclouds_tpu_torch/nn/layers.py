@@ -1,15 +1,19 @@
 """Mask-aware statistics and batch norm (counterpart of robustpointclouds_tpu/nn/layers.py).
 
 Sparse voxel tensors are padded to static shapes, so every normalisation
-ignores padding rows through a mask. The masked statistics go through the
-masked-stats kernel (kernels/masked_stats.py).
+ignores padding rows through a mask. The masked statistics and the whole
+MaskedBatchNorm (statistics, normalisation, affine, and optionally ReLU and
+the row mask that follow it) go through the masked-stats kernels
+(kernels/masked_stats.py).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
-from ..kernels.masked_stats import masked_stats
+from ..kernels.masked_stats import masked_batch_norm, masked_stats
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -24,8 +28,9 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     with torch momentum 0.1, i.e. flax momentum 0.9, and the biased variance,
     as the JAX module keeps), running stats in eval. Statistics, running
     stats and parameters are float32; the output is cast to `dtype`. Padding
-    rows are normalised too and masked downstream. The state_dict keys are
-    BatchNorm1d's, so mmdet3d checkpoints load as they are.
+    rows are normalised too and masked downstream, or here with `row_mask`.
+    The state_dict keys are BatchNorm1d's, so mmdet3d checkpoints load as
+    they are.
     """
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
@@ -33,13 +38,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            mu, var, _ = masked_stats(x, mask)
-            with torch.no_grad():
-                self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mu)
-                self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
-        else:
-            mu, var = self.running_mean, self.running_var
-        y = (x.float() - mu) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(self.dtype)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, relu: bool = False,
+                row_mask: bool = False, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The normalised x in `out_dtype` (the module's dtype by default),
+        then ReLU (`relu`) and zeroed rows outside the mask (`row_mask`)."""
+        return masked_batch_norm(x, mask, self.weight, self.bias, self.running_mean,
+                                 self.running_var, self.training, self.momentum, self.eps,
+                                 relu=relu, row_mask=row_mask, out_dtype=out_dtype or self.dtype)

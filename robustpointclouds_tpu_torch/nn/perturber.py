@@ -148,7 +148,8 @@ class VoxelPerturber(nn.Module):
         h = x.to(mlp_dtype)
         for i in range(self.num_layers):
             h = self._dense(getattr(self, f"mlp_{i}"), h)
-            h = torch.relu(getattr(self, f"bn_{i}")(h, mask).to(mlp_dtype))
+            # ReLU after the cast to the MLP's type, fused: rounding commutes with it
+            h = getattr(self, f"bn_{i}")(h, mask, relu=True, out_dtype=mlp_dtype)
         raw = torch.tanh(self._dense(self.mlp_out, h).float())
 
         if self.use_spatial_attention:

@@ -5,10 +5,11 @@ strided k3 s2 conv then two subm k3 convs (32, 64, 64; the last stride has
 z-padding 0); conv_out: strided k(3,1,1) s(2,1,1) (-> 128). Every conv is
 the gather-GEMM kernel (kernels/sparse_conv.py) over a dense neighbour
 index that ops/sparse.py derives from the host plan, followed by
-MaskedBatchNorm, ReLU and the row mask. A dense scatter and a z-fold end the
-encoder. Each conv also gets its backward index for the gather-only
-backward: a submanifold conv its own forward index read with mirrored taps,
-a strided conv (the three downs and conv_out) the plan's inverse `inv`.
+MaskedBatchNorm with ReLU and the row mask fused into its kernels. A dense
+scatter and a z-fold end the encoder. Each conv also gets its backward
+index for the gather-only backward: a submanifold conv its own forward index
+read with mirrored taps, a strided conv (the three downs and conv_out) the
+plan's inverse `inv`.
 
 Module names follow the mmdet3d state_dict (`conv_input`,
 `encoder_layers.encoder_layerN.j`, `conv_out`, each a `0` conv + `1` BN
@@ -85,8 +86,7 @@ class SparseConvBlock(nn.Sequential):
             out = self[0](feats.to(self.dtype), idx, idx, True)
         else:
             out = self[0](feats.to(self.dtype), idx, inv, False)
-        out = torch.relu(self[1](out, out_mask))
-        return torch.where(out_mask[:, None], out, torch.zeros_like(out))
+        return self[1](out, out_mask, relu=True, row_mask=True)
 
 
 def relation_index(rel: Dict[str, torch.Tensor], ids: torch.Tensor) -> torch.Tensor:

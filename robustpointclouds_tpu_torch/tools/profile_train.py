@@ -122,7 +122,7 @@ def main() -> int:
         stages["optimizer"] = e["apply<"].elapsed_time(e["apply>"])
         return builder.timings[-1], (t2 - t1) * 1e3, stages, float(logs["loss"])
 
-    step()  # warm-up: cuDNN plans, Triton compiles, kernel build
+    step()  # warm-up: cuDNN plans, the kernels' build
     runs = [step() for _ in range(args.steps)]
     mean = {k: float(np.mean([r[2][k] for r in runs])) for k in runs[0][2]}
     print(json.dumps({**{k: float(np.mean([r[0][k] for r in runs]))

@@ -9,8 +9,10 @@ import pytest
 import torch
 
 import robustpointclouds_tpu_torch.kernels.sparse_conv as sparse_conv_module
+import robustpointclouds_tpu_torch.kernels.masked_stats as masked_stats_module
 from robustpointclouds_tpu_torch.kernels.masked_stats import (
-    masked_stats, masked_stats_bwd, masked_stats_bwd_ref, masked_stats_ref)
+    masked_batch_norm, masked_batch_norm_bwd, masked_batch_norm_bwd_ref, masked_stats,
+    masked_stats_bwd, masked_stats_bwd_ref, masked_stats_ref)
 from robustpointclouds_tpu_torch.kernels.sparse_conv import (
     backward_kernel, sparse_conv, sparse_conv_cuda_cores, sparse_conv_dgrad, sparse_conv_ref,
     sparse_conv_train, sparse_conv_wgrad, sparse_conv_wgrad_cuda_cores, sparse_conv_wgrad_ref)
@@ -238,17 +240,39 @@ def test_tensor_cores_reject_what_they_cannot_take(cuda_device):
 
 
 @pytest.mark.parametrize("n,c,dtype", [(480000, 4, torch.float32), (96000, 64, torch.bfloat16),
-                                       (1000, 3, torch.float32)])
+                                       (1000, 8, torch.float32)])
 def test_masked_stats_matches_plain_version(cuda_device, n, c, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = (torch.randn(n, c, device=cuda_device, generator=g) * 3 + 1).to(dtype)
     mask = torch.rand(n, device=cuda_device, generator=g) > 0.75
+    before = masked_stats.launches
     mean, var, cnt = masked_stats(x, mask)
+    assert masked_stats.launches == before + 1
     rm, rv, rc = masked_stats_ref(x, mask)
     # float32 statistics, one pass merged by Chan's formula vs two passes
     torch.testing.assert_close(mean, rm, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(var, rv, rtol=1e-4, atol=1e-4)
     assert cnt.item() == rc.item()
+
+
+@pytest.mark.parametrize("c", masked_stats_module.WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 4097, 300001])
+def test_masked_stats_every_width_is_deterministic(cuda_device, c, dtype, n):
+    # ragged N (not a multiple of any block's rows), N = 1, every width and
+    # type; a large offset checks that nothing takes E[x^2] - mean^2
+    g = torch.Generator(device=cuda_device).manual_seed(c + n)
+    x = (torch.randn(n, c, device=cuda_device, generator=g) * 2 + 100).to(dtype)
+    mask = torch.rand(n, device=cuda_device, generator=g) > 0.5
+    mask[0] = True
+    mean, var, cnt = masked_stats(x, mask)
+    rm, rv, rc = masked_stats_ref(x, mask)
+    assert cnt.item() == rc.item()
+    torch.testing.assert_close(mean, rm, rtol=1e-5, atol=1e-5)
+    # float32 variance of values around 100: Chan's merge keeps 1e-4 of it
+    torch.testing.assert_close(var, rv, rtol=1e-4, atol=1e-4 * max(rv.max().item(), 1.0))
+    m2, v2, c2 = masked_stats(x, mask)  # a fixed merge order: bit-identical
+    assert torch.equal(m2, mean) and torch.equal(v2, var) and torch.equal(c2, cnt)
 
 
 def test_masked_stats_all_masked(cuda_device):
@@ -335,7 +359,7 @@ def test_sparse_conv_function_backward_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.parametrize("n,c,dtype", [(480000, 4, torch.float32), (480000, 128, torch.bfloat16),
-                                       (96000, 64, torch.float32), (1000, 3, torch.float32)])
+                                       (96000, 64, torch.float32), (1000, 8, torch.float32)])
 def test_masked_stats_bwd_matches_plain_version(cuda_device, n, c, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = (torch.randn(n, c, device=cuda_device, generator=g) * 3 + 1).to(dtype)
@@ -415,12 +439,157 @@ def test_pgd_launches_forward_and_dgrad_but_no_wgrad(cuda_device):
     b = synthetic_kitti_batch(np.random.RandomState(0), batch_size=2, num_points=512, max_gt=8,
                               num_objects=3, point_range=cfg.voxelizer.point_cloud_range)
     plan = tr.make_plan_builder()(b.points, b.points_mask)
-    counters = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad, masked_stats, masked_stats_bwd)
-    before = [fn.launches for fn in counters]
+    counters = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad, masked_stats, masked_stats_bwd,
+                masked_batch_norm, masked_batch_norm_bwd)
+    before = [fn.launches for fn in counters] + [masked_batch_norm_bwd.reduce_launches]
     steps = 2
     make_plan_attack(tr, steps=steps)(b, plan)
     torch.cuda.synchronize()
     launched = [fn.launches - n for fn, n in zip(counters, before)]
-    # per step: the 12 convs' forward and input gradient; eval-mode BN, no adversary
-    assert launched == [12 * steps, 12 * steps, 0, 0, 0]
+    launched.append(masked_batch_norm_bwd.reduce_launches - before[-1])
+    # per step: the 12 convs' forward and input gradient and the 12 eval-mode
+    # BNs' forward and dx; frozen parameters: no wgrad, no bwd_reduce; no adversary
+    assert launched == [12 * steps, 12 * steps, 0, 0, 0, 12 * steps, 12 * steps, 0]
     assert all(p.requires_grad for p in tr.model.parameters())
+
+
+def _bn_inputs(dev, n, c, dtype, seed, mask_kind="random"):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(n, c, device=dev, generator=g) * 3 + 1).to(dtype)
+    mask = torch.rand(n, device=dev, generator=g) > 0.4
+    if mask_kind == "none":
+        mask[:] = False
+    weight = 0.5 + torch.rand(c, device=dev, generator=g)
+    bias = torch.randn(c, device=dev, generator=g)
+    rmean = torch.randn(c, device=dev, generator=g)
+    rvar = 0.5 + torch.rand(c, device=dev, generator=g)
+    gout = torch.randn(n, c, device=dev, generator=g).to(dtype)
+    return x, mask, weight, bias, rmean, rvar, gout
+
+
+def _close(got, ref, rtol):
+    return (got.float() - ref.float()).abs().max().item() <= rtol * max(
+        ref.float().abs().max().item(), 1e-6)
+
+
+# (relu, row_mask): the perturber's ReLU, SparseConvBlock's ReLU + row mask, none
+EPILOGUES = [(False, False), (True, False), (True, True)]
+
+
+@pytest.mark.parametrize("c", masked_stats_module.WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("relu,row_mask", EPILOGUES)
+def test_masked_batch_norm_matches_plain_version(cuda_device, c, dtype, train, relu, row_mask):
+    n = 4097  # not a multiple of any block's rows
+    x, mask, w, b, rm, rv, gout = _bn_inputs(cuda_device, n, c, dtype, seed=c)
+    rm_ref, rv_ref = rm.clone(), rv.clone()
+    fns = (masked_batch_norm, masked_batch_norm_bwd)
+    before = [f.launches for f in fns] + [masked_batch_norm_bwd.reduce_launches]
+    y, mean, var, cnt = masked_stats_module._bn_forward(x, mask, w, b, rm, rv, train, 0.1, 1e-3,
+                                                        relu, row_mask, dtype)
+    ref, rmean, rvar, rcnt = masked_stats_module._bn_ref(x, mask, w, b, rm_ref, rv_ref, train,
+                                                         0.1, 1e-3, relu, row_mask, dtype)
+    assert y.dtype == dtype
+    # float32: the statistics in another order and one rsqrt; bf16: one output rounding
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _close(y, ref, tol)
+    if row_mask:
+        assert y[~mask].abs().max().item() == 0.0
+    if train:  # one in-place momentum update from the same batch statistics
+        assert _close(rm, rm_ref, 1e-5) and _close(rv, rv_ref, 1e-5)
+        assert cnt.item() == rcnt.item()
+    dx, dw, db = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                       row_mask)
+    rdx, rdw, rdb = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, 1e-3, train,
+                                              relu, row_mask)
+    assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    # float32 sums over N in another order; bf16 dx: one output rounding
+    assert _close(dw, rdw, 1e-4) and _close(db, rdb, 1e-4)
+    assert _close(dx, rdx, 1e-4 if dtype == torch.float32 else 1e-2)
+    after = [f.launches for f in fns] + [masked_batch_norm_bwd.reduce_launches]
+    assert [a - b0 for a, b0 in zip(after, before)] == [1, 1, 1]
+    # a repeat call is bit-identical: fixed grid, fixed merge order
+    y2 = masked_stats_module._bn_forward(x, mask, w, b, rm.clone(), rv.clone(), train, 0.1, 1e-3,
+                                         relu, row_mask, dtype)[0]
+    again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu, row_mask)
+    assert torch.equal(y2, y) and all(torch.equal(p, q) for p, q in zip(again, (dx, dw, db)))
+
+
+@pytest.mark.parametrize("n,mask_kind", [(1, "random"), (1, "none"), (3000, "none")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_batch_norm_one_row_and_empty_mask(cuda_device, n, mask_kind, dtype):
+    x, mask, w, b, rm, rv, gout = _bn_inputs(cuda_device, n, 16, dtype, seed=n, mask_kind=mask_kind)
+    if mask_kind == "random":
+        mask[:] = True
+    rm_ref, rv_ref = rm.clone(), rv.clone()
+    y, mean, var, cnt = masked_stats_module._bn_forward(x, mask, w, b, rm, rv, True, 0.1, 1e-3,
+                                                        True, True, dtype)
+    ref, *_ = masked_stats_module._bn_ref(x, mask, w, b, rm_ref, rv_ref, True, 0.1, 1e-3, True,
+                                          True, dtype)
+    assert cnt.item() == float(mask.sum().item())
+    if mask_kind == "none":  # 0 / 0 / 0, as the plain version gives
+        assert mean.abs().max().item() == 0.0 and var.abs().max().item() == 0.0
+    assert _close(y, ref, 1e-5 if dtype == torch.float32 else 1e-2)
+    assert _close(rm, rm_ref, 1e-6) and _close(rv, rv_ref, 1e-6)
+    dx, dw, db = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, True, True, True)
+    rdx, rdw, rdb = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, 1e-3, True, True,
+                                              True)
+    for got, ref_ in ((dx, rdx), (dw, rdw), (db, rdb)):
+        assert _close(got, ref_, 1e-4 if got.dtype == torch.float32 else 1e-2)
+
+
+def test_masked_batch_norm_autograd_reaches_the_backward_kernels(cuda_device):
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+
+    x, mask, w, b, rm, rv, gout = _bn_inputs(cuda_device, 5000, 64, torch.float32, seed=11)
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        bn = MaskedBatchNorm(64).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(w)
+            bn.bias.copy_(b)
+        xx = x.to(dev, copy=True).requires_grad_(True)
+        before = (masked_batch_norm_bwd.launches, masked_batch_norm_bwd.reduce_launches)
+        y = bn(xx, mask.to(dev), relu=True, row_mask=True)
+        (y * gout.to(dev)).sum().backward()
+        launched = (masked_batch_norm_bwd.launches - before[0],
+                    masked_batch_norm_bwd.reduce_launches - before[1])
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+        res.append([t.detach().cpu() for t in (y, xx.grad, bn.weight.grad, bn.bias.grad,
+                                               bn.running_mean, bn.running_var)])
+    for got, ref in zip(*res):  # the card's kernels vs the CPU's plain versions, float32
+        assert _close(got, ref, 1e-4)
+
+
+def test_eval_with_frozen_parameters_skips_bwd_reduce(cuda_device):
+    x, mask, w, b, rm, rv, gout = _bn_inputs(cuda_device, 3000, 32, torch.bfloat16, seed=12)
+    xx = x.clone().requires_grad_(True)
+    before = (masked_batch_norm_bwd.launches, masked_batch_norm_bwd.reduce_launches)
+    y = masked_batch_norm(xx, mask, w, b, rm, rv, False, relu=True, row_mask=True)
+    (y.float() * gout.float()).sum().backward()
+    assert (masked_batch_norm_bwd.launches - before[0],
+            masked_batch_norm_bwd.reduce_launches - before[1]) == (1, 0)
+    rdx = masked_batch_norm_bwd_ref(gout, x, mask, w, b, rm, rv, None, 1e-3, False, True, True)[0]
+    assert _close(xx.grad, rdx, 1e-2)
+
+
+def test_masked_kernels_reject_what_they_cannot_take(cuda_device):
+    dev = cuda_device
+    mask = torch.ones(10, dtype=torch.bool, device=dev)
+    w, b = torch.ones(12, device=dev), torch.zeros(12, device=dev)
+    with pytest.raises(ValueError):  # 12 channels: not a supported width
+        masked_stats(torch.zeros(10, 12, device=dev), mask)
+    with pytest.raises(ValueError):
+        masked_batch_norm(torch.zeros(10, 12, device=dev), mask, w, b, torch.zeros(12, device=dev),
+                          torch.ones(12, device=dev), True)
+    with pytest.raises(ValueError):  # float16
+        masked_stats(torch.zeros(10, 16, device=dev, dtype=torch.float16), mask)
+    with pytest.raises(ValueError):  # wider than the kernels' 128
+        masked_stats(torch.zeros(10, 256, device=dev), mask)
+    with pytest.raises(ValueError):  # the mask on another device
+        masked_stats(torch.zeros(10, 16, device=dev), mask.cpu())
+    with pytest.raises(ValueError):  # a base 4 bytes past a 16-byte boundary
+        masked_stats(torch.zeros(41, device=dev)[1:].view(10, 4), mask)
+    with pytest.raises(ValueError):  # not contiguous
+        masked_stats(torch.zeros(10, 32, device=dev)[:, ::2], mask)
