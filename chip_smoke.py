@@ -50,8 +50,11 @@ Phases (any failure exits non-zero and prints no result):
      forward and train step the CUDA-core kernels;
   5. the gather probes: tools/probe_gather's main checks the four gather
      kernels against their plain versions at the probe's small shape
-     (exact) and times the row and element gathers at the sparse conv's
-     table size against the bound, the plain version and index_select;
+     (exact) and times them there, and the row, element and row-loop
+     gathers at the sparse conv's table size, against the bound, the plain
+     version and index_select, each with its device time and its host cost
+     per call split into the wrapper's pieces. The one-hot kernel's library
+     must hold HMMA instructions (phase 1);
   6. evaluation: phase 4's trained state is saved by the port's
      CheckpointManager; cli/evaluate_kitti_3class's entry restores it and
      scores the full-width model at B=6, clean, on synthetic 20000-point
@@ -734,9 +737,16 @@ def main() -> int:
     hmma = sum(1 for line in sass.splitlines() if "HMMA" in line and "BF16" in line)
     if hmma == 0:
         raise RuntimeError("no bf16 HMMA instruction in the tensor-core sparse-conv library")
+    # and the one-hot gather probe to fp16 tensor-core products
+    sass = subprocess.run([cuobjdump, "--dump-sass", _build.library_path("gather_probe")],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hmma_probe = sum(1 for line in sass.splitlines() if "HMMA" in line)
+    if hmma_probe == 0:
+        raise RuntimeError("no HMMA instruction in the gather probe library")
     print(f"build: {' + '.join(sources)} nvcc in parallel {nvcc_s:.1f} s", flush=True)
     print(f"sass: {hmma} bf16 HMMA instructions in "
-          f"{os.path.basename(_build.library_path('sparse_conv_tc'))}", flush=True)
+          f"{os.path.basename(_build.library_path('sparse_conv_tc'))}, {hmma_probe} HMMA in "
+          f"{os.path.basename(_build.library_path('gather_probe'))}", flush=True)
 
     # ---- the full-width model and a B=6 request stream
     cfg = VoxelNetConfig()
@@ -1053,7 +1063,8 @@ def main() -> int:
         raise RuntimeError(f"gather kernels disagree with their plain versions: {wrong}")
     small = {r["kernel"]: r for r in probe["small"]}
     scale = {r["kernel"]: r for r in probe["scale"]}
-    if set(scale) != {"gather_rows", "gather_elems"} or not all(probe_launches.values()):
+    if set(scale) != {"gather_rows", "gather_elems", "gather_row_loop"} or not all(
+            probe_launches.values()):
         raise RuntimeError(f"gather probe: timed {sorted(scale)}, launches {probe_launches}")
     print(f"gather probe launches: {json.dumps(probe_launches)}", flush=True)
 
@@ -1198,12 +1209,17 @@ def main() -> int:
                             ("gather_elems", scale["gather_elems"], 65),
                             ("gather_row_loop", small["gather_row_loop"], 65),
                             ("gather_onehot", small["gather_onehot"], 65)):
-        kernels.append(
-            {"name": name, "route": "cuda", "source": probe_src,
-             "replaces": f"{probe_tpu}:{line}", "launches": probe_launches[name],
-             "max_abs_err": max(small[name]["max_abs_err"], row["max_abs_err"]),
-             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": probe_src,
+                 "replaces": f"{probe_tpu}:{line}", "launches": probe_launches[name],
+                 "max_abs_err": max(small[name]["max_abs_err"], row["max_abs_err"]),
+                 **{k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                 "host_us": row["host"], "shape": [row["n"], row["c"], row["m"], row["dtype"]]}
+        if name == "gather_row_loop":  # also at the sparse conv's table size
+            entry["scale"] = {k: scale[name][k] for k in (
+                "n", "c", "m", "dtype", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")}
+        kernels.append(entry)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

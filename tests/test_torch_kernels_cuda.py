@@ -5,6 +5,8 @@ torch only, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -423,6 +425,120 @@ def test_gather_rows_rejects_unaligned_rows(cuda_device):
         gather_rows(torch.zeros(10, 6, device=cuda_device), idx)
     with pytest.raises(TypeError):
         gather_rows(torch.zeros(10, 8, device=cuda_device), idx.long())
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _gather_inputs(dev, dtype, n, c, m, seed, specials=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, c, device=dev, generator=g)
+    x = x * torch.exp2(torch.randint(-140, 120, (n, c), device=dev, generator=g).float())
+    if specials:  # -0, subnormals of both types, extremes, Inf and NaN in row 0
+        vals = [0.0, -0.0, 1e-45, -1e-40, 2.0 ** -133, 3.4028235e38, float("inf"),
+                float("-inf"), float("nan")]
+        x[0, :min(c, len(vals))] = torch.tensor(vals[:c], device=dev)
+    x = x.to(dtype)
+    # indices in [-2, n]: n and negatives are misses and read zeros; ragged m
+    idx = torch.randint(-2, n + 1, (m,), device=dev, generator=g, dtype=torch.int32)
+    k = min(m, 4)
+    idx[:k] = torch.tensor([n, -1, 0, 0][:k], device=dev, dtype=torch.int32)
+    return x, idx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,m", [(512, 128, 256), (96, 3, 1001), (777, 72, 4099),
+                                   (300, 36, 8193), (5000, 8, 2_300_000), (64, 1, 5)])
+def test_gather_row_loop_is_exact(cuda_device, dtype, n, c, m):
+    from robustpointclouds_tpu_torch.kernels import gather as gmod
+
+    x, idx = _gather_inputs(cuda_device, dtype, n, c, m, seed=n + c, specials=True)
+    plan = gmod.row_loop_plan(m, c, x.element_size(), gmod._align(x))
+    if m > 4096:
+        assert plan.blocks > 1 and plan.rows_per_block <= 4096
+    before = gmod.gather_row_loop.launches
+    out = gmod.gather_row_loop(x, idx)
+    again = gmod.gather_row_loop(x, idx)
+    assert gmod.gather_row_loop.launches == before + 2
+    ref = gmod.gather_ref(x, idx.masked_fill(idx < 0, n))
+    assert torch.equal(_bits(out), _bits(ref)) and torch.equal(_bits(again), _bits(out))
+    assert not _bits(out[:2]).any()  # the misses read +0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_gather_row_loop_takes_unaligned_bases(cuda_device, dtype, offset):
+    from robustpointclouds_tpu_torch.kernels import gather as gmod
+
+    big, idx = _gather_inputs(cuda_device, dtype, 401, 16, 3000, seed=7)
+    x = big.view(-1)[offset:offset + 400 * 16].view(400, 16)  # a contiguous view off the base
+    assert x.data_ptr() % 16
+    out = gmod.gather_row_loop(x, idx)
+    ref = gmod.gather_ref(x, idx.masked_fill(idx < 0, 400).clamp(max=400))
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,m", [(512, 128, 256), (96, 3, 1001), (200, 72, 1001),
+                                   (130, 36, 4099), (1000, 64, 3), (17, 1, 40)])
+def test_gather_onehot_tensor_cores_are_exact(cuda_device, dtype, n, c, m):
+    from robustpointclouds_tpu_torch.kernels import gather as gmod
+
+    x, idx = _gather_inputs(cuda_device, dtype, n, c, m, seed=n * c, specials=True)
+    before = gmod.gather_onehot.launches
+    out = gmod.gather_onehot(x, idx)
+    again = gmod.gather_onehot(x, idx)
+    assert gmod.gather_onehot.launches == before + 2
+    misses = idx.masked_fill(idx < 0, n)
+    # x[idx] bit for bit: -0, subnormals, Inf and NaN as they are
+    assert torch.equal(_bits(out), _bits(gmod.gather_ref(x, misses)))
+    assert torch.equal(_bits(again), _bits(out))
+    # the plane arithmetic's plain version gives the same words
+    planes = gmod.gather_onehot_planes_ref(x.cpu(), misses.cpu())
+    assert torch.equal(_bits(out.cpu()), _bits(planes))
+    # on columns of finite, normal values it is the probe's float product
+    xf = x.float().abs()
+    ok = (torch.isfinite(xf) & ((xf >= torch.finfo(torch.float32).tiny) | (xf == 0))).all(0)
+    prod = gmod.gather_onehot_ref(x, misses)
+    assert torch.equal(out[:, ok], prod[:, ok])
+
+
+def test_gather_probe_kernels_reject_what_they_cannot_take(cuda_device):
+    from robustpointclouds_tpu_torch.kernels import gather as gmod
+
+    x = torch.zeros(10, 8, device=cuda_device)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    for fn in (gmod.gather_row_loop, gmod.gather_onehot):
+        with pytest.raises(TypeError):
+            fn(x, idx.long())
+        with pytest.raises(TypeError):
+            fn(x.half(), idx)
+        with pytest.raises(ValueError):
+            fn(x.t(), idx)  # not contiguous
+        with pytest.raises(ValueError):
+            fn(x, idx.cpu())
+        with pytest.raises(ValueError):
+            fn(x.view(10, 2, 4), idx)
+    # the C entry points refuse a plan the inputs do not allow
+    out = torch.empty(4, 8, device=cuda_device)
+    stream = gmod._stream(x.get_device())
+    xs = x.view(-1)[1:73].view(9, 8)  # a base 4 bytes off a 16-byte boundary
+
+    def plan(*fields):
+        return (ctypes.c_int64 * len(fields))(*fields)
+
+    row_loop, onehot = gmod._fn("rpc_gather_row_loop"), gmod._fn("rpc_gather_onehot")
+    args = (xs.data_ptr(), idx.data_ptr(), out.data_ptr(), 4, 9)
+    assert row_loop(*args, plan(8, 4, *gmod.row_loop_plan(4, 8, 4, 4)), stream) == 0
+    assert row_loop(*args, plan(8, 4, 16, 2, 128, 8, 1), stream) != 0  # 16-byte vectors
+    assert row_loop(*args, plan(8, 4, 4, 8, 64, 8192, 1), stream) != 0  # > 4096 rows staged
+    assert onehot(*args, plan(8, 4, *gmod.onehot_plan(4, 8, 4, 4)), stream) == 0
+    assert onehot(*args, plan(8, 4, 1, 1, 1, 16, 4), stream) != 0  # 16-byte stages
+    assert onehot(*args, plan(8, 4, 3, 1, 1, 0, 4), stream) != 0  # 3 row warps
+    assert onehot(*args, plan(8, 4, 1, 2, 1, 0, 4), stream) != 0  # a grid that disagrees
+    assert onehot(*args, plan(8, 4, 1, 1, 1, 0, 3), stream) != 0  # float32 takes 4 planes
+    torch.cuda.synchronize()
 
 
 def test_pgd_launches_forward_and_dgrad_but_no_wgrad(cuda_device):
