@@ -5,11 +5,13 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit; the kernels' build time (the CUDA
-     sparse convs -- the bf16 tensor-core kernels and the float32 CUDA-core
-     ones --, the gather probes and the masked statistics / fused
+     sparse convs -- the bf16 tensor-core kernels, the float32 3xTF32
+     tensor-core kernels and the first design's CUDA-core ones, kept as a
+     yardstick --, the gather probes and the masked statistics / fused
      MaskedBatchNorm with nvcc into build/torch_kernels/, one nvcc per
      source, started together); the count of bf16 HMMA instructions in the
-     tensor-core library's SASS (cuobjdump), which must not be 0;
+     bf16 library's SASS and of TF32 HMMA instructions in the float32
+     library's (cuobjdump), neither of which may be 0;
   2. kernels: the sparse-conv gather-GEMM on the inputs of each of the 12
      encoder convs of a full-width B=6 KITTI forward; its dgrad and wgrad on
      the inputs (feats, g, idx, backward index) of the 12 convs captured
@@ -20,10 +22,12 @@ Phases (any failure exits non-zero and prints no result):
      [480000, 128]; the statistics' VJP at [480000, 4], [480000, 128] and
      [96000, 64] (f32 and bf16). Each against its plain PyTorch version on
      the card, bit-identical on a repeat call where it reduces, with times,
-     bounds and a one-call PyTorch yardstick; each bf16 sparse-conv kernel
-     also beside the float32 route's CUDA-core kernel on the same bf16
-     inputs (prev_ms), and the float32 route on the same convs cast to
-     float32 against its plain version; each masked-statistics kernel beside
+     device times (device_ms: only the named kernels' records under
+     torch.profiler, exactly one set a call, else "not measured"), bounds
+     and a one-call PyTorch yardstick; each sparse-conv kernel, bf16 and
+     the float32 route on the same convs cast to float32, also beside the
+     first design's CUDA-core kernel on the same inputs (prev_ms, timed in
+     turns); each masked-statistics kernel beside
      the first design's Triton kernels and eager ops on the same inputs
      (prev_ms, timed in turns), its inputs cycled over copies that exceed the
      L2 cache;
@@ -45,9 +49,9 @@ Phases (any failure exits non-zero and prints no result):
      launch counts; prints ms per step, frames/s and each plan build's
      native-plan and anchor-assignment ms. A
      float32 train step's gradients on a small grid are held against the
-     same step on the CPU; every sparse-conv launch of the bf16 main path
-     must take the tensor-core kernels, every one of the float32 small-grid
-     forward and train step the CUDA-core kernels;
+     same step on the CPU; no sparse-conv launch of the bf16 main path may
+     take the float32 kernels, and every one of the float32 small-grid
+     forward and train step must take them (the 3xTF32 kernels);
   5. the gather probes: tools/probe_gather's main checks the four gather
      kernels against their plain versions at the probe's small shape
      (exact) and times them there, and the row, element and row-loop
@@ -87,14 +91,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of
 # each kernel is the larger of bytes / memory rate and operations / peak
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16_tensor": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16_tensor": 989e12, "tf32_tensor": 495e12, "f32": 67e12}
 L2_BYTES = 50_000_000  # an H100's L2 cache
 
 # bf16 outputs round once to 8 significant bits (2^-8 relative) after a
 # float32 sum in another order: hold errors to 1e-2 of the output's scale
 SPARSE_CONV_RTOL = 1e-2
 # the float32 route's forward and dgrad vs the plain float32 matmul (TF32
-# off): summation order only
+# off): summation order, and the 3xTF32 split's ~2^-21 of each product
 F32_CONV_RTOL = 1e-5
 # float32 statistics, one pass with Chan's merge vs two passes: 1e-4 of scale
 MASKED_STATS_RTOL = 1e-4
@@ -158,31 +162,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, by_kernel: dict = None) -> float:
-    """Device time per call: the kernels' own time under torch.profiler,
-    without the host's launch gaps that cuda_ms sees when a call's host work
-    outlasts its kernels; `by_kernel` receives each kernel's share (ms a call)."""
-    import re
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a profile that recorded no kernel at all is taken again
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels:
-            break
-    if by_kernel is not None:
-        for e in kernels:
-            name = re.search(r"(\w+_kernel)\b", e.key)
-            key = name.group(1) if name else e.key[:40]
-            by_kernel[key] = by_kernel.get(key, 0.0) + e.self_device_time_total / 1e3 / iters
-    return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def bound_ms(nbytes: float, ops: float, peak: str):
@@ -202,14 +183,19 @@ def abba_ms(fn, prev, iters: int = 10):
 
 
 def _new_total():
-    return {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0}
+    return {"ms": 0.0, "prev_ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0}
 
 
 def _add(acc, row, nbytes, ops, peak):
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "prev_ms", "plain_ms", "library_ms", "bound_ms"):
         acc[key] += row[key]
-    acc["prev_ms"] += row.get("prev_ms") or 0.0
+    # a conv whose device time was not measured leaves the sum not measured
+    acc["device_ms"] = (None if acc["device_ms"] is None or row["device_ms"] is None
+                        else acc["device_ms"] + row["device_ms"])
+    if "bound_f32_cuda_cores_ms" in row:
+        acc["bound_f32_cuda_cores_ms"] = (acc.get("bound_f32_cuda_cores_ms", 0.0)
+                                          + row["bound_f32_cuda_cores_ms"])
     acc["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
     acc["ops_ms"] += ops / PEAK_OPS[peak] * 1e3
     acc["err"] = max(acc["err"], row["max_abs_err"])
@@ -221,16 +207,58 @@ def _finish(tot):
     return tot
 
 
+# the kernels one call of each K1 route launches, by name, for device_ms
+K1_KERNELS = {
+    (False, "gemm"): {"sparse_conv_tc_fwd_kernel": 1},
+    (False, "wgrad"): {"sparse_conv_tc_wgrad_kernel": 1, "sparse_conv_tc_wgrad_reduce_kernel": 1},
+    (True, "gemm"): {"sparse_conv_tf32_fwd_kernel": 1},
+    (True, "wgrad"): {"sparse_conv_tf32_wgrad_kernel": 1,
+                      "sparse_conv_tf32_wgrad_reduce_kernel": 1},
+}
+
+
+def _time_conv(tot, f32, kind, fn, prev, plain, lib, nbytes, hits, cin, cout, row):
+    """Time one K1 call of a captured conv and add it to `tot`: the kernel
+    and the first design's CUDA-core kernel on the same inputs in turns
+    (ms, prev_ms), its device time, the plain version and the library call.
+    The bound counts 2*hits*Cin*Cout products: on the bf16 tensor cores, or
+    three tf32 ones each (the float32 route's 3xTF32 split), beside which a
+    float32 row keeps the bound of the same products on the CUDA cores."""
+    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
+
+    row["ms"], row["prev_ms"] = abba_ms(fn, prev)
+    row["device_ms"] = device_ms(fn, 10, kernels=K1_KERNELS[(f32, kind)])
+    row["plain_ms"] = cuda_ms(plain, iters=5)
+    row["library_ms"] = cuda_ms(lib, iters=5)
+    ops = 2.0 * hits * cin * cout
+    if f32:
+        ops, peak = 3 * ops, "tf32_tensor"
+        row["bound_f32_cuda_cores_ms"] = bound_ms(nbytes, ops / 3, "f32")[0]
+    else:
+        peak = "bf16_tensor"
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, peak)
+    # no time can read below the bound: a CUDA-event time that does is a
+    # fault of the run, a profiler record that does is not a measurement
+    if row["ms"] < row["bound_ms"]:
+        raise RuntimeError(f"K1 {kind} {row}: {row['ms']} ms is below its bound")
+    if row["device_ms"] is not None and row["device_ms"] < row["bound_ms"]:
+        print(f"K1 {kind} {row['conv']}: device time {row['device_ms']} ms below the bound "
+              f"{row['bound_ms']}: not measured", flush=True)
+        row["device_ms"] = None
+    _add(tot, row, nbytes, ops, peak)
+    return row
+
+
 def check_sparse_conv(captured, torch, f32: bool = False):
     """K1 forward on each captured (feats, kernel, idx) of the main path vs
-    its plain version: the bf16 tensor-core kernel, timed beside the
-    CUDA-core kernel on the same inputs (prev_ms); with f32, the float32
-    route on the same convs cast to float32."""
+    its plain version: the bf16 tensor-core kernel or, with f32, the float32
+    route's 3xTF32 kernel on the same convs cast to float32; each timed
+    beside the CUDA-core kernel on the same inputs (prev_ms)."""
     from robustpointclouds_tpu_torch.kernels.sparse_conv import (
         sparse_conv, sparse_conv_cuda_cores, sparse_conv_ref)
 
     rows, tot = [], _new_total()
-    rtol, peak = (F32_CONV_RTOL, "f32") if f32 else (SPARSE_CONV_RTOL, "bf16_tensor")
+    rtol = F32_CONV_RTOL if f32 else SPARSE_CONV_RTOL
     for name, feats, kernel, idx in captured:
         if f32:
             feats, kernel = feats.float(), kernel.float()
@@ -246,24 +274,16 @@ def check_sparse_conv(captured, torch, f32: bool = False):
             raise RuntimeError(f"sparse_conv {feats.dtype} {name}: max error {err} over scale {scale}")
         feats_pad = torch.cat([feats, feats.new_zeros(1, cin)], 0)
         flat = idx.reshape(-1).long()
-        if f32:
-            t, t_prev = cuda_ms(lambda: sparse_conv(feats, kernel, idx), iters=5), None
-        else:
-            t, t_prev = abba_ms(lambda: sparse_conv(feats, kernel, idx),
-                                lambda: sparse_conv_cuda_cores(feats, kernel, idx))
-        t_plain = cuda_ms(lambda: sparse_conv_ref(feats, kernel, idx), iters=5)
-        t_lib = cuda_ms(lambda: torch.matmul(
-            torch.index_select(feats_pad, 0, flat).view(m, k * cin), kernel), iters=5)
         hits = int((idx < n).sum().item())
         eb = feats.element_size()
         nbytes = idx.numel() * 4 + n * cin * eb + kernel.numel() * eb + m * cout * eb
-        ops = 2.0 * hits * cin * cout
-        b_ms, by = bound_ms(nbytes, ops, peak)
-        row = dict(conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits, ms=t,
-                   prev_ms=t_prev, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                   bound_by=by, max_abs_err=err)
-        rows.append(row)
-        _add(tot, row, nbytes, ops, peak)
+        rows.append(_time_conv(
+            tot, f32, "gemm", lambda: sparse_conv(feats, kernel, idx),
+            lambda: sparse_conv_cuda_cores(feats, kernel, idx),
+            lambda: sparse_conv_ref(feats, kernel, idx),
+            lambda: torch.matmul(torch.index_select(feats_pad, 0, flat).view(m, k * cin), kernel),
+            nbytes, hits, cin, cout,
+            dict(conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits, max_abs_err=err)))
     return rows, _finish({"fwd": tot})["fwd"]
 
 
@@ -339,6 +359,7 @@ def make_prev(torch):
 def check_masked_stats(torch, shapes, seed, prev):
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
         _stats, masked_stats, masked_stats_ref)
+    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
@@ -367,8 +388,8 @@ def check_masked_stats(torch, shapes, seed, prev):
         xg = x.detach().requires_grad_(True)
         t_fn = cuda_ms(lambda: masked_stats(xg, mask))
         split = {}
-        t_dev = device_ms(in_turn(_stats, sets), by_kernel=split)
-        t_prev_dev = device_ms(in_turn(prev, sets))
+        t_dev = device_ms(in_turn(_stats, sets), 20, kernels={"stats_kernel": 1}, by_kernel=split)
+        t_prev_dev = device_ms(in_turn(prev, sets), 20)
         t_plain = cuda_ms(in_turn(masked_stats_ref, sets), iters=5)
         t_lib = cuda_ms(in_turn(lambda a, m: torch.var_mean(a[m].float(), dim=0, unbiased=False),
                                 sets), iters=5)
@@ -392,7 +413,7 @@ def check_sparse_conv_bwd(captured, torch, f32: bool = False):
 
     rows = []
     tot = {key: _new_total() for key in ("dgrad", "wgrad")}
-    rtol, peak = (F32_CONV_RTOL, "f32") if f32 else (SPARSE_CONV_RTOL, "bf16_tensor")
+    rtol = F32_CONV_RTOL if f32 else SPARSE_CONV_RTOL
     for name, feats, kernel, idx, bwd_idx, mirror, g in captured:
         if f32:
             feats, kernel, g = feats.float(), kernel.float(), g.float()
@@ -412,23 +433,16 @@ def check_sparse_conv_bwd(captured, torch, f32: bool = False):
                                f"{scale}")
         g_pad = torch.cat([g, g.new_zeros(1, cout)], 0)
         bflat = bwd_idx.reshape(-1).long()
-        if f32:
-            t, t_prev = cuda_ms(lambda: sparse_conv_dgrad(g, w_bwd, bwd_idx), iters=5), None
-        else:
-            t, t_prev = abba_ms(lambda: sparse_conv_dgrad(g, w_bwd, bwd_idx),
-                                lambda: sparse_conv_cuda_cores(g, w_bwd, bwd_idx))
-        t_plain = cuda_ms(lambda: sparse_conv_ref(g, w_bwd, bwd_idx), iters=5)
-        t_lib = cuda_ms(lambda: torch.matmul(
-            torch.index_select(g_pad, 0, bflat).view(n, k * cout), w_bwd), iters=5)
         hits = int((bwd_idx < m).sum().item())
         nbytes = bwd_idx.numel() * 4 + m * cout * eb + w_bwd.numel() * eb + n * cin * eb
-        ops = 2.0 * hits * cin * cout
-        b_ms, by = bound_ms(nbytes, ops, peak)
-        row = dict(kernel="dgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
-                   ms=t, prev_ms=t_prev, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                   bound_by=by, max_abs_err=err)
-        rows.append(row)
-        _add(tot["dgrad"], row, nbytes, ops, peak)
+        rows.append(_time_conv(
+            tot["dgrad"], f32, "gemm", lambda: sparse_conv_dgrad(g, w_bwd, bwd_idx),
+            lambda: sparse_conv_cuda_cores(g, w_bwd, bwd_idx),
+            lambda: sparse_conv_ref(g, w_bwd, bwd_idx),
+            lambda: torch.matmul(torch.index_select(g_pad, 0, bflat).view(n, k * cout), w_bwd),
+            nbytes, hits, cin, cout,
+            dict(kernel="dgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
+                 max_abs_err=err)))
         # wgrad: dW [K*Cin, Cout] float32 over the forward index, bit-identical
         # from call to call
         dw = sparse_conv_wgrad(feats, g, idx)
@@ -443,23 +457,16 @@ def check_sparse_conv_bwd(captured, torch, f32: bool = False):
             raise RuntimeError(f"sparse_conv_wgrad {feats.dtype} {name}: not deterministic")
         feats_pad = torch.cat([feats, feats.new_zeros(1, cin)], 0)
         flat = idx.reshape(-1).long()
-        if f32:
-            t, t_prev = cuda_ms(lambda: sparse_conv_wgrad(feats, g, idx), iters=5), None
-        else:
-            t, t_prev = abba_ms(lambda: sparse_conv_wgrad(feats, g, idx),
-                                lambda: sparse_conv_wgrad_cuda_cores(feats, g, idx))
-        t_plain = cuda_ms(lambda: sparse_conv_wgrad_ref(feats, g, idx), iters=5)
-        t_lib = cuda_ms(lambda: torch.matmul(
-            torch.index_select(feats_pad, 0, flat).view(m, k * cin).t(), g), iters=5)
         hits = int((idx < n).sum().item())
         nbytes = idx.numel() * 4 + n * cin * eb + m * cout * eb + k * cin * cout * 4
-        ops = 2.0 * hits * cin * cout
-        b_ms, by = bound_ms(nbytes, ops, peak)
-        row = dict(kernel="wgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
-                   ms=t, prev_ms=t_prev, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                   bound_by=by, max_abs_err=err)
-        rows.append(row)
-        _add(tot["wgrad"], row, nbytes, ops, peak)
+        rows.append(_time_conv(
+            tot["wgrad"], f32, "wgrad", lambda: sparse_conv_wgrad(feats, g, idx),
+            lambda: sparse_conv_wgrad_cuda_cores(feats, g, idx),
+            lambda: sparse_conv_wgrad_ref(feats, g, idx),
+            lambda: torch.matmul(torch.index_select(feats_pad, 0, flat).view(m, k * cin).t(), g),
+            nbytes, hits, cin, cout,
+            dict(kernel="wgrad", conv=name, n=n, m=m, k=k, cin=cin, cout=cout, hits=hits,
+                 max_abs_err=err)))
     return rows, _finish(tot)
 
 
@@ -467,6 +474,7 @@ def check_masked_stats_bwd(torch, shapes, seed, prev_bwd):
     """K2's VJP against its plain version; no single PyTorch call computes it."""
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
         masked_stats, masked_stats_bwd, masked_stats_bwd_ref)
+    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
@@ -490,8 +498,8 @@ def check_masked_stats_bwd(torch, shapes, seed, prev_bwd):
         new = in_turn(lambda a, m: masked_stats_bwd(a, m, mean, cnt, gm, gv), sets)
         old = in_turn(lambda a, m: prev_bwd(a, m, mean, cnt, gm, gv), sets)
         t, t_prev = abba_ms(new, old)
-        t_dev = device_ms(new)
-        t_prev_dev = device_ms(old)
+        t_dev = device_ms(new, 20, kernels={"vjp_kernel": 1})
+        t_prev_dev = device_ms(old, 20)
         t_plain = cuda_ms(in_turn(lambda a, m: masked_stats_bwd_ref(a, m, mean, cnt, gm, gv),
                                   sets), iters=5)
         # the mask and x on the rows it keeps read once (dx is 0 elsewhere
@@ -526,6 +534,7 @@ def check_masked_batch_norm(torch, seed, prev_bn):
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
         _bn_forward, _bn_ref, masked_batch_norm, masked_batch_norm_bwd,
         masked_batch_norm_bwd_ref)
+    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = torch.bfloat16
@@ -573,7 +582,9 @@ def check_masked_batch_norm(torch, seed, prev_bn):
                                                          row_mask, dt), sets)
         t, t_prev = abba_ms(new_f, old_f)
         split_f, split_b = {}, {}
-        t_dev, t_prev_dev = device_ms(new_f, by_kernel=split_f), device_ms(old_f)
+        fwd_kernels = {"stats_kernel": 1, "apply_kernel": 1} if train else {"apply_kernel": 1}
+        t_dev = device_ms(new_f, 20, kernels=fwd_kernels, by_kernel=split_f)
+        t_prev_dev = device_ms(old_f, 20)
         t_plain = cuda_ms(in_turn(lambda a, m, _g, r1, r2: _bn_ref(a, m, w, b, r1, r2, *flags)[0],
                                   sets), iters=5)
         # the backward, through autograd (new and prev) and the wrapper alone
@@ -597,7 +608,9 @@ def check_masked_batch_norm(torch, seed, prev_bn):
         wrap = in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd(
             gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask, need_params=train), wrapped)
         tb = cuda_ms(wrap)
-        tb_dev, tb_prev_dev = device_ms(wrap, by_kernel=split_b), device_ms(bold)
+        bwd_kernels = {"bwd_reduce_kernel": 1, "dx_kernel": 1} if train else {"dx_kernel": 1}
+        tb_dev = device_ms(wrap, 20, kernels=bwd_kernels, by_kernel=split_b)
+        tb_prev_dev = device_ms(bold, 20)
         tb_plain = cuda_ms(in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd_ref(
             gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask), wrapped), iters=5)
         del graphs_new, graphs_old, wrapped, sets
@@ -631,14 +644,16 @@ def check_masked_batch_norm(torch, seed, prev_bn):
 
 
 def bn_step_total(rows, kernel):
-    """One train step's sum over its 17 MaskedBatchNorms (count x each shape)."""
+    """One train step's sum over its 17 MaskedBatchNorms (count x each
+    shape); a device time that one shape did not measure leaves the sum not
+    measured (None)."""
     tot = {k: 0.0 for k in ("ms", "prev_ms", "device_ms", "prev_device_ms", "plain_ms",
                             "bound_ms", "bound_two_pass_ms")}
     err = 0.0
     for r in rows:
         if r["kernel"] == kernel and r["train"]:
             for k in tot:
-                tot[k] += r["count"] * r[k]
+                tot[k] = None if tot[k] is None or r[k] is None else tot[k] + r["count"] * r[k]
             err = max(err, r["max_abs_err"])
     return dict(tot, max_abs_err=err)
 
@@ -697,7 +712,7 @@ def main() -> int:
         for fn in (*counters.values(), *gather_counters.values()):
             fn.launches = 0
         for fn in conv_counters.values():
-            fn.cuda_core_launches = 0
+            fn.tf32_launches = 0
         masked_batch_norm_bwd.reduce_launches = 0
 
     def read_counts():
@@ -705,14 +720,14 @@ def main() -> int:
         return {**{k: fn.launches for k, fn in counters.items()},
                 "bwd_reduce": masked_batch_norm_bwd.reduce_launches}
 
-    def read_core_counts():
-        """The sparse-conv launches that took the float32 route's CUDA-core kernels."""
-        return {k: fn.cuda_core_launches for k, fn in conv_counters.items()}
+    def read_f32_counts():
+        """The sparse-conv launches that took the float32 route's 3xTF32 kernels."""
+        return {k: fn.tf32_launches for k, fn in conv_counters.items()}
 
-    def expect_tensor_cores(path):
-        core = read_core_counts()
-        if any(core.values()):
-            raise RuntimeError(f"the bf16 {path} path reached the CUDA-core kernels: {core}")
+    def expect_bf16_kernels(path):
+        f32 = read_f32_counts()
+        if any(f32.values()):
+            raise RuntimeError(f"the bf16 {path} path reached the float32 kernels: {f32}")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -723,7 +738,8 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     t0 = time.time()
-    sources = ("sparse_conv_tc", "sparse_conv", "gather_probe", "masked_stats")
+    sources = ("sparse_conv_tc", "sparse_conv_tf32", "sparse_conv", "gather_probe",
+               "masked_stats")
     handles = [(n, *_build.start_build(n)) for n in sources]  # one nvcc per source
     for _, handle, so in handles:
         _build.finish_build(handle, so)
@@ -743,9 +759,16 @@ def main() -> int:
     hmma_probe = sum(1 for line in sass.splitlines() if "HMMA" in line)
     if hmma_probe == 0:
         raise RuntimeError("no HMMA instruction in the gather probe library")
+    # and the float32 route to tf32 tensor-core products
+    sass = subprocess.run([cuobjdump, "--dump-sass", _build.library_path("sparse_conv_tf32")],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hmma_tf32 = sum(1 for line in sass.splitlines() if "HMMA" in line and "TF32" in line)
+    if hmma_tf32 == 0:
+        raise RuntimeError("no TF32 HMMA instruction in the float32 sparse-conv library")
     print(f"build: {' + '.join(sources)} nvcc in parallel {nvcc_s:.1f} s", flush=True)
     print(f"sass: {hmma} bf16 HMMA instructions in "
-          f"{os.path.basename(_build.library_path('sparse_conv_tc'))}, {hmma_probe} HMMA in "
+          f"{os.path.basename(_build.library_path('sparse_conv_tc'))}, {hmma_tf32} TF32 HMMA in "
+          f"{os.path.basename(_build.library_path('sparse_conv_tf32'))}, {hmma_probe} HMMA in "
           f"{os.path.basename(_build.library_path('gather_probe'))}", flush=True)
 
     # ---- the full-width model and a B=6 request stream
@@ -799,8 +822,8 @@ def main() -> int:
                                                       "masked_batch_norm_bwd")}
     for k, tot in bn_tot.items():
         print(f"{k} over the 17 BNs of a train step: {tot['ms']:.4f} ms (device "
-              f"{tot['device_ms']:.4f}), Triton statistics + eager ops on the same inputs "
-              f"{tot['prev_ms']:.4f} ms (device {tot['prev_device_ms']:.4f}), bound "
+              f"{_fmt(tot['device_ms'])}), Triton statistics + eager ops on the same inputs "
+              f"{tot['prev_ms']:.4f} ms (device {_fmt(tot['prev_device_ms'])}), bound "
               f"{tot['bound_ms']:.4f} ms (two-pass {tot['bound_two_pass_ms']:.4f})", flush=True)
     print(f"K2 checks and timing (Triton yardstick compiled at its first launch): "
           f"{time.time() - t0:.1f} s", flush=True)
@@ -849,13 +872,17 @@ def main() -> int:
         print("sparse_conv_bwd " + json.dumps(r), flush=True)
     for r in f32_bwd_rows:
         print("sparse_conv_bwd float32 " + json.dumps(r), flush=True)
-    for key, new, tot in (("sparse_conv", "fwd", conv_tot), ("sparse_conv_dgrad", "dgrad",
-                                                             bwd_tot["dgrad"]),
-                          ("sparse_conv_wgrad", "wgrad", bwd_tot["wgrad"])):
-        print(f"{key} over the 12 convs: tensor cores {tot['ms']:.4f} ms, CUDA-core kernel on the "
-              f"same bf16 inputs {tot['prev_ms']:.4f} ms ({tot['prev_ms'] / tot['ms']:.2f}x), "
-              f"index_select + matmul {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms",
-              flush=True)
+    for route, totals in (("bf16", (conv_tot, bwd_tot["dgrad"], bwd_tot["wgrad"])),
+                          ("float32", (f32_conv_tot, f32_bwd_tot["dgrad"], f32_bwd_tot["wgrad"]))):
+        for key, tot in zip(("sparse_conv", "sparse_conv_dgrad", "sparse_conv_wgrad"), totals):
+            old_bound = (f" (the same products on the CUDA cores "
+                         f"{tot['bound_f32_cuda_cores_ms']:.4f})"
+                         if "bound_f32_cuda_cores_ms" in tot else "")
+            print(f"{key} {route} over the 12 convs: tensor cores {tot['ms']:.4f} ms (device "
+                  f"{_fmt(tot['device_ms'])}), CUDA-core kernel on the same inputs "
+                  f"{tot['prev_ms']:.4f} ms ({tot['prev_ms'] / tot['ms']:.2f}x), index_select + "
+                  f"matmul {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms by "
+                  f"{tot['bound_by']}{old_bound}", flush=True)
     stats_bwd_rows = check_masked_stats_bwd(
         torch, [(480000, 4, torch.float32), (480000, 128, torch.float32),
                 (480000, 128, torch.bfloat16), (96000, 64, torch.float32),
@@ -887,7 +914,7 @@ def main() -> int:
         timings.append(dict(attack=attack, plan_ms=(t1 - t0) * 1e3, serve_ms=(t2 - t1) * 1e3,
                             valid=int(valid.sum())))
     launches = read_counts()
-    expect_tensor_cores("serving")
+    expect_bf16_kernels("serving")
     n_clean = n_attack = args.requests
     expected = {"sparse_conv": 12 * (n_clean + n_attack), "sparse_conv_dgrad": 0,
                 "sparse_conv_wgrad": 0, "masked_stats": 2 * n_attack, "masked_stats_bwd": 0,
@@ -930,7 +957,7 @@ def main() -> int:
                           num_pos=logs["num_pos"], l2=logs["perturbation_l2_norm"]))
     train_s = time.perf_counter() - t_all
     train_launches = read_counts()
-    expect_tensor_cores("training")
+    expect_bf16_kernels("training")
     for rest in train_iter:  # drain the prefetch thread
         pass
     expected = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
@@ -1032,10 +1059,11 @@ def main() -> int:
             raise RuntimeError(f"small-grid train step on {d} is a NaN step")
         grads.append(({k: v.cpu() for k, v in g_d.items()}, float(logs_d["loss"])))
     perturber.PERT_BF16 = True
-    f32_launches = read_core_counts()
+    # every sparse-conv launch of the float32 path took the 3xTF32 kernels
+    f32_launches = read_f32_counts()
     if f32_launches != {k: read_counts()[k] for k in f32_launches} or not all(
             f32_launches.values()):
-        raise RuntimeError(f"float32 small-grid path: CUDA-core launches {f32_launches}, all "
+        raise RuntimeError(f"float32 small-grid path: 3xTF32 launches {f32_launches}, all "
                            f"launches {read_counts()}")
     (gc, lc), (gg, lg) = grads
     gmax = max(v.abs().max().item() for v in gc.values())
@@ -1051,7 +1079,7 @@ def main() -> int:
         raise RuntimeError(f"small-grid float32 train loss: card {lg} vs CPU {lc}")
     print(f"small-grid float32 train step: {len(gc)} gradients agree card vs CPU "
           f"(worst {worst:.2e} of scale), loss {lg:.6f} vs {lc:.6f}; float32 forward + train "
-          f"step on the CUDA-core kernels: {json.dumps(f32_launches)}", flush=True)
+          f"step on the 3xTF32 kernels: {json.dumps(f32_launches)}", flush=True)
 
     # ---- phase 5: the gather probes through their tool's entry point
     zero_counts()
@@ -1160,16 +1188,18 @@ def main() -> int:
 
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
-    core_src = "robustpointclouds_tpu_torch/csrc/sparse_conv.cu"
+    tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
     mp_gather = "robustpointclouds_tpu/kernels/mp_gather.py:192"
 
-    def conv_row(name, src, n_launches, tot, prev=True):
+    def conv_row(name, src, n_launches, tot):
+        # prev_ms: the first design's CUDA-core kernel on the same inputs
         row = {"name": name, "route": "cuda", "source": src, "replaces": mp_gather,
                "launches": n_launches, "max_abs_err": tot["err"], "ms": tot["ms"],
+               "prev_ms": tot["prev_ms"], "device_ms": tot["device_ms"],
                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}
-        if prev:  # the CUDA-core kernel on the same bf16 inputs
-            row["prev_ms"] = tot["prev_ms"]
+        if "bound_f32_cuda_cores_ms" in tot:  # the same products on the CUDA cores
+            row["bound_f32_cuda_cores_ms"] = tot["bound_f32_cuda_cores_ms"]
         return row
 
     k2_src = "robustpointclouds_tpu_torch/csrc/masked_stats.cu"
@@ -1199,8 +1229,8 @@ def main() -> int:
     # the float32 route: launches from the small-grid float32 forward + train step
     for key, tot in (("", f32_conv_tot), ("_dgrad", f32_bwd_tot["dgrad"]),
                      ("_wgrad", f32_bwd_tot["wgrad"])):
-        kernels.append(conv_row(f"sparse_conv{key}_f32", core_src,
-                                f32_launches[f"sparse_conv{key}"], tot, prev=False))
+        kernels.append(conv_row(f"sparse_conv{key}_f32", tf32_src,
+                                f32_launches[f"sparse_conv{key}"], tot))
     kernels.append(k2_row("masked_stats_bwd", 102, train_launches["masked_stats_bwd"],
                           stats_bwd_rows[0]))
     probe_src = "robustpointclouds_tpu_torch/csrc/gather_probe.cu"
@@ -1220,6 +1250,10 @@ def main() -> int:
                 "n", "c", "m", "dtype", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")}
         kernels.append(entry)
+    for row in (*kernels, *(r["scale"] for r in kernels if "scale" in r)):
+        for key in ("device_ms", "prev_device_ms"):
+            if key in row and row[key] is None:  # the profiles did not hold their set
+                row[key] = "not measured"
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

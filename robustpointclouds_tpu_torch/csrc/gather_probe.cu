@@ -26,8 +26,19 @@
 //  * rows: a group of C*size/16 threads owns a row and moves 16 bytes per
 //    thread (one warp per 512-byte f32 row; four rows per warp at 128-byte
 //    bf16 rows), so every load and store is a full, coalesced vector.
-//  * elems: one thread per output element with scalar loads
-//    (take_along_axis on an index broadcast to [M, C]).
+//  * elems: take_along_axis on an index broadcast to [M, C]: every output
+//    element finds its source through its own row's index. Each thread
+//    moves 16 bytes of consecutive output elements as 16/P pieces of P
+//    bytes, P the widest of 16, 8, 4 and 2 that divides the row's bytes and
+//    x's base alignment, so no piece crosses a row end and every load is
+//    aligned: one 16-byte load and store where rows are whole vectors, and
+//    any C and any base offset otherwise. A thread finds its row with one
+//    division per vector (32-bit where the output's bytes fit 32 bits),
+//    walks its pieces across row ends, and has up to kElemVecs vectors' loads
+//    in flight before their stores (fewer where the grid would otherwise
+//    leave SMs idle). The plan (piece bytes, vectors a thread, grid) is
+//    kernels/gather.elem_plan; the entry point refuses a plan the inputs do
+//    not allow.
 //  * row loop: each block stages the indices of its rows in shared memory
 //    and loops over them (the TPU's SMEM-indexed fori_loop), but a grid
 //    sized to the card walks the rows in strided chunks, every thread moves
@@ -70,6 +81,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLoopStage = 4096;  // indices a row-loop block stages at once
 constexpr int kLoopUnroll = 4;    // rows whose loads a thread has in flight
+constexpr int kElemVecs = 4;      // most 16-byte vectors whose loads an element-gather
+                                  // thread has in flight
 constexpr int kOhTile = 16;       // one-hot: a warp's output tile is 16 x 16
 constexpr int kOhWarps = 4;       // warps per block: row tiles x k splits
 constexpr int kOhPlaneBits = 10;  // bits of x's word per plane
@@ -124,16 +137,81 @@ gather_rows_kernel(const uint4* __restrict__ x, const int32_t* __restrict__ idx,
   out[t] = v;
 }
 
-template <typename W>
+// Piece p of a thread's 16-byte vector, as 32-bit words w[4] (zeroed first)
+__device__ __forceinline__ void put(uint32_t (&w)[4], int p, uint16_t v) {
+  w[p >> 1] |= static_cast<uint32_t>(v) << ((p & 1) * 16);
+}
+__device__ __forceinline__ void put(uint32_t (&w)[4], int p, uint32_t v) { w[p] = v; }
+__device__ __forceinline__ void put(uint32_t (&w)[4], int p, uint2 v) {
+  w[2 * p] = v.x;
+  w[2 * p + 1] = v.y;
+}
+__device__ __forceinline__ void put(uint32_t (&w)[4], int, uint4 v) {
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+template <typename P>
+__device__ __forceinline__ P get(const uint32_t (&w)[4], int p) {
+  if constexpr (sizeof(P) == 2)
+    return static_cast<P>(w[p >> 1] >> ((p & 1) * 16));
+  else if constexpr (sizeof(P) == 4)
+    return w[p];
+  else if constexpr (sizeof(P) == 8)
+    return make_uint2(w[2 * p], w[2 * p + 1]);
+  else
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Output bytes [16v, 16v + 16) for the `vecs` vectors v = blockIdx.x *
+// kThreads * vecs + u * kThreads + threadIdx.x, each as kPieces pieces
+// of P; a piece at byte `col` of output row r reads x's row idx[r] at the
+// same byte (a miss reads zeros). The last vector may end early (the
+// output's bytes need not be a multiple of 16): its pieces are stored one by
+// one. kWide: byte offsets need 64 bits.
+template <typename P, bool kWide>
 __global__ void __launch_bounds__(kThreads)
-gather_elems_kernel(const W* __restrict__ x, const int32_t* __restrict__ idx,
-                    W* __restrict__ out, int64_t m, int64_t n, int64_t c) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= m * c) return;
-  const int64_t row = t / c;
-  const int64_t col = t - row * c;
-  const int32_t j = __ldg(idx + row);
-  out[t] = hit(j, n) ? x[static_cast<int64_t>(j) * c + col] : W(0);
+gather_elems_kernel(const unsigned char* __restrict__ x, const int32_t* __restrict__ idx,
+                    unsigned char* __restrict__ out, int64_t m, int64_t n, int64_t row_bytes,
+                    int vecs) {
+  constexpr int kPieces = 16 / static_cast<int>(sizeof(P));
+  const int64_t total = m * row_bytes;
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * kThreads * vecs + threadIdx.x;
+  uint32_t w[kElemVecs][4];
+#pragma unroll
+  for (int u = 0; u < kElemVecs; ++u) {
+    w[u][0] = w[u][1] = w[u][2] = w[u][3] = 0u;
+    const int64_t b = (v0 + u * kThreads) * 16;
+    if (u >= vecs || b >= total) continue;
+    int64_t row = kWide ? b / row_bytes
+                        : static_cast<uint32_t>(b) / static_cast<uint32_t>(row_bytes);
+    int64_t col = b - row * row_bytes;
+    int32_t j = __ldg(idx + row);
+#pragma unroll
+    for (int p = 0; p < kPieces; ++p) {
+      if (b + p * static_cast<int>(sizeof(P)) >= total) break;
+      if (col == row_bytes) {  // this piece starts the next row (which exists)
+        col = 0;
+        j = __ldg(idx + ++row);
+      }
+      if (hit(j, n)) put(w[u], p, __ldg(reinterpret_cast<const P*>(x + j * row_bytes + col)));
+      col += sizeof(P);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kElemVecs; ++u) {
+    const int64_t b = (v0 + u * kThreads) * 16;
+    if (u >= vecs) break;
+    if (b + 16 <= total) {
+      *reinterpret_cast<uint4*>(out + b) = make_uint4(w[u][0], w[u][1], w[u][2], w[u][3]);
+    } else if (b < total) {
+#pragma unroll
+      for (int p = 0; p < kPieces; ++p)
+        if (b + p * static_cast<int>(sizeof(P)) < total)
+          *reinterpret_cast<P*>(out + b + p * sizeof(P)) = get<P>(w[u], p);
+    }
+  }
 }
 
 // Rows [r0, r0 + rows) of chunk after chunk, `lanes` threads per row, each
@@ -359,21 +437,46 @@ int rpc_gather_rows(const void* x, const int32_t* idx, void* out, int64_t m, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// elem_bytes: 2 (bfloat16) or 4 (float32); the words are copied as they are.
+// plan: C, the element bytes (2: bfloat16, 4: float32), then
+// kernels/gather.elem_plan's fields: piece bytes per load (16, 8, 4 or 2,
+// dividing the row's bytes and x's base), vectors per thread (1 to
+// kElemVecs), blocks in the grid (the output's 16-byte vectors over kThreads * vectors
+// a block). out is 16-byte aligned. A plan the inputs do not allow is
+// refused.
 int rpc_gather_elems(const void* x, const int32_t* idx, void* out, int64_t m, int64_t n,
-                     int64_t c, int elem_bytes, void* stream) {
-  const int64_t threads = m * c;
-  if (c <= 0 || threads / kThreads >= (int64_t{1} << 31))
+                     const int64_t* plan, void* stream) {
+  const int64_t c = plan[0], elem_bytes = plan[1], piece = plan[2], vecs = plan[3],
+                blocks = plan[4];
+  const int64_t row_bytes = c * elem_bytes;
+  const int64_t total = m * row_bytes;
+  if (c <= 0 || (elem_bytes != 2 && elem_bytes != 4) ||
+      (piece != 2 && piece != 4 && piece != 8 && piece != 16) || row_bytes % piece ||
+      reinterpret_cast<uintptr_t>(x) % piece || reinterpret_cast<uintptr_t>(out) % 16 ||
+      vecs < 1 || vecs > kElemVecs || total / row_bytes != m ||
+      blocks != ((total + 15) / 16 + kThreads * vecs - 1) / (kThreads * vecs) ||
+      blocks >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = total >= (int64_t{1} << 32);
+  const unsigned b = static_cast<unsigned>(blocks);
+  const int v = static_cast<int>(vecs);
+  const unsigned char* xs = static_cast<const unsigned char*>(x);
+  unsigned char* os = static_cast<unsigned char*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem_bytes == 4)
-    gather_elems_kernel<uint32_t><<<blocks_for(threads), kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(x), idx, static_cast<uint32_t*>(out), m, n, c);
-  else if (elem_bytes == 2)
-    gather_elems_kernel<uint16_t><<<blocks_for(threads), kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(x), idx, static_cast<uint16_t*>(out), m, n, c);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+#define RPC_ELEMS(P)                                                                     \
+  if (wide)                                                                              \
+    gather_elems_kernel<P, true><<<b, kThreads, 0, s>>>(xs, idx, os, m, n, row_bytes, v);   \
+  else                                                                                     \
+    gather_elems_kernel<P, false><<<b, kThreads, 0, s>>>(xs, idx, os, m, n, row_bytes, v);
+  if (piece == 16) {
+    RPC_ELEMS(uint4)
+  } else if (piece == 8) {
+    RPC_ELEMS(uint2)
+  } else if (piece == 4) {
+    RPC_ELEMS(uint32_t)
+  } else {
+    RPC_ELEMS(uint16_t)
+  }
+#undef RPC_ELEMS
   return static_cast<int>(cudaGetLastError());
 }
 

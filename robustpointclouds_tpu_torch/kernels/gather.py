@@ -5,7 +5,8 @@ probe_mosaic_gather.py, which asked which gather formulations Mosaic lowers
 on a TPU and how fast the winner runs at the sparse conv's table size:
 
   gather_rows      `k_take` and the tiled `kg`: 16-byte vector row copies
-  gather_elems     `k_tal` (take_along_axis): one thread per element
+  gather_elems     `k_tal` (take_along_axis): each element through its row's
+                   index, 16 bytes of elements a thread
   gather_row_loop  `k_loop`: blocks stage their indices and loop over rows
   gather_onehot    `k_onehot`: onehot(idx) @ x on the tensor cores
 
@@ -38,6 +39,8 @@ _SMS = 132  # an H100's SMs
 _THREADS = 256
 _LOOP_STAGE = 4096  # indices a row-loop block stages at once
 _LOOP_BLOCKS_PER_SM = 4
+_ELEM_VECS = 4  # most 16-byte output vectors an element-gather thread has in flight
+_ELEM_BLOCKS_PER_SM = 4
 _OH_TILE = 16  # a warp's one-hot output tile: 16 rows x 16 columns
 _OH_WARPS = 4  # a one-hot block: row tiles x k splits
 _OH_PLANE_BITS = 10
@@ -117,6 +120,26 @@ def row_loop_plan(m: int, c: int, elem_bytes: int, align: int = 256) -> RowLoopP
     return RowLoopPlan(vec, lanes, slots, rows, min(chunks, _SMS * _LOOP_BLOCKS_PER_SM))
 
 
+class ElemPlan(NamedTuple):
+    """Launch of the element gather (csrc/gather_probe.cu, rpc_gather_elems)."""
+    piece: int  # bytes each load moves: 16, 8, 4 or 2
+    vecs: int  # 16-byte output vectors a thread moves, their loads in flight together
+    blocks: int  # grid: the output's 16-byte vectors over _THREADS * vecs a block
+
+
+@functools.lru_cache(maxsize=256)
+def elem_plan(m: int, c: int, elem_bytes: int, align: int = 256) -> ElemPlan:
+    """Pieces: the widest load that divides the row's bytes and `align` (x's
+    base alignment), so no piece crosses a row end; every thread moves up to
+    _ELEM_VECS of the output's 16-byte vectors, as many as still leaves each
+    SM _ELEM_BLOCKS_PER_SM blocks."""
+    row_bytes = c * elem_bytes
+    piece = next(v for v in (16, 8, 4, 2) if row_bytes % v == 0 and align % v == 0)
+    vectors = -(-m * row_bytes // 16)
+    vecs = max(1, min(_ELEM_VECS, vectors // (_THREADS * _SMS * _ELEM_BLOCKS_PER_SM)))
+    return ElemPlan(piece, vecs, -(-vectors // (_THREADS * vecs)))
+
+
 class OnehotPlan(NamedTuple):
     """Launch of the tensor-core one-hot product (rpc_gather_onehot)."""
     row_warps: int  # 16-row output tiles per block of four warps; the rest split k
@@ -151,7 +174,7 @@ def _fn(name: str):
         head = [p, p, p, i64, i64]  # x, idx, out, M, N; pointers must not pass as 32-bit ints
         plan = ctypes.POINTER(ctypes.c_int64)
         args = {"rpc_gather_rows": head + [i, p],
-                "rpc_gather_elems": head + [i64, i, p],
+                "rpc_gather_elems": head + [plan, p],
                 "rpc_gather_row_loop": head + [plan, p],
                 "rpc_gather_onehot": head + [plan, p]}
         for key, types in args.items():
@@ -217,11 +240,13 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_elems(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x [N, C], idx [M] -> [M, C], one thread per output element."""
+    """x [N, C], idx [M] -> [M, C], each output element through its own row's
+    index, 16 bytes of elements a thread (elem_plan)."""
     if x.is_cpu:
         return gather_ref(x, idx)
     _check("gather_elems", x, idx)
-    out = _launch("rpc_gather_elems", x, idx, x.shape[1], x.element_size())
+    plan = _plan_args(elem_plan, idx.shape[0], x.shape[1], x.element_size(), _align(x))
+    out = _launch("rpc_gather_elems", x, idx, plan)
     gather_elems.launches += 1
     return out
 

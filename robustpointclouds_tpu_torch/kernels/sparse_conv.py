@@ -28,18 +28,25 @@ The backward mirrors the JAX custom VJPs (ops/subm_conv.py):
 A CUDA tensor launches hand-written kernels, chosen by dtype:
   * bfloat16, the main path's compute type, takes the tensor-core kernels of
     csrc/sparse_conv_tc.cu (mma.sync bf16 -> float32 fed by cp.async row
-    gathers). Their launch plans (`gather_gemm_plan`, `wgrad_plan`) are plain
-    Python, so the CPU tests check that every launch of the encoder fits the
-    card's shared memory;
-  * float32 takes the CUDA-core kernels of csrc/sparse_conv.cu (float32 FMAs),
-    which the card's float32 checks are held to. `sparse_conv_cuda_cores` and
-    `sparse_conv_wgrad_cuda_cores` launch them on either dtype without
-    counting, so a bf16 run can time the two designs on the same inputs.
-Both sources build on first use. A CPU tensor takes the plain PyTorch
-versions (`sparse_conv_ref`, `sparse_conv_wgrad_ref`), which the CPU tests
-hold against the JAX ops; a CUDA tensor never does. Each public wrapper counts
-its launches (`.launches`) and, of those, the ones that went to the CUDA-core
-kernels (`.cuda_core_launches`).
+    gathers);
+  * float32 takes the 3xTF32 tensor-core kernels of csrc/sparse_conv_tf32.cu:
+    each operand split into two tf32 parts in registers, three tf32 mma per
+    product, float32 accuracy (see the source), fed by the same cp.async
+    gathers.
+Their launch plans (`gather_gemm_plan`, `tf32_gemm_plan`, `wgrad_plan`) are
+plain Python, so the CPU tests check that every launch
+of the encoder fits the card's shared memory; the C entry points recompute
+the layout and refuse a plan that disagrees. The first design's CUDA-core
+kernels (csrc/sparse_conv.cu, float32 FMAs) are on no path:
+`sparse_conv_cuda_cores` and `sparse_conv_wgrad_cuda_cores` launch them,
+uncounted, as the yardstick a card run times the tensor-core kernels
+against. All sources build on first use. A CPU tensor takes the plain
+PyTorch versions (`sparse_conv_ref`, `sparse_conv_wgrad_ref`), which the CPU
+tests hold against the JAX ops; a CUDA tensor never does. `split_tf32` and
+`sparse_conv_3xtf32_ref` are the float32 kernels' arithmetic in plain
+PyTorch, for the CPU tests. Each public wrapper counts its launches
+(`.launches`) and, of those, the ones that took the float32 kernels
+(`.tf32_launches`).
 """
 from __future__ import annotations
 
@@ -65,9 +72,20 @@ _TC_MAX_TAPS = 32
 _TC_MAX_WIDTH = 128
 _TC_TILE_M = 64  # output rows a block: 4 warps of 16 rows
 _TC_WGRAD_THREADS = 256
-# the staged bf16 hits, cap * row bytes: the fastest of 64, 128 and 192 KiB (PERF.md)
+# the staged hits, cap * row bytes: for bf16 the fastest of 64, 128 and 192 KiB
+# (PERF.md); float32 rows take twice the bytes
 _TC_WGRAD_SMEM_BYTES = 131072
 _TC_WGRAD_MAX_CAP = 1024
+# the 3xTF32 kernels (csrc/sparse_conv_tf32.cu; kMaxStages, kMaxTaps,
+# kMaxTileM, kMaxThreads, kWarpN, kWgradThreads and kMaxCap there)
+_TF32_MAX_STAGES = 3
+_TF32_MAX_TILE_M = 128
+_TF32_MAX_THREADS = 256
+_TF32_WARP_N = 64  # output columns a forward warp owns
+_TF32_TILE_M = 64  # output rows a forward block
+# a 3-stage ring where two blocks still fit an SM's 228 KB (each block keeps 1
+# KB and the static live-tap word), else 2 stages
+_TF32_TWO_BLOCKS_SMEM = 115712
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on an H100 (227 KB)
 
 
@@ -97,20 +115,20 @@ def backward_kernel(kernel: torch.Tensor, k: int, mirror: bool) -> torch.Tensor:
     return w.transpose(1, 2).reshape(k * cout, kcin // k).contiguous()
 
 
-def _pad_width(width: int) -> int:
-    """The width a tensor-core kernel instance is built for: a power of two, >= 16."""
-    pad = 16
+def _pad_width(width: int, least: int = 16) -> int:
+    """The width a tensor-core kernel instance is built for: a power of two, >= least."""
+    pad = least
     while pad < width:
         pad *= 2
     return pad
 
 
-def _tc_widths(what: str, cin: int, cout: int) -> tuple:
+def _tc_widths(what: str, cin: int, cout: int, least: int = 16) -> tuple:
     for name, v in (("Cin", cin), ("Cout", cout)):
         if not (0 < v <= _TC_MAX_WIDTH and v % 4 == 0):
-            raise ValueError(f"{what}: bf16 {name}={v} must be a multiple of 4 in "
+            raise ValueError(f"{what}: {name}={v} must be a multiple of 4 in "
                              f"[4, {_TC_MAX_WIDTH}]")
-    return _pad_width(cin), _pad_width(cout)
+    return _pad_width(cin, least), _pad_width(cout, least)
 
 
 class GatherGemmPlan(NamedTuple):
@@ -138,7 +156,7 @@ def gather_gemm_plan(cin: int, cout: int, k: int) -> GatherGemmPlan:
 
 
 class WgradPlan(NamedTuple):
-    """Launch of the tensor-core wgrad (csrc/sparse_conv_tc.cu)."""
+    """Launch of a tensor-core wgrad (csrc/sparse_conv_tc.cu, sparse_conv_tf32.cu)."""
     rows_per_chunk: int
     chunks: int  # grid: (chunks, K)
     cap: int  # most hits staged per barrier
@@ -173,12 +191,15 @@ def _wgrad_grid(m: int, k: int, cin: int, cout: int) -> tuple:
     return (*_wgrad_chunks(m, k, cin, cout), cap)
 
 
-def wgrad_plan(m: int, k: int, cin: int, cout: int) -> WgradPlan:
-    """The launch plan of the bf16 wgrad: the CUDA-core design's grid; cap the
-    largest power of two (16 to 1024) whose padded bf16 rows fit
-    _TC_WGRAD_SMEM_BYTES."""
+def wgrad_plan(m: int, k: int, cin: int, cout: int, elem_bytes: int = 2) -> WgradPlan:
+    """The launch plan of the bf16 wgrad (elem_bytes 2) or the float32 one (4):
+    the CUDA-core design's grid; cap the largest power of two (16 to 1024)
+    whose padded rows fit _TC_WGRAD_SMEM_BYTES."""
     cin_pad, cout_pad = _tc_widths("sparse_conv_wgrad", cin, cout)
-    a_pitch, g_pitch = 2 * (cin_pad + _TC_PAD), 2 * (cout_pad + _TC_PAD)
+    if elem_bytes == 2:
+        a_pitch, g_pitch = 2 * (cin_pad + _TC_PAD), 2 * (cout_pad + _TC_PAD)
+    else:
+        a_pitch, g_pitch = 4 * tf32_col_pitch(cin_pad), 4 * tf32_col_pitch(cout_pad)
     cap = _TC_WGRAD_MAX_CAP
     while cap > 16 and cap * (a_pitch + g_pitch) > _TC_WGRAD_SMEM_BYTES:
         cap //= 2
@@ -189,6 +210,79 @@ def wgrad_plan(m: int, k: int, cin: int, cout: int) -> WgradPlan:
     rows, chunks = _wgrad_chunks(m, k, cin, cout)
     return WgradPlan(rows, chunks, cap, min(_TC_WGRAD_THREADS, cap // 2), cin_pad, cout_pad,
                      a_pitch, g_pitch, smem)
+
+
+def tf32_row_pitch(width: int) -> int:
+    """Floats of a shared row whose fragments read 8 rows x 4 consecutive
+    columns (the forward's A): 4 mod 8, so a warp's loads hit 32 banks."""
+    return width + 4
+
+
+def tf32_col_pitch(width: int) -> int:
+    """Floats of a shared row whose fragments read 4 rows x 8 consecutive
+    columns (the forward's W, both wgrad operands): 8 or 24 mod 32."""
+    return width + 8 if (width + 8) % 32 in (8, 24) else width + 16
+
+
+class Tf32GemmPlan(NamedTuple):
+    """Launch of the 3xTF32 gather-GEMM (csrc/sparse_conv_tf32.cu)."""
+    tile_m: int  # output rows a block; 16 a warp
+    threads: int  # 32 per 16 rows and _TF32_WARP_N columns
+    cin_pad: int  # the kernel instance's widths (zero-padded in shared memory)
+    cout_pad: int
+    stages: int  # taps in flight in the ring
+    a_pitch: int  # bytes of one shared row of gathered inputs
+    w_pitch: int  # bytes of one shared row of weights
+    smem_bytes: int  # dynamic shared memory: the index tile + the ring
+
+
+def tf32_gemm_plan(cin: int, cout: int, k: int) -> Tf32GemmPlan:
+    """The launch plan of the float32 forward/dgrad for [*, Cin] rows, K taps,
+    Cout outputs: 3 ring stages where two blocks still fit an SM, else 2."""
+    cin_pad, cout_pad = _tc_widths("sparse_conv", cin, cout, least=8)
+    if not 0 < k <= _TC_MAX_TAPS:
+        raise ValueError(f"sparse_conv: float32 K={k} taps must be in [1, {_TC_MAX_TAPS}]")
+    tile = _TF32_TILE_M
+    threads = tile // 16 * max(1, cout_pad // _TF32_WARP_N) * 32
+    if tile % 16 or not 16 <= tile <= _TF32_MAX_TILE_M or threads > _TF32_MAX_THREADS:
+        raise ValueError(f"sparse_conv: float32 tile of {tile} rows at Cout={cout} needs "
+                         f"{threads} threads")
+    a_pitch, w_pitch = 4 * tf32_row_pitch(cin_pad), 4 * tf32_col_pitch(cout_pad)
+    stage = tile * a_pitch + cin_pad * w_pitch
+    idx_bytes = -(-tile * k * 4 // 16) * 16
+    stages = _TF32_MAX_STAGES
+    if idx_bytes + stages * stage > _TF32_TWO_BLOCKS_SMEM:
+        stages = 2
+    return Tf32GemmPlan(tile, threads, cin_pad, cout_pad, stages, a_pitch, w_pitch,
+                        idx_bytes + stages * stage)
+
+
+def split_tf32(x: torch.Tensor) -> tuple:
+    """float32 x -> (big, small), both tf32 values, as the kernels split an
+    operand: big = x rounded to 10 fraction bits, to nearest with ties away
+    from zero (cvt.rna.tf32.f32, low 13 bits cleared), small = the same
+    rounding of x - big (exact in float32). NaN keeps itself as big."""
+    bits = x.contiguous().view(torch.int32)
+
+    def rna(b):
+        mag = (b & 0x7FFFFFFF) + 0x1000  # half of the 13 dropped bits: ties away
+        return ((mag & 0x7FFFE000) | (b & -0x80000000)).view(torch.float32)
+
+    big = torch.where(torch.isnan(x), x, rna(bits))
+    small = rna((x - big).contiguous().view(torch.int32))
+    return big, small
+
+
+def sparse_conv_3xtf32_ref(feats: torch.Tensor, kernel: torch.Tensor,
+                           idx: torch.Tensor) -> torch.Tensor:
+    """The float32 kernels' arithmetic in plain PyTorch: the img2col gather,
+    then big*big + big*small + small*big of the split operands, products
+    exact and sums in float32."""
+    n, c = feats.shape
+    feats_pad = torch.cat([feats, feats.new_zeros(1, c)], 0)
+    col = feats_pad[idx.long()].reshape(idx.shape[0], idx.shape[1] * c)
+    (a_big, a_small), (w_big, w_small) = split_tf32(col), split_tf32(kernel)
+    return a_small @ w_big + a_big @ w_small + a_big @ w_big
 
 
 def _lib() -> ctypes.CDLL:
@@ -216,6 +310,19 @@ def _tc_lib() -> ctypes.CDLL:
         fwd.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i, p]
         fwd.restype = i
         wg = lib.rpc_sparse_conv_tc_wgrad
+        wg.argtypes = [p, p, p, p, p, i64, i64, i, i, i, i, i, i64, i, i, i, i, p]
+        wg.restype = i
+    return lib
+
+
+def _tf32_lib() -> ctypes.CDLL:
+    lib = load_library("sparse_conv_tf32")
+    fwd = lib.rpc_sparse_conv_tf32_fwd
+    if fwd.argtypes is None:
+        i, i64, p = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+        fwd.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i, i, i, p]
+        fwd.restype = i
+        wg = lib.rpc_sparse_conv_tf32_wgrad
         wg.argtypes = [p, p, p, p, p, i64, i64, i, i, i, i, i, i64, i, i, i, i, p]
         wg.restype = i
     return lib
@@ -257,10 +364,11 @@ def _gather_gemm_shapes(name, feats, kernel, idx):
     return m, k, cin, cout
 
 
-def sparse_conv_cuda_cores(feats: torch.Tensor, kernel: torch.Tensor, idx: torch.Tensor,
-                           name: str = "sparse_conv") -> torch.Tensor:
-    """The CUDA-core gather-GEMM (csrc/sparse_conv.cu) on float32 or bf16
-    CUDA tensors; counts nothing (the wrappers count)."""
+def sparse_conv_cuda_cores(feats: torch.Tensor, kernel: torch.Tensor,
+                           idx: torch.Tensor) -> torch.Tensor:
+    """The first design's CUDA-core gather-GEMM (csrc/sparse_conv.cu) on
+    float32 or bf16 CUDA tensors, on no path: a yardstick; counts nothing."""
+    name = "sparse_conv_cuda_cores"
     m, k, cin, cout = _gather_gemm_shapes(name, feats, kernel, idx)
     if cout > _THREADS or _THREADS % cout != 0:
         raise ValueError(f"{name}: Cout={cout} must divide {_THREADS}")
@@ -284,13 +392,26 @@ def _gather_gemm_tc(name, feats, kernel, idx):
     return out
 
 
+def _gather_gemm_tf32(name, feats, kernel, idx):
+    m, k, cin, cout = _gather_gemm_shapes(name, feats, kernel, idx)
+    plan = tf32_gemm_plan(cin, cout, k)
+    _check_aligned(name, feats, kernel, idx)
+    out = torch.empty((m, cout), dtype=feats.dtype, device=feats.device)
+    _rc(name, _tf32_lib().rpc_sparse_conv_tf32_fwd(
+        feats.data_ptr(), kernel.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        feats.shape[0], m, k, cin, cout, plan.cin_pad, plan.cout_pad, plan.tile_m,
+        plan.threads, plan.stages, plan.smem_bytes,
+        torch.cuda.current_stream(feats.device).cuda_stream))
+    return out
+
+
 def _gather_gemm(wrapper, name, feats, kernel, idx):
-    """bf16 -> the tensor-core kernel, float32 -> the CUDA-core one; counted."""
+    """bf16 -> the bf16 tensor-core kernel, float32 -> the 3xTF32 one; counted."""
     if feats.dtype == torch.bfloat16:
         out = _gather_gemm_tc(name, feats, kernel, idx)
     else:
-        out = sparse_conv_cuda_cores(feats, kernel, idx, name)
-        wrapper.cuda_core_launches += 1
+        out = _gather_gemm_tf32(name, feats, kernel, idx)
+        wrapper.tf32_launches += 1
     wrapper.launches += 1
     return out
 
@@ -322,8 +443,8 @@ def _wgrad_shapes(feats, g, idx):
 
 def sparse_conv_wgrad_cuda_cores(feats: torch.Tensor, g: torch.Tensor,
                                  idx: torch.Tensor) -> torch.Tensor:
-    """The CUDA-core wgrad (csrc/sparse_conv.cu) on float32 or bf16 CUDA
-    tensors; counts nothing."""
+    """The first design's CUDA-core wgrad (csrc/sparse_conv.cu) on float32 or
+    bf16 CUDA tensors, on no path: a yardstick; counts nothing."""
     m, k, cin, cout = _wgrad_shapes(feats, g, idx)
     pairs = cin * cout
     if cout > _THREADS or _THREADS % cout != 0:
@@ -342,12 +463,16 @@ def sparse_conv_wgrad_cuda_cores(feats: torch.Tensor, g: torch.Tensor,
 
 
 def _wgrad_tc(feats, g, idx):
+    """The bf16 wgrad (csrc/sparse_conv_tc.cu) or the 3xTF32 one (csrc/
+    sparse_conv_tf32.cu): one plan layout, one argument list."""
     m, k, cin, cout = _wgrad_shapes(feats, g, idx)
-    plan = wgrad_plan(m, k, cin, cout)
+    plan = wgrad_plan(m, k, cin, cout, feats.element_size())
     _check_aligned("sparse_conv_wgrad", feats, g, idx)
+    entry = (_tc_lib().rpc_sparse_conv_tc_wgrad if feats.dtype == torch.bfloat16
+             else _tf32_lib().rpc_sparse_conv_tf32_wgrad)
     partial = torch.empty((plan.chunks, k * cin * cout), dtype=torch.float32, device=feats.device)
     dw = torch.empty((k * cin, cout), dtype=torch.float32, device=feats.device)
-    _rc("sparse_conv_wgrad", _tc_lib().rpc_sparse_conv_tc_wgrad(
+    _rc("sparse_conv_wgrad", entry(
         feats.data_ptr(), g.data_ptr(), idx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
         feats.shape[0], m, k, cin, cout, plan.cin_pad, plan.cout_pad, plan.rows_per_chunk,
         plan.chunks, plan.cap, plan.step, plan.smem_bytes,
@@ -360,18 +485,16 @@ def sparse_conv_wgrad(feats: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -
     forward index [M, K]."""
     if feats.device.type == "cpu":
         return sparse_conv_wgrad_ref(feats, g, idx)
-    if feats.dtype == torch.bfloat16:
-        dw = _wgrad_tc(feats, g, idx)
-    else:
-        dw = sparse_conv_wgrad_cuda_cores(feats, g, idx)
-        sparse_conv_wgrad.cuda_core_launches += 1
+    dw = _wgrad_tc(feats, g, idx)
+    if feats.dtype == torch.float32:
+        sparse_conv_wgrad.tf32_launches += 1
     sparse_conv_wgrad.launches += 1
     return dw
 
 
 for _fn in (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad):
     _fn.launches = 0
-    _fn.cuda_core_launches = 0
+    _fn.tf32_launches = 0
 
 
 class SparseConvFunction(torch.autograd.Function):

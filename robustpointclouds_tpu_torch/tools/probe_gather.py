@@ -8,8 +8,9 @@ element and row-loop gathers are timed at the sparse conv's table size
 ([96000, 64] bfloat16, 864000 indices: 9 lookups a row). Each timed row
 holds the time of back-to-back calls on the host's clock (CUDA events), the
 kernel's own device time (torch.profiler, inputs cycled over copies that
-exceed twice the L2 cache), the least time the card's memory and tensor
-cores allow for the bytes and operations this data needs, the plain
+exceed twice the L2 cache; only the kernel's records, exactly one a call),
+the least time the card's memory and tensor cores allow for the bytes and
+operations this data needs, the plain
 PyTorch version and torch.index_select, and the host's cost of one call
 split into the wrapper's pieces beside index_select's. Its ns per row and
 GB/s are the gather rates the sparse-conv kernels' tiles are chosen from.
@@ -22,6 +23,7 @@ small shape and times nothing. Exits 1 if a kernel disagrees.
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 import time
 from typing import Callable, Dict, List, Optional
@@ -66,38 +68,65 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str) -> Optional[float]:
-    """The device time per call of the CUDA kernel named `kernel`, which each
-    call of `fn` launches once, under torch.profiler: without the host's
-    launch gaps that cuda_ms sees when a call's host work outlasts its
-    kernel. The calls run twice, the first round the profiler's warm-up
-    cycle, and the second round's records count only if they hold exactly
-    `iters` launches of `kernel`: the profiler can drop records in a process
-    that has run many profiles. None (not measured, with what the profiles
-    recorded printed) if three profiles in a row did not."""
+def _profiled(fn, calls: int) -> list:
+    """The CUDA records of one profile: `calls` calls of fn, run twice, the
+    first round the profiler's warm-up cycle, only the second recorded; the
+    profiler's own step annotation is not a kernel."""
+    cycles = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: cycles.append(p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for c in cycles for e in c if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def _named(key: str, name: str) -> bool:
+    return re.search(rf"(?<!\w){name}(?!\w)", key) is not None
+
+
+def device_ms(fn, iters: int, kernels: Optional[Dict[str, int]] = None,
+              by_kernel: Optional[dict] = None) -> Optional[float]:
+    """The device time per call of fn under torch.profiler: without the
+    host's launch gaps that cuda_ms sees when a call's host work outlasts
+    its kernels. kernels: {kernel name: its launches a call}; only those
+    kernels' records count, and only a profile that holds exactly `iters`
+    times each. None: the set of kernels one call records, profiled alone,
+    must come back exactly `iters` times (a yardstick of eager ops). The
+    profiler can drop or mix records in a process that has run many
+    profiles; None (not measured, with what the profiles recorded printed)
+    if three profiles in a row did not hold the set, never an average of
+    what is left. by_kernel receives each counted kernel's ms a call."""
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(3):
-        cycles = []
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA],
-                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
-                on_trace_ready=lambda p: cycles.append(p.key_averages())) as prof:
-            for _ in range(2):
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        on_card = [e for c in cycles for e in c
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        mine = [e for e in on_card if kernel in e.key]
-        if sum(e.count for e in mine) == iters:
+        if kernels is None:
+            want = {e.key: e.count * iters for e in _profiled(fn, 1)}
+            events = mine = _profiled(fn, iters)
+            got = {e.key: e.count for e in events}
+        else:
+            want = {k: c * iters for k, c in kernels.items()}
+            events = _profiled(fn, iters)
+            mine = [e for e in events if any(_named(e.key, k) for k in kernels)]
+            got = {k: sum(e.count for e in mine if _named(e.key, k)) for k in kernels}
+        if want and got == want:
+            if by_kernel is not None:
+                for e in mine:
+                    name = re.search(r"(\w+_kernel)\b", e.key)
+                    key = name.group(1) if name else e.key[:40]
+                    ms = e.self_device_time_total / 1e3 / iters
+                    by_kernel[key] = by_kernel.get(key, 0.0) + ms
             return sum(e.self_device_time_total for e in mine) / 1e3 / iters
-        seen.append({e.key[:48]: e.count for e in on_card})
-    print(f"        device time of {kernel} not measured: {iters} calls a profile, "
-          f"recorded {seen}", flush=True)
+        seen.append({e.key[:48]: e.count for e in events})
+    print(f"        device time not measured: {iters} calls a profile, wanted "
+          f"{kernels or 'the set of one call'} each time, recorded {seen}", flush=True)
     return None
 
 
@@ -176,14 +205,13 @@ def host_split(fn: Callable, x: torch.Tensor, idx: torch.Tensor, x_pad: torch.Te
     m, c, eb = idx.shape[0], x.shape[1], x.element_size()
     align = g._align(x)
     plan, extra = None, ()
-    if name in ("gather_row_loop", "gather_onehot"):
-        plan_fn = g.row_loop_plan if name == "gather_row_loop" else g.onehot_plan
-        plan = lambda: g._plan_args(plan_fn, m, c, eb, align)  # noqa: E731
+    plan_fns = {"gather_row_loop": g.row_loop_plan, "gather_onehot": g.onehot_plan,
+                "gather_elems": g.elem_plan}
+    if name in plan_fns:
+        plan = lambda: g._plan_args(plan_fns[name], m, c, eb, align)  # noqa: E731
         extra = (plan(),)
-    elif name == "gather_rows":
+    else:  # gather_rows
         extra = (c * eb // 16,)
-    else:
-        extra = (c, eb)
     out = torch.empty((m, c), dtype=x.dtype, device=x.device)
     cfn = g._fn(ENTRY[name])
     dev = x.get_device()
@@ -209,7 +237,7 @@ def _time_row(row, fn, plain, x, idx, x_pad, iters):
     m = idx.shape[0]
     eb = x.element_size()
     row["ms"] = cuda_ms(lambda: fn(x, idx), iters)
-    row["device_ms"] = device_ms(_cold(x, idx)(fn), iters, f"{fn.__name__}_kernel")
+    row["device_ms"] = device_ms(_cold(x, idx)(fn), iters, {f"{fn.__name__}_kernel": 1})
     nbytes = gather_bytes(rows_read(fn.__name__, idx, n), c, m, eb)
     b_ms, by = bound_ms(nbytes, gather_ops(fn.__name__, n, c, m, eb))
     row.update(plain_ms=cuda_ms(lambda: plain(x, idx), iters),

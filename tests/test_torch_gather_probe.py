@@ -9,6 +9,9 @@ HIGHEST precision (k_onehot) and the zero-padded XLA gather of :132, the
 probe's yardstick. Every comparison is exact: the copies move the same
 words, and the one-hot product sums one non-zero product.
 """
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -137,6 +140,51 @@ def test_row_loop_plan_of_the_probe_shapes():
     assert g.row_loop_plan(864000, 64, 2) == g.RowLoopPlan(16, 8, 32, 1664, 520)
     # 12-byte float32 rows take 4-byte words; 6-byte bf16 rows 2-byte ones
     assert g.row_loop_plan(1001, 3, 4).vec == 4 and g.row_loop_plan(1001, 3, 2).vec == 2
+
+
+@pytest.mark.parametrize("n,c,m", TROUBLE)
+@pytest.mark.parametrize("itemsize,align", [(4, 256), (4, 8), (4, 4), (2, 256), (2, 8),
+                                            (2, 4), (2, 2)])
+def test_elem_plan(n, c, m, itemsize, align):
+    p = g.elem_plan(m, c, itemsize, align)
+    row_bytes = c * itemsize
+    # a piece never crosses a row end and its load is aligned: the widest
+    # such piece
+    assert p.piece in (16, 8, 4, 2) and row_bytes % p.piece == 0 and align % p.piece == 0
+    assert all(row_bytes % v or align % v for v in (16, 8, 4, 2) if v > p.piece)
+    # every thread moves the same number of 16-byte vectors: the most that
+    # still leaves each SM _ELEM_BLOCKS_PER_SM blocks; the grid covers the
+    # output's bytes, the last block only partly
+    assert 1 <= p.vecs <= g._ELEM_VECS
+    full = g._SMS * g._ELEM_BLOCKS_PER_SM
+    if p.vecs > 1:
+        assert p.blocks >= full
+    if p.vecs < g._ELEM_VECS:
+        assert -(-m * row_bytes // (16 * g._THREADS * (p.vecs + 1))) < full
+    per_block = g._THREADS * p.vecs * 16
+    assert p.blocks * per_block >= m * row_bytes > (p.blocks - 1) * per_block
+
+
+def test_elem_plan_of_the_probe_shapes():
+    # 512-byte float32 rows and 128-byte bf16 rows: one 16-byte load a
+    # vector; the small shape's 8192 vectors one a thread, SCALE's four
+    assert g.elem_plan(256, 128, 4) == g.ElemPlan(16, 1, 32)
+    assert g.elem_plan(864000, 64, 2) == g.ElemPlan(16, 4, 6750)
+    # 12-byte float32 rows take 4-byte pieces, 6-byte bf16 rows 2-byte ones,
+    # a base 4 bytes off a 16-byte boundary 4-byte ones
+    assert g.elem_plan(1001, 3, 4).piece == 4 and g.elem_plan(1001, 3, 2).piece == 2
+    assert g.elem_plan(1001, 64, 2, align=4).piece == 4
+
+
+def test_gather_plan_constants_match_the_cuda_source():
+    # the Python plans and the kernels share these constants
+    src = open(os.path.join(os.path.dirname(g.__file__), os.pardir, "csrc",
+                            "gather_probe.cu")).read()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kThreads"]) == g._THREADS
+    assert int(consts["kLoopStage"]) == g._LOOP_STAGE
+    assert int(consts["kElemVecs"]) == g._ELEM_VECS
+    assert int(consts["kOhTile"]) == g._OH_TILE and int(consts["kOhWarps"]) == g._OH_WARPS
 
 
 @pytest.mark.parametrize("n,c,m", TROUBLE)

@@ -53,8 +53,8 @@ def test_sparse_conv_matches_plain_version(cuda_device, dtype, cin, cout, k):
 def test_sparse_conv_rejects_what_it_cannot_take(cuda_device):
     feats = torch.zeros(10, 4, device=cuda_device)
     idx = torch.zeros(5, 27, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):  # Cout must divide 256
-        sparse_conv(feats, torch.zeros(27 * 4, 24, device=cuda_device), idx)
+    with pytest.raises(ValueError):  # Cout = 6: not whole 16-byte pieces
+        sparse_conv(feats, torch.zeros(27 * 4, 6, device=cuda_device), idx)
     with pytest.raises(TypeError):  # int64 index
         sparse_conv(feats, torch.zeros(27 * 4, 16, device=cuda_device), idx.long())
 
@@ -103,17 +103,17 @@ def _local_index(dev, side=24, k_side=3):
 
 @pytest.mark.parametrize("cin,cout,k", ENCODER_CONVS + [(16, 16, 1)])
 def test_sparse_conv_tensor_cores_encoder_widths(cuda_device, cin, cout, k):
-    # bf16 launches the tensor-core kernel (no CUDA-core launch is counted);
+    # bf16 launches the bf16 tensor-core kernel (no float32 launch is counted);
     # M = 4037 is not a multiple of the 64-row tile
     g = torch.Generator(device=cuda_device).manual_seed(5)
     n, m = 3000, 4037
     feats = torch.randn(n, cin, device=cuda_device, generator=g).to(torch.bfloat16)
     kernel = (torch.randn(k * cin, cout, device=cuda_device, generator=g) * 0.2).to(torch.bfloat16)
     idx = _tc_index(cuda_device, g, n, m, k)
-    before = (sparse_conv.launches, sparse_conv.cuda_core_launches)
+    before = (sparse_conv.launches, sparse_conv.tf32_launches)
     out = sparse_conv(feats, kernel, idx)
     ref = sparse_conv_ref(feats, kernel, _missing_to_n(idx, n))
-    assert (sparse_conv.launches, sparse_conv.cuda_core_launches) == (before[0] + 1, before[1])
+    assert (sparse_conv.launches, sparse_conv.tf32_launches) == (before[0] + 1, before[1])
     assert out.shape == (m, cout) and out.dtype == torch.bfloat16
     # one bf16 output rounding (2^-8) after float32 sums in another order
     assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
@@ -147,10 +147,10 @@ def test_sparse_conv_dgrad_tensor_cores_encoder_widths(cuda_device, cin, cout, k
     w = (torch.randn(k * cin, cout, device=cuda_device, generator=g) * 0.2).to(torch.bfloat16)
     bwd_idx = _tc_index(cuda_device, g, m, n, k)
     w_bwd = backward_kernel(w, k, mirror)
-    before = (sparse_conv_dgrad.launches, sparse_conv_dgrad.cuda_core_launches)
+    before = (sparse_conv_dgrad.launches, sparse_conv_dgrad.tf32_launches)
     out = sparse_conv_dgrad(grad, w_bwd, bwd_idx)
     ref = sparse_conv_ref(grad, w_bwd, _missing_to_n(bwd_idx, m))
-    assert (sparse_conv_dgrad.launches, sparse_conv_dgrad.cuda_core_launches) == (
+    assert (sparse_conv_dgrad.launches, sparse_conv_dgrad.tf32_launches) == (
         before[0] + 1, before[1])
     assert out.shape == (n, cin) and out.dtype == torch.bfloat16
     assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
@@ -181,10 +181,10 @@ def test_sparse_conv_wgrad_tensor_cores_encoder_widths(cuda_device, cin, cout, k
     feats = torch.randn(n, cin, device=cuda_device, generator=g).to(torch.bfloat16)
     grad = torch.randn(m, cout, device=cuda_device, generator=g).to(torch.bfloat16)
     idx = _tc_index(cuda_device, g, n, m, k)
-    before = (sparse_conv_wgrad.launches, sparse_conv_wgrad.cuda_core_launches)
+    before = (sparse_conv_wgrad.launches, sparse_conv_wgrad.tf32_launches)
     dw = sparse_conv_wgrad(feats, grad, idx)
     ref = sparse_conv_wgrad_ref(feats, grad, _missing_to_n(idx, n))
-    assert (sparse_conv_wgrad.launches, sparse_conv_wgrad.cuda_core_launches) == (
+    assert (sparse_conv_wgrad.launches, sparse_conv_wgrad.tf32_launches) == (
         before[0] + 1, before[1])
     assert dw.shape == (k * cin, cout) and dw.dtype == torch.float32
     # float32 sums of the same exact bf16 products in another order: 1e-4 of scale
@@ -207,20 +207,137 @@ def test_sparse_conv_wgrad_tensor_cores_short_hit_lists(cuda_device, monkeypatch
 
 
 def test_float32_takes_the_cuda_core_kernels(cuda_device):
-    # the float32 route: every wrapper counts a CUDA-core launch, and the
-    # CUDA-core kernels, launched directly, count nothing
-    feats, grad, idx = _conv_inputs(cuda_device, torch.float32, 2000, 1500, 16, 32, 27, seed=4)
+    # the float32 route: every wrapper counts a launch of the 3xTF32
+    # tensor-core kernels, held to the plain version at the float32
+    # tolerances; the first design's CUDA-core kernels, launched directly as
+    # the yardstick, count nothing and agree as well
+    assert not torch.backends.cuda.matmul.allow_tf32  # the plain version in full float32
+    # N = M: idx in [0, N] serves as the forward and the (mirrored) backward index
+    feats, grad, idx = _conv_inputs(cuda_device, torch.float32, 2000, 2000, 16, 32, 27, seed=4)
     kernel = torch.randn(27 * 16, 32, device=cuda_device) * 0.2
+    w_bwd = backward_kernel(kernel, 27, True)
     fns = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
-    before = [(f.launches, f.cuda_core_launches) for f in fns]
+    before = [(f.launches, f.tf32_launches) for f in fns]
     out = sparse_conv(feats, kernel, idx)
-    d_feats = sparse_conv_dgrad(grad, backward_kernel(kernel, 27, True), idx)
+    d_feats = sparse_conv_dgrad(grad, w_bwd, idx)
     dw = sparse_conv_wgrad(feats, grad, idx)
-    assert [(f.launches, f.cuda_core_launches) for f in fns] == [(a + 1, b + 1) for a, b in before]
-    assert torch.equal(out, sparse_conv_cuda_cores(feats, kernel, idx))
-    assert torch.equal(dw, sparse_conv_wgrad_cuda_cores(feats, grad, idx))
-    assert [(f.launches, f.cuda_core_launches) for f in fns] == [(a + 1, b + 1) for a, b in before]
+    assert [(f.launches, f.tf32_launches) for f in fns] == [(a + 1, b + 1) for a, b in before]
+    for got, ref, tol in ((out, sparse_conv_ref(feats, kernel, idx), 1e-5),
+                          (d_feats, sparse_conv_ref(grad, w_bwd, idx), 1e-5),
+                          (dw, sparse_conv_wgrad_ref(feats, grad, idx), 1e-4)):
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    prev = (sparse_conv_cuda_cores(feats, kernel, idx),
+            sparse_conv_wgrad_cuda_cores(feats, grad, idx))
+    assert [(f.launches, f.tf32_launches) for f in fns] == [(a + 1, b + 1) for a, b in before]
+    assert (prev[0] - out).abs().max().item() <= 1e-5 * out.abs().max().item()
+    assert (prev[1] - dw).abs().max().item() <= 1e-4 * dw.abs().max().item()
     assert d_feats.shape == (idx.shape[0], 16)  # one row per backward-index row
+
+
+@pytest.mark.parametrize("cin,cout,k", ENCODER_CONVS)
+def test_sparse_conv_tf32_encoder_widths(cuda_device, cin, cout, k):
+    # float32 launches the 3xTF32 kernel: every kind of miss, M = 4037 not a
+    # multiple of the 64-row tile, one tile that misses every tap; float32
+    # sums in another order: 1e-5 of the output's scale; the same bits again
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    n, m = 3000, 4037
+    feats = torch.randn(n, cin, device=cuda_device, generator=g)
+    kernel = torch.randn(k * cin, cout, device=cuda_device, generator=g) * 0.2
+    idx = _tc_index(cuda_device, g, n, m, k)
+    before = (sparse_conv.launches, sparse_conv.tf32_launches)
+    out = sparse_conv(feats, kernel, idx)
+    assert (sparse_conv.launches, sparse_conv.tf32_launches) == (before[0] + 1, before[1] + 1)
+    ref = sparse_conv_ref(feats, kernel, _missing_to_n(idx, n))
+    assert out.shape == (m, cout) and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert out[64:128].abs().max().item() == 0.0  # the tile that misses every tap
+    assert torch.equal(out, sparse_conv(feats, kernel, idx))
+
+
+@pytest.mark.parametrize("tile_m,cin,cout", [(16, 32, 16), (128, 4, 16), (48, 64, 128),
+                                            (128, 128, 64)])
+def test_sparse_conv_tf32_other_tile_rows(cuda_device, monkeypatch, tile_m, cin, cout):
+    # the kernel takes any multiple of 16 rows up to 128 within 256 threads
+    # (two warps per 16 rows at Cout = 128), and 2 or 3 ring stages
+    monkeypatch.setattr(sparse_conv_module, "_TF32_TILE_M", tile_m)
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    n, m = 2000, 1537
+    feats = torch.randn(n, cin, device=cuda_device, generator=g)
+    kernel = torch.randn(27 * cin, cout, device=cuda_device, generator=g) * 0.2
+    idx = _tc_index(cuda_device, g, n, m, 27)
+    out = sparse_conv(feats, kernel, idx)
+    ref = sparse_conv_ref(feats, kernel, _missing_to_n(idx, n))
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("cin,cout,k", ENCODER_CONVS)
+@pytest.mark.parametrize("mirror", [True, False])
+def test_sparse_conv_dgrad_tf32_encoder_widths(cuda_device, cin, cout, k, mirror):
+    # d_feats [N, Cin] from g [M, Cout]: mirrored taps over the forward index
+    # (submanifold) or the transposed taps over an inverse index (strided)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    n, m = 4037, 3000
+    grad = torch.randn(m, cout, device=cuda_device, generator=g)
+    w = torch.randn(k * cin, cout, device=cuda_device, generator=g) * 0.2
+    bwd_idx = _tc_index(cuda_device, g, m, n, k)
+    w_bwd = backward_kernel(w, k, mirror)
+    before = (sparse_conv_dgrad.launches, sparse_conv_dgrad.tf32_launches)
+    out = sparse_conv_dgrad(grad, w_bwd, bwd_idx)
+    assert (sparse_conv_dgrad.launches, sparse_conv_dgrad.tf32_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = sparse_conv_ref(grad, w_bwd, _missing_to_n(bwd_idx, m))
+    assert out.shape == (n, cin) and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 16), (16, 32), (64, 64)])
+def test_sparse_conv_tf32_local_sorted_index(cuda_device, cin, cout):
+    # a real submanifold index: the dgrad over the mirrored weights equals
+    # the autograd of the plain forward
+    idx, n = _local_index(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    feats = torch.randn(n, cin, device=cuda_device, generator=g).requires_grad_(True)
+    kernel = torch.randn(27 * cin, cout, device=cuda_device, generator=g) * 0.2
+    grad = torch.randn(n, cout, device=cuda_device, generator=g)
+    (sparse_conv_ref(feats, kernel, idx) * grad).sum().backward()
+    d_feats = sparse_conv_dgrad(grad, backward_kernel(kernel, 27, True), idx)
+    assert (d_feats - feats.grad).abs().max().item() <= 1e-5 * feats.grad.abs().max().item()
+
+
+@pytest.mark.parametrize("cin,cout,k", ENCODER_CONVS)
+def test_sparse_conv_wgrad_tf32_encoder_widths(cuda_device, cin, cout, k):
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    n, m = 3000, 4037
+    feats = torch.randn(n, cin, device=cuda_device, generator=g)
+    grad = torch.randn(m, cout, device=cuda_device, generator=g)
+    idx = _tc_index(cuda_device, g, n, m, k)
+    before = (sparse_conv_wgrad.launches, sparse_conv_wgrad.tf32_launches)
+    dw = sparse_conv_wgrad(feats, grad, idx)
+    assert (sparse_conv_wgrad.launches, sparse_conv_wgrad.tf32_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = sparse_conv_wgrad_ref(feats, grad, _missing_to_n(idx, n))
+    assert dw.shape == (k * cin, cout) and dw.dtype == torch.float32
+    # float32 sums in another order: 1e-4 of scale
+    assert (dw - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    # deterministic: fixed hit lists, fixed warp split, fixed-order reduce
+    assert torch.equal(dw, sparse_conv_wgrad(feats, grad, idx))
+
+
+def test_sparse_conv_tf32_non_finite_rows(cuda_device):
+    # an Inf or NaN input row makes every output row that reads it non-finite
+    # and touches no other row
+    feats, _, idx = _conv_inputs(cuda_device, torch.float32, 500, 400, 16, 32, 27, seed=14)
+    kernel = torch.randn(27 * 16, 32, device=cuda_device) * 0.2
+    feats[7, 3], feats[9, 0] = float("inf"), float("nan")
+    out = sparse_conv(feats, kernel, idx)
+    reach = ((idx == 7) | (idx == 9)).any(1)
+    assert reach.any() and not reach.all()
+    assert (~torch.isfinite(out[reach])).any(1).all()
+    clean = feats.clone()
+    clean[7], clean[9] = 0.0, 0.0
+    ref = sparse_conv_ref(clean, kernel, idx)
+    assert torch.isfinite(out[~reach]).all()
+    assert (out[~reach] - ref[~reach]).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 def test_tensor_cores_reject_what_they_cannot_take(cuda_device):
@@ -314,14 +431,15 @@ def test_sparse_conv_wgrad_matches_plain_version(cuda_device, dtype, cin, cout, 
 @pytest.mark.parametrize("smem_floats", [96, 1536, 6144])
 @pytest.mark.parametrize("cin,cout", [(4, 16), (32, 64), (64, 64)])
 def test_sparse_conv_wgrad_short_hit_lists(cuda_device, monkeypatch, smem_floats, cin, cout):
-    # a small shared-memory budget gives a short hit list, so each block
-    # stages and flushes it many times per tap
-    monkeypatch.setattr(sparse_conv_module, "_WGRAD_SMEM_FLOATS", smem_floats)
+    # a small shared-memory budget gives a short hit list (16 to 64 float32
+    # hits), so each block stages and flushes it many times per tap
+    monkeypatch.setattr(sparse_conv_module, "_TC_WGRAD_SMEM_BYTES", 4 * smem_floats)
     feats, grad, idx = _conv_inputs(cuda_device, torch.float32, 3000, 2500, cin, cout, 27, seed=3)
     dw = sparse_conv_wgrad(feats, grad, idx)
     ref = sparse_conv_wgrad_ref(feats, grad, idx)
     # float32 sums of the same products in another order: 1e-4 of scale
     assert (dw - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(dw, sparse_conv_wgrad(feats, grad, idx))
 
 
 @pytest.mark.parametrize("dtype,cin,cout,k,mirror", [
@@ -480,6 +598,39 @@ def test_gather_row_loop_takes_unaligned_bases(cuda_device, dtype, offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,m", [(512, 128, 256), (96, 3, 1001), (777, 72, 4099),
+                                   (300, 36, 8193), (5000, 7, 300001), (64, 1, 5)])
+def test_gather_elems_is_exact(cuda_device, dtype, n, c, m):
+    # C not a multiple of the 16-byte vector (pieces cross row ends, output
+    # bytes not a multiple of 16), misses of both signs, Inf, NaN, -0 and
+    # subnormals as they are
+    from robustpointclouds_tpu_torch.kernels import gather as gmod
+
+    x, idx = _gather_inputs(cuda_device, dtype, n, c, m, seed=n + c + 1, specials=True)
+    before = gmod.gather_elems.launches
+    out = gmod.gather_elems(x, idx)
+    again = gmod.gather_elems(x, idx)
+    assert gmod.gather_elems.launches == before + 2
+    ref = gmod.gather_ref(x, idx.masked_fill(idx < 0, n))
+    assert torch.equal(_bits(out), _bits(ref)) and torch.equal(_bits(again), _bits(out))
+    assert not _bits(out[:2]).any()  # the misses read +0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset,c", [(1, 16), (3, 16), (1, 5), (2, 64)])
+def test_gather_elems_takes_unaligned_bases(cuda_device, dtype, offset, c):
+    from robustpointclouds_tpu_torch.kernels import gather as gmod
+
+    big, idx = _gather_inputs(cuda_device, dtype, 401, c, 3000, seed=8)
+    x = big.view(-1)[offset:offset + 400 * c].view(400, c)  # a contiguous view off the base
+    assert x.data_ptr() % 16
+    assert gmod.elem_plan(3000, c, x.element_size(), gmod._align(x)).piece < 16
+    out = gmod.gather_elems(x, idx)
+    ref = gmod.gather_ref(x, idx.masked_fill(idx < 0, 400).clamp(max=400))
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c,m", [(512, 128, 256), (96, 3, 1001), (200, 72, 1001),
                                    (130, 36, 4099), (1000, 64, 3), (17, 1, 40)])
 def test_gather_onehot_tensor_cores_are_exact(cuda_device, dtype, n, c, m):
@@ -509,7 +660,7 @@ def test_gather_probe_kernels_reject_what_they_cannot_take(cuda_device):
 
     x = torch.zeros(10, 8, device=cuda_device)
     idx = torch.zeros(4, dtype=torch.int32, device=cuda_device)
-    for fn in (gmod.gather_row_loop, gmod.gather_onehot):
+    for fn in (gmod.gather_elems, gmod.gather_row_loop, gmod.gather_onehot):
         with pytest.raises(TypeError):
             fn(x, idx.long())
         with pytest.raises(TypeError):
@@ -528,8 +679,15 @@ def test_gather_probe_kernels_reject_what_they_cannot_take(cuda_device):
     def plan(*fields):
         return (ctypes.c_int64 * len(fields))(*fields)
 
-    row_loop, onehot = gmod._fn("rpc_gather_row_loop"), gmod._fn("rpc_gather_onehot")
+    elems = gmod._fn("rpc_gather_elems")
     args = (xs.data_ptr(), idx.data_ptr(), out.data_ptr(), 4, 9)
+    assert elems(*args, plan(8, 4, *gmod.elem_plan(4, 8, 4, 4)), stream) == 0
+    assert elems(*args, plan(8, 4, 16, 4, 1), stream) != 0  # 16-byte pieces off the base
+    assert elems(*args, plan(8, 4, 4, 5, 1), stream) != 0  # 5 vectors a thread
+    assert elems(*args, plan(8, 4, 4, 0, 1), stream) != 0  # none
+    assert elems(*args, plan(8, 4, 4, 4, 2), stream) != 0  # a grid that disagrees
+    assert elems(*args, plan(8, 3, 4, 4, 1), stream) != 0  # 3-byte elements
+    row_loop, onehot = gmod._fn("rpc_gather_row_loop"), gmod._fn("rpc_gather_onehot")
     assert row_loop(*args, plan(8, 4, *gmod.row_loop_plan(4, 8, 4, 4)), stream) == 0
     assert row_loop(*args, plan(8, 4, 16, 2, 128, 8, 1), stream) != 0  # 16-byte vectors
     assert row_loop(*args, plan(8, 4, 4, 8, 64, 8192, 1), stream) != 0  # > 4096 rows staged
