@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe and evaluation paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation and KITTI training paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -72,7 +72,26 @@ Phases (any failure exits non-zero and prints no result):
      statistics; PGD-K adds 12*(K+1) of each and 12*K input gradients of
      each, no weight gradient and no bwd_reduce); each
      batch's host plan, device and metric ms are printed, and the device's
-     idle share over one batch of each path under torch.profiler.
+     idle share over one batch of each path under torch.profiler;
+  7. KITTI training: a KITTI-layout dataset is written under the
+     git-ignored work_dirs/ (24 train and 6 val frames of 120000 velodyne
+     points, most of them around the sensor outside the front range, 8 Car
+     / Pedestrian / Cyclist boxes of 900 points each, labels in the camera
+     frame through the fixture's calibration) and
+     tools/create_kitti_dbinfos seeds GT-paste from it; the training loader
+     (native IO + global augmentation, GT-paste and object noise) is timed
+     alone on this thread; then cli/train_kitti_3class_adversarial's main
+     runs from the default config file at full width and B=6: (a) 2 epochs
+     of 6 steps validating every epoch (a finite AP dict, best.pt written),
+     (b) --resume to 3 epochs (starts at epoch 2), (c) --freeze-detector
+     for 3 steps (every detector parameter bit-equal to its initial value
+     on the card, the adversary's moved), then (d) PGD adversarial
+     training at pgd_adversary.steps=2 and (e) plain training, in turns
+     (e, d, d, e) of 5 steps each. Every step's kernel launches are checked
+     (TRAIN_LAUNCHES; PGD_TRAIN_LAUNCHES for (d)); each run prints its step,
+     plan and steady frames/s, and the median steady PGD-AT step is set
+     against the median steady plain step of the same run shape, beside the
+     card's name and power limit.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -82,6 +101,7 @@ import argparse
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -144,6 +164,26 @@ PREFETCHED_STEPS = 3
 EVAL_CLEAN_FRAMES = 12
 EVAL_ATTACK_FRAMES = 6
 PGD_STEPS = 10  # evaluate_kitti_adversarial_attack's default
+
+# phase 7: a KITTI-layout dataset of realistic size (an HDL-64E frame before
+# range filtering; the loader subsamples to 20000 points), 8 GT boxes a frame
+# of 900 points each (a car a few tens of metres off; real counts range from
+# tens far off to a few thousand close by)
+KITTI_TRAIN_FRAMES, KITTI_VAL_FRAMES = 24, 6
+KITTI_POINTS, KITTI_BOXES, KITTI_OBJECT_POINTS = 120000, 8, 900
+LOADER_BATCHES = 6  # batches of the training loader timed alone
+PGD_TRAIN_STEPS = 2  # runs (d): pgd_adversary.steps
+# runs (d)/(e): PGD-AT and plain steps in turns (plain, PGD-AT, PGD-AT,
+# plain), KITTI_TURN_STEPS each; a run's first step (the attack's build,
+# first-call costs) is left out of its steady steps
+KITTI_TURN_STEPS = 5
+# kernel launches of a PGD-AT train step, derived from the code: each of the
+# K attack steps runs the eval-mode forward (12 convs, 12 BNs; no adversary)
+# and its input gradient (12 dgrads, 12 BN dx; the weights are frozen, so no
+# wgrad and no bwd_reduce), then the train step as TRAIN_LAUNCHES
+PGD_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, **{
+    k: TRAIN_LAUNCHES[k] + 12 * PGD_TRAIN_STEPS
+    for k in ("sparse_conv", "sparse_conv_dgrad", "masked_batch_norm", "masked_batch_norm_bwd")})
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -641,6 +681,226 @@ def check_masked_batch_norm(torch, seed, prev_bn):
                          bound_two_pass_ms=b_two / HBM_BYTES_PER_S * 1e3, max_abs_err=bwd_err,
                          device_kernels=split_b))
     return rows
+
+
+def write_kitti_layout(root: str, seed: int, point_range, np):
+    """A KITTI-layout dataset under `root`. Each velodyne .bin frame holds
+    KITTI_POINTS float32 points: a synthetic scene's KITTI_BOXES Car /
+    Pedestrian / Cyclist boxes with KITTI_OBJECT_POINTS points each plus its
+    ground (data/synthetic), and ground and clutter all around the sensor,
+    most of it outside the front range as in an HDL-64E sweep. label_2
+    files carry the boxes in the camera frame (the forward transform of
+    tests/fixtures/make_kitti_mini.py, R0 @ Tr_velo_to_cam, through the
+    fixture's calib/000000.txt); calib files and ImageSets complete the
+    layout. Returns the train and val frame ids."""
+    from robustpointclouds_tpu_torch.data.kitti import CLASSES, read_calib
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+
+    calib_src = os.path.join(REPO, "tests", "fixtures", "kitti_mini", "training", "calib",
+                             "000000.txt")
+    calib = read_calib(calib_src)
+    tr, r0 = calib["Tr_velo_to_cam"], calib["R0"]
+    for sub in ("velodyne", "label_2", "calib"):
+        os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    ids = [f"{i:06d}" for i in range(KITTI_TRAIN_FRAMES + KITTI_VAL_FRAMES)]
+    # synthetic_kitti_batch puts 60% of its points on the objects
+    scene_points = KITTI_OBJECT_POINTS * KITTI_BOXES * 10 // 6
+    for fid in ids:
+        b = synthetic_kitti_batch(rng, batch_size=1, num_points=scene_points,
+                                  max_gt=KITTI_BOXES, num_objects=KITTI_BOXES,
+                                  point_range=point_range)
+        n_bg = KITTI_POINTS - scene_points
+        r = 80.0 * np.sqrt(rng.rand(n_bg))
+        phi = rng.uniform(-np.pi, np.pi, n_bg)
+        bg = np.stack([r * np.cos(phi), r * np.sin(phi), rng.normal(-1.7, 0.3, n_bg),
+                       rng.rand(n_bg)], axis=1).astype(np.float32)
+        pts = np.concatenate([b.points[0], bg])
+        pts.tofile(os.path.join(root, "training", "velodyne", f"{fid}.bin"))
+        lines = []
+        for box, label in zip(b.gt_boxes[0][b.gt_mask[0]], b.gt_labels[0][b.gt_mask[0]]):
+            x, y, zc, l, w, h, yaw = (float(v) for v in box)
+            loc = r0 @ (tr[:, :3] @ np.array([x, y, zc - h / 2.0]) + tr[:, 3])
+            rot_y = -yaw - np.pi / 2.0
+            lines.append(f"{CLASSES[int(label)]} 0.00 0 {rot_y:.4f} 100.00 100.00 200.00 160.00 "
+                         f"{h:.4f} {w:.4f} {l:.4f} {loc[0]:.6f} {loc[1]:.6f} {loc[2]:.6f} "
+                         f"{rot_y:.6f}")
+        with open(os.path.join(root, "training", "label_2", f"{fid}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        shutil.copyfile(calib_src, os.path.join(root, "training", "calib", f"{fid}.txt"))
+    train, val = ids[:KITTI_TRAIN_FRAMES], ids[KITTI_TRAIN_FRAMES:]
+    for split, names in (("train", train), ("val", val)):
+        with open(os.path.join(root, "ImageSets", f"{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return train, val
+
+
+def run_kitti_training(cfg, dev, card: str, seed: int, read_counts, expect_bf16_kernels,
+                       cli_extra=()):
+    """Phase 7: a KITTI-layout dataset of realistic size, GT-paste seeded by
+    create_kitti_dbinfos, the training loader timed alone, then runs (a)-(d)
+    of the training CLI's main(argv) (`cli_extra` appended to each argv):
+    (a) 2 epochs of 6 steps validating every epoch, (b) --resume to epoch 3,
+    (c) --freeze-detector, (d) PGD-AT from --cfg-options and (e) plain
+    training, (d) and (e) in turns. Each step's kernel launches are checked
+    against TRAIN_LAUNCHES / PGD_TRAIN_LAUNCHES; each step is timed on the
+    host clock up to a synchronise, around Trainer.train_step. Returns each
+    run's summary."""
+    import numpy as np
+    import torch
+
+    from robustpointclouds_tpu_torch.cli import train_kitti_3class_adversarial as train_cli
+    from robustpointclouds_tpu_torch.data.kitti import kitti_epoch_loader
+    from robustpointclouds_tpu_torch.tools.create_kitti_dbinfos import create_dbinfos
+    from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    kitti_root = os.path.join(REPO, "work_dirs", "chip_smoke_kitti")
+    shutil.rmtree(kitti_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_ids, val_ids = write_kitti_layout(os.path.join(kitti_root, "data"), seed,
+                                            cfg.voxelizer.point_cloud_range, np)
+    data_root = os.path.join(kitti_root, "data")
+    t1 = time.perf_counter()
+    dbinfos = create_dbinfos(data_root)
+    print(f"kitti layout: {len(train_ids)} train + {len(val_ids)} val frames of {KITTI_POINTS} "
+          f"points, {KITTI_BOXES} boxes each, written in {t1 - t0:.1f} s; dbinfos "
+          f"{json.dumps({k: len(v) for k, v in dbinfos.items()})} in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    # the training loader alone (IO + augmentation + GT-paste), on this thread
+    loader_ms = []
+    loader_it = kitti_epoch_loader(data_root, 6, cfg, seed=seed,
+                                   steps_per_epoch=LOADER_BATCHES)(0)
+    for _ in range(LOADER_BATCHES):
+        t0 = time.perf_counter()
+        lb = next(loader_it)
+        loader_ms.append((time.perf_counter() - t0) * 1e3)
+        if lb.points.shape != (6, 20000, 4) or not lb.gt_mask.any(axis=1).all():
+            raise RuntimeError(f"kitti loader batch {lb.points.shape}, "
+                               f"{lb.gt_mask.sum(axis=1).tolist()} boxes a frame")
+    del loader_it
+    print(f"kitti loader host ms a B=6 batch ({card}): {json.dumps(loader_ms)}, mean "
+          f"{sum(loader_ms) / len(loader_ms):.3f}; GT boxes a frame after paste "
+          f"{lb.gt_mask.sum(axis=1).tolist()}", flush=True)
+
+    config = os.path.join(REPO, train_cli.DEFAULT_CONFIG)
+    steps = []
+    plain_step = Trainer.train_step
+
+    def counted_step(self, batch, epoch, plan):
+        before = read_counts()
+        t0 = time.perf_counter()
+        logs = plain_step(self, batch, epoch, plan)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps.append({"epoch": epoch, "t0": t0, "t1": t1,
+                      "launches": {k: v - before[k] for k, v in read_counts().items()}})
+        return logs
+
+    kitti_summary = {}
+
+    def kitti_run(name, work, extra, per_step):
+        """One run of the training CLI in `work`; its per-step launches, timings and summary."""
+        steps.clear()
+        t0 = time.perf_counter()
+        Trainer.train_step = counted_step
+        try:
+            out = train_cli.main(["--config", config, "--data-root", data_root, "--work-dir",
+                                  os.path.join(kitti_root, work), "--seed", str(seed),
+                                  *extra, *cli_extra])
+        finally:
+            Trainer.train_step = plain_step
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        expect_bf16_kernels(f"kitti {name}")
+        if not steps or any(st["launches"] != per_step for st in steps):
+            raise RuntimeError(f"kitti {name}: per-step launches "
+                               f"{[st['launches'] for st in steps]}, expected {per_step} each")
+        # the host-clock ms of each step up to a synchronise, and waiting for
+        # its (batch, plan) since the previous step (the first: since the start)
+        timed = [{"epoch": st["epoch"], "wait_ms": (st["t0"] - (steps[i - 1]["t1"] if i else t0))
+                  * 1e3, "step_ms": (st["t1"] - st["t0"]) * 1e3} for i, st in enumerate(steps)]
+        # each epoch's first PREFETCHED_STEPS steps find their plans built ahead
+        firsts = {}
+        for i, st in enumerate(timed):
+            firsts.setdefault(st["epoch"], i)
+        steady = [st for i, st in enumerate(timed) if i - firsts[st["epoch"]] >= PREFETCHED_STEPS]
+        plans = out["plans"]
+        row = {"steps": len(timed),
+               # the run's first step builds the attack and pays first-call costs
+               "steady_step_ms": [st["step_ms"] for st in timed[1:]],
+               "median_step_ms": statistics.median(st["step_ms"] for st in timed[1:]),
+               "first_step_ms": timed[0]["step_ms"],
+               "plan_ms": sum(p["plan_ms"] for p in plans) / len(plans),
+               "native_ms": sum(p["native_ms"] for p in plans) / len(plans),
+               "assign_ms": sum(p["assign_ms"] for p in plans) / len(plans),
+               "steady_frames_per_s": (6 * len(steady) / sum(
+                   (st["wait_ms"] + st["step_ms"]) / 1e3 for st in steady)) if steady else None,
+               "epoch_frames_per_s": [e["frames_per_s"] for e in out["epochs"]],
+               "wall_s": wall_s}
+        kitti_summary[name] = row
+        for i, st in enumerate(timed):
+            print(f"kitti {name} step {i} " + json.dumps(st), flush=True)
+        print(f"kitti {name} ({card}): " + json.dumps(row) + "; per step: "
+              + json.dumps(per_step), flush=True)
+        return out
+
+    run_a = ["--epochs", "2", "--steps-per-epoch", "6"]
+    out = kitti_run("a_validate", "a", run_a + ["--validate", "--cfg-options", "val_interval=1"],
+                    TRAIN_LAUNCHES)
+    wd_a = os.path.join(kitti_root, "a")
+    for epoch in (0, 1):
+        ap = out["history"][f"val_epoch{epoch}"]
+        if ap["num_frames"] != len(val_ids) or not all(np.isfinite(v) for v in ap.values()):
+            raise RuntimeError(f"kitti validation at epoch {epoch}: {ap}")
+    if not os.path.isfile(os.path.join(wd_a, "best.pt")):
+        raise RuntimeError("kitti --validate wrote no best checkpoint")
+    print(f"kitti validation: mAP_3d_moderate "
+          f"{[out['history'][f'val_epoch{e}']['mAP_3d_moderate'] for e in (0, 1)]} over "
+          f"{len(val_ids)} frames; best.pt written", flush=True)
+    out = kitti_run("b_resume", "a", ["--epochs", "3", "--steps-per-epoch", "6", "--resume"],
+                    TRAIN_LAUNCHES)
+    if out["start_epoch"] != 2 or out["state"].step != 18:
+        raise RuntimeError(f"kitti --resume started at epoch {out['start_epoch']}, step "
+                           f"{out['state'].step}")
+    print("kitti --resume: restored epoch 1, trained epoch 2 (steps 12-17)", flush=True)
+    kitti_run("c_freeze", "c", ["--freeze-detector", "--steps", "3"], TRAIN_LAUNCHES)
+    init = Trainer(cfg, TrainConfig(), device=dev)
+    init.init_state(seed)
+    frozen_tr = Trainer(cfg, TrainConfig(), device=dev)
+    frozen_tr.init_state(seed + 1)
+    CheckpointManager(os.path.join(kitti_root, "c")).restore(frozen_tr)
+    before, after = dict(init.model.named_parameters()), dict(frozen_tr.model.named_parameters())
+    moved = [k for k in after if not torch.equal(after[k].detach().view(torch.int32),
+                                                 before[k].detach().view(torch.int32))]
+    if any(not k.startswith("adversary.") for k in moved) or not moved:
+        raise RuntimeError(f"kitti --freeze-detector: parameters that moved {moved}")
+    print(f"kitti --freeze-detector: {len(after) - len(moved)} detector parameters bit-equal on "
+          f"the card, {len(moved)} adversary parameters moved", flush=True)
+    del init, frozen_tr, before, after
+    # PGD-AT against plain training in the same run shape, in turns
+    turn = ["--steps", str(KITTI_TURN_STEPS)]
+    pgd = ["--cfg-options", f"pgd_adversary.steps={PGD_TRAIN_STEPS}"]
+    for name, extra, per_step in (("e_plain_1", [], TRAIN_LAUNCHES),
+                                  ("d_pgd_1", pgd, PGD_TRAIN_LAUNCHES),
+                                  ("d_pgd_2", pgd, PGD_TRAIN_LAUNCHES),
+                                  ("e_plain_2", [], TRAIN_LAUNCHES)):
+        kitti_run(name, name[0], turn + extra, per_step)
+    ks = kitti_summary
+    pgd_ms = statistics.median(ks["d_pgd_1"]["steady_step_ms"] + ks["d_pgd_2"]["steady_step_ms"])
+    plain_ms = statistics.median(ks["e_plain_1"]["steady_step_ms"]
+                                 + ks["e_plain_2"]["steady_step_ms"])
+    print(f"kitti PGD-AT (K={PGD_TRAIN_STEPS}) median steady step {pgd_ms:.3f} ms (runs "
+          f"{ks['d_pgd_1']['median_step_ms']:.3f} / {ks['d_pgd_2']['median_step_ms']:.3f}) against "
+          f"the plain step {plain_ms:.3f} ms (runs {ks['e_plain_1']['median_step_ms']:.3f} / "
+          f"{ks['e_plain_2']['median_step_ms']:.3f}), {pgd_ms / plain_ms:.3f}x; "
+          f"{2 * (KITTI_TURN_STEPS - 1)} steady steps each, in turns ({card})", flush=True)
+    shutil.rmtree(kitti_root, ignore_errors=True)
+
+    return kitti_summary
 
 
 def bn_step_total(rows, kernel):
@@ -1185,6 +1445,10 @@ def main() -> int:
         print(f"eval {name} under torch.profiler (one B=6 batch): device busy {busy_ms:.3f} ms "
               f"of {wall_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}", flush=True)
     del etr
+
+    # ---- phase 7: KITTI training through the training CLI's entry point
+    zero_counts()
+    kitti_summary = run_kitti_training(cfg, dev, card, args.seed, read_counts, expect_bf16_kernels)
 
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"

@@ -1,16 +1,14 @@
 """Shared CLI machinery: the training and evaluation drivers and metric logging (counterpart of robustpointclouds_tpu/cli/common.py).
 
 Training is one explicit loop: data -> host plan in the prefetch thread ->
-train step -> NaN ladder at log boundaries, with the perturbation-metrics
-CSV dump matching the reference's `save_l2_norms` schema
-(voxel_perturber.py:411-432). Evaluation: host plan -> (attack) -> eval
-forward -> decode + NMS -> the KITTI AP metric.
-Ported: MetricsLogger (CSV and jsonl; no TensorBoard writer), the synthetic
-loader, the prefetch iterator, the tiny smoke config, run_training on one
-device with its periodic and final checkpoints, and run_evaluation (clean,
-the learned attack, PGD / FGSM, flip TTA, result dumps). Not ported yet: the
-mesh / multi-host paths, validation inside training, profiling, load_from
-and resume (ROADMAP.md, M7 and M10).
+train step -> NaN ladder at log boundaries -> periodic checkpoint and
+validation (best-metric checkpoint), with the perturbation-metrics CSV dump
+matching the reference's `save_l2_norms` schema (voxel_perturber.py:411-432)
+and TensorBoard scalar events under `work_dir/tf_logs`. It warm-starts from
+a port checkpoint (`load_from`), resumes from the newest one (`resume`) and
+traces steps 10-13 with torch.profiler (`profile_dir`). Evaluation: host
+plan -> (attack) -> eval forward -> decode + NMS -> the KITTI AP metric.
+Not ported yet: the mesh / multi-host paths (ROADMAP.md, M10).
 """
 from __future__ import annotations
 
@@ -26,19 +24,22 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..core.tensorboard import TensorBoardWriter
 from ..data.synthetic import PointCloudBatch, synthetic_kitti_batch
 from ..eval.attacks import make_plan_attack
 from ..eval.kitti_metric import KittiMetric
 from ..models.detection import anchor_head_predict
 from ..ops import boxes as box_ops
 from ..ops.nms import _suppression_sweep
-from ..train.checkpoint import CheckpointManager
+from ..train.checkpoint import CheckpointManager, load_pretrained
 from ..train.hooks import NaNLadder, reinit_adversary_params
 from ..train.loop import HostPlanBuilder, Trainer
 
 
 class MetricsLogger:
-    """Accumulates per-step scalars; writes the reference-compatible CSVs."""
+    """Accumulates per-step scalars; writes the reference-compatible CSVs and
+    TensorBoard scalar events `train/<key>` (step = the logged row's index)
+    into `work_dir/tf_logs`, the reference's TensorBoard backend."""
 
     def __init__(self, work_dir: str):
         self.work_dir = work_dir
@@ -46,13 +47,21 @@ class MetricsLogger:
         self.l2_norms: List[float] = []
         self.l2_percentages: List[float] = []
         self.rows: List[Dict[str, float]] = []
+        self._tb = TensorBoardWriter(os.path.join(work_dir, "tf_logs"))
 
     def log_step(self, logs: Dict) -> None:
         row = {k: float(v) for k, v in logs.items() if np.ndim(v) == 0}
+        step = len(self.rows)
         self.rows.append(row)
         if "perturbation_l2_norm" in row:
             self.l2_norms.append(row["perturbation_l2_norm"])
             self.l2_percentages.append(row.get("l2_percentage", 0.0))
+        for k, v in row.items():
+            self._tb.add_scalar(f"train/{k}", v, step)
+        self._tb.flush()
+
+    def close(self) -> None:
+        self._tb.close()
 
     def save_l2_norms(self, filename: str = "l2_norms.csv") -> str:
         path = os.path.join(self.work_dir, filename)
@@ -161,26 +170,57 @@ def tiny_voxelnet_cfg():
 
 def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointCloudBatch]],
                  work_dir: str, max_epochs: int, log_interval: int = 50, seed: int = 0,
-                 start_epoch: int = 0, checkpoint_interval: int = 5,
-                 max_keep: int = 10) -> Dict:
-    """The training loop on one device. The host plan (native index plan +
-    anchor assignment) is built in the prefetch thread, overlapping the
-    device step; `plan_build_ms` in the logs is the newest build's time,
-    which must stay below the step time for the input pipeline to be free.
-    A checkpoint (train/checkpoint.py) is written into `work_dir` every
-    `checkpoint_interval` epochs and after the last, the newest `max_keep`
-    kept."""
+                 checkpoint_interval: int = 5, max_keep: int = 10, val_interval: int = 5,
+                 val_loader: Optional[Callable[[], Iterator]] = None, resume: bool = False,
+                 load_from: Optional[str] = None, profile_dir: Optional[str] = None) -> Dict:
+    """The training loop on one device (the reference scenario:
+    train_kitti_3class_adversarial.py --validate).
+
+    The host plan (native index plan + anchor assignment) is built in the
+    prefetch thread, overlapping the device step; `plan_build_ms` in the
+    logs is the newest build's time, which must stay below the step time for
+    the input pipeline to be free. A checkpoint (train/checkpoint.py) is
+    written into `work_dir` every `checkpoint_interval` epochs and after the
+    last, the newest `max_keep` kept.
+
+    `load_from`: warm start of the model weights from a port checkpoint (a
+    file or a directory; zoo `.pth` files raise). `resume`: restore the
+    newest checkpoint of `work_dir` and go on at the next epoch.
+    `val_loader`: () -> batches for run_evaluation every `val_interval`
+    epochs; the best `mAP_3d_moderate` (else `mAP`) is kept as best.pt.
+    `profile_dir`: a torch.profiler Chrome trace of steps 10-13 of the first
+    epoch (closed early if the epoch ends first). The result holds the
+    newest plan builds' timings ("plans", HostPlanBuilder.timings) and each
+    epoch's seconds and frames/s ("epochs")."""
     os.makedirs(work_dir, exist_ok=True)
     logger = MetricsLogger(work_dir)
     ladder = NaNLadder()
     plan_builder = trainer.make_plan_builder()
     ckpt = CheckpointManager(work_dir, max_to_keep=max_keep,
                              save_interval_epochs=checkpoint_interval)
+    on_card = trainer.device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(trainer.device)
 
     if trainer.state is None:
         trainer.init_state(seed)
+    if load_from:
+        load_pretrained(trainer, load_from)
+    start_epoch = 0
+    if resume:
+        latest = ckpt.latest_epoch()
+        if latest is not None:
+            ckpt.restore(trainer)
+            start_epoch = latest + 1
+            print(f"[resume] restored epoch {latest} from {work_dir}", flush=True)
+        else:
+            print(f"[resume] no checkpoint in {work_dir}, starting fresh", flush=True)
     reinit_gen = torch.Generator().manual_seed(seed)
     history: Dict = {}
+    epochs: List[Dict] = []
+    prof = None
     t_start = time.time()
     epoch = start_epoch
     for epoch in range(start_epoch, max_epochs):
@@ -188,7 +228,14 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
         n_frames = 0
         batches = prefetch_iterator(with_plans(plan_builder, epoch_loader(epoch)))
         for i, (batch, plan) in enumerate(batches):
+            if profile_dir and epoch == start_epoch and i == 10:
+                prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU] + (
+                    [torch.profiler.ProfilerActivity.CUDA] if on_card else []))
+                prof.__enter__()
             logs = trainer.train_step(batch, epoch=epoch, plan=plan)
+            if prof is not None and i == 13:
+                _close_profile(prof, profile_dir, sync)
+                prof = None
             n_frames += batch.points.shape[0]
             if (i + 1) % log_interval == 0 or i == 0:
                 logs = {k: float(v) for k, v in logs.items()}
@@ -202,18 +249,43 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
                 if ladder.should_stop:
                     print("[NaN ladder] too many consecutive NaNs - stopping", flush=True)
                     break
+        if prof is not None:  # the epoch ended inside the profiled window
+            _close_profile(prof, profile_dir, sync)
+            prof = None
         dt = time.time() - epoch_t0
         print(f"[epoch {epoch}] done in {dt:.1f}s ({n_frames / max(dt, 1e-9):.2f} frames/s)",
               flush=True)
+        epochs.append({"epoch": epoch, "s": dt, "frames": n_frames,
+                       "frames_per_s": n_frames / max(dt, 1e-9)})
         ckpt.maybe_save(epoch, trainer)
+        if val_loader is not None and (epoch + 1) % val_interval == 0:
+            metrics = run_evaluation(trainer, val_loader(), attack=False)
+            history[f"val_epoch{epoch}"] = metrics
+            print(f"[val epoch {epoch}] {metrics}", flush=True)
+            # keep the best-mAP checkpoint (the reference CheckpointHook's save_best)
+            key = "mAP_3d_moderate" if "mAP_3d_moderate" in metrics else "mAP"
+            if key in metrics and ckpt.save_best(metrics[key], trainer, epoch):
+                print(f"[ckpt] new best {key}={metrics[key]:.2f} (epoch {epoch})", flush=True)
         if ladder.should_stop:
             break
     ckpt.save(max_epochs - 1, trainer)
     logger.save_l2_norms()
     logger.save_history()
+    logger.close()
     history["wall_time_s"] = time.time() - t_start
     history["final_epoch"] = epoch
-    return {"state": trainer.state, "history": history, "work_dir": work_dir}
+    return {"state": trainer.state, "history": history, "work_dir": work_dir,
+            "start_epoch": start_epoch, "plans": list(plan_builder.timings), "epochs": epochs}
+
+
+def _close_profile(prof, profile_dir: str, sync: Callable[[], None]) -> None:
+    """Stop the profiler and write its Chrome trace into `profile_dir`."""
+    sync()
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[profile] wrote trace to {path}", flush=True)
 
 
 # the JAX driver reads `head.nms_iou_threshold`, which AnchorHeadConfig does

@@ -7,16 +7,18 @@ centre-z convention (x, y, z_center, dx=l, dy=w, dz=h, yaw) with
 yaw = -rotation_y - pi/2; difficulty follows the devkit rules (image bbox
 height / occlusion / truncation).
 
-Ported: the reader, `KittiDataset` and `kitti_val_loader`, which yield the
-same numpy batches and per-row metas as the JAX package (the JAX loader
-wraps its arrays in jnp). The training loader (`kitti_epoch_loader`, its
-native path and augmentation) and `load_infos_pkl` are not ported yet
-(ROADMAP.md, M7).
+The reader, `KittiDataset`, `load_infos_pkl`, the training loader
+`kitti_epoch_loader` and `kitti_val_loader` yield the same numpy batches
+(and per-row metas) as the JAX package, which wraps its arrays in jnp. The
+training loader keeps both of the JAX package's paths: native IO + global
+augmentation (data/native.py) with the per-object stage (GT-paste, object
+noise) in numpy on top, or all-numpy through transforms.augment_sample.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, List, Optional, Sequence
+import pickle
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -122,6 +124,13 @@ def read_label(path: str, calib: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]
     }
 
 
+def load_infos_pkl(path: str) -> List[Dict]:
+    """Read an mmdet3d kitti_infos_*.pkl (compat path for preprocessed data)."""
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    return data["data_list"] if isinstance(data, dict) and "data_list" in data else data
+
+
 class KittiDataset:
     """Raw-layout KITTI dataset over an ImageSets split file."""
 
@@ -184,6 +193,113 @@ def _pad_batch(samples: List[Dict], num_points: int, max_gt: int,
         labels[b, :g] = s["gt_labels"][:g]
         gmask[b, :g] = True
     return PointCloudBatch(points, pmask, boxes, labels, gmask)
+
+
+def _paste_and_noise_padded(pts: np.ndarray, pmask: np.ndarray, boxes: np.ndarray,
+                            labels: np.ndarray, gmask: np.ndarray, gt_db,
+                            rng: np.random.RandomState, num_points: int, max_gt: int):
+    """Per-object stage on top of the native path's padded output: GT-paste
+    (ObjectSample / db_sampler) + ObjectNoise, then re-pad, in place. The
+    native path does IO + global flip / rotation / scale + range filter +
+    pad, so both loader paths train on the same augmentations."""
+    for b in range(pts.shape[0]):
+        sample = {
+            "points": pts[b][pmask[b].astype(bool)],
+            "gt_boxes": boxes[b][gmask[b].astype(bool)],
+            "gt_labels": labels[b][gmask[b].astype(bool)],
+        }
+        if gt_db is not None:
+            gt_db.collect(sample)
+            sample = gt_db.paste(sample, rng)
+        sample = T.object_noise(sample, rng)
+        p = sample["points"]
+        n = min(len(p), num_points)
+        sel = rng.choice(len(p), n, replace=False) if len(p) > num_points else slice(0, n)
+        pts[b, :n] = p[sel]
+        pts[b, n:] = 0
+        pmask[b, :n] = True
+        pmask[b, n:] = False
+        g = min(len(sample["gt_boxes"]), max_gt)
+        boxes[b, :g] = sample["gt_boxes"][:g]
+        boxes[b, g:] = 0
+        labels[b, :g] = sample["gt_labels"][:g]
+        labels[b, g:] = 0
+        gmask[b, :g] = True
+        gmask[b, g:] = False
+    return pts, pmask, boxes, labels, gmask
+
+
+def kitti_epoch_loader(data_root: str, batch_size: int, model_cfg, seed: int = 0,
+                       steps_per_epoch: Optional[int] = None, num_points: int = 20000,
+                       max_gt: int = 50, use_native: bool = True
+                       ) -> Callable[[int], Iterator[PointCloudBatch]]:
+    """Training loader: epoch -> iterator of numpy PointCloudBatches.
+
+    The epoch's frame order is a permutation drawn from
+    `RandomState(seed * 131 + epoch)`, the same stream every augmentation of
+    the epoch draws from; the last batch wraps around to the order's start
+    (as often as it takes when the split holds fewer than `batch_size`
+    frames, where the JAX loader yields a short batch).
+    `use_native=True` reads and globally augments each batch in the native
+    library (which must build: no quiet fallback), then runs GT-paste and
+    object noise in numpy; `use_native=False` runs
+    transforms.augment_sample per frame. GT-paste (the db_sampler's default
+    groups, Car 15, Pedestrian 10, Cyclist 10) is pre-seeded from
+    `<data_root>/kitti_dbinfos_train.pkl` when it is there (the reference
+    db_sampler's info_path), and collects crops on the fly from every batch
+    either way."""
+    from . import native
+
+    ds = KittiDataset(data_root, split="train")
+    pcr = model_cfg.voxelizer.point_cloud_range
+    if use_native:
+        native.get_lib()  # builds now: a missing compiler raises here
+    dbinfos = os.path.join(data_root, "kitti_dbinfos_train.pkl")
+    if os.path.isfile(dbinfos):
+        gt_db = T.GroundTruthDatabase.from_dbinfos(dbinfos, data_root, classes=tuple(ds.classes))
+        n_seed = sum(len(v) for v in gt_db._db.values())
+        print(f"[gt-paste] seeded {n_seed} crops from {dbinfos}", flush=True)
+    else:
+        gt_db = T.GroundTruthDatabase()
+
+    def native_batch(idxs, rng):
+        paths, n_boxes = [], []
+        boxes_pad = np.zeros((batch_size, max_gt, 7), np.float32)
+        labels_pad = np.zeros((batch_size, max_gt), np.int32)
+        for b, j in enumerate(idxs):
+            fid = ds.ids[int(j)]
+            paths.append(os.path.join(ds._vdir, f"{fid}.bin"))
+            calib = read_calib(os.path.join(ds._cdir, f"{fid}.txt"))
+            anno = read_label(os.path.join(ds._ldir, f"{fid}.txt"), calib)
+            keep = np.isin(anno["name"], ds.classes)
+            bx = anno["boxes_3d"][keep][:max_gt]
+            boxes_pad[b, :len(bx)] = bx
+            labels_pad[b, :len(bx)] = [_CLS_TO_ID.get(n, -1) for n in anno["name"][keep][:max_gt]]
+            n_boxes.append(len(bx))
+        # boxes_pad is augmented in place
+        pts, pmask, box_keep, _ = native.prepare_batch(
+            paths, boxes_pad, np.asarray(n_boxes, np.int32), pcr, max_points=num_points,
+            seed=int(rng.randint(0, 2**31)))
+        gmask = box_keep & (np.arange(max_gt)[None, :] < np.asarray(n_boxes)[:, None])
+        return PointCloudBatch(*_paste_and_noise_padded(
+            pts, pmask, boxes_pad, labels_pad, gmask, gt_db, rng, num_points, max_gt))
+
+    def epoch_iter(epoch: int):
+        rng = np.random.RandomState(seed * 131 + epoch)
+        order = rng.permutation(len(ds))
+        n_steps = steps_per_epoch or max(len(ds) // batch_size, 1)
+        for i in range(n_steps):
+            start = (i * batch_size) % len(ds)
+            idxs = order[start:start + batch_size]
+            if len(idxs) < batch_size:  # wrap around (cyclically past a split smaller than B)
+                idxs = np.concatenate([idxs, np.resize(order, batch_size - len(idxs))])
+            if use_native:
+                yield native_batch(idxs, rng)
+                continue
+            samples = [T.augment_sample(ds.get(int(j)), rng, pcr, gt_db=gt_db) for j in idxs]
+            yield _pad_batch(samples, num_points, max_gt, rng=rng)
+
+    return epoch_iter
 
 
 def kitti_val_loader(data_root: str, batch_size: int, model_cfg, num_points: int = 20000,

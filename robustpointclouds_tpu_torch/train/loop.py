@@ -22,10 +22,17 @@ chain; the global norms are taken over every gradient, as in JAX.
 
 The NaN counters, the ladder's LR multiplier and the adversary kill switch
 live on the device (TrainState) and are read by the host only at logging
-boundaries (train/hooks.NaNLadder). PGD adversarial training (`_maybe_pgd`,
-TrainConfig.pgd_*), the freeze-detector mode (TrainConfig.freeze_detector),
-the sharded DDP step (`compile_sharded`) and the pillar plan builder are not
-ported yet.
+boundaries (train/hooks.NaNLadder).
+
+Freeze-detector mode (TrainConfig.freeze_detector) multiplies the detector
+chain's schedule by 0, as the JAX `make_optimizers` does: its Adam moments
+and the count advance, its parameters stay bit-unchanged, and its BatchNorm
+running statistics still move in train mode. PGD adversarial training
+(TrainConfig.pgd_steps > 0, `_maybe_pgd`) rewrites the plan's voxels with a
+K-step white-box attack at the current weights (eval/attacks.PlanAttack)
+before the gradient half of the step; the attack is a constant of the
+step's backward. The sharded DDP step (`compile_sharded`) and the pillar
+plan builder are not ported yet (ROADMAP.md, M10 and M13).
 """
 from __future__ import annotations
 
@@ -64,6 +71,12 @@ class TrainConfig:
     eta_min_factor: float = 0.01
     adversarial_loss_weight: float = 1.0
     regularization_weight: float = 0.02
+    # the reference's --freeze-detector mode: detector learning off
+    freeze_detector: bool = False
+    # PGD adversarial training: > 0 attacks the plan's voxels with a
+    # pgd_steps-step PGD (step rel_step * clamp / steps) inside the train step
+    pgd_steps: int = 0
+    pgd_rel_step: float = 2.5
 
 
 def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -135,9 +148,11 @@ class AdamChain:
 
 
 def make_optimizers(cfg: TrainConfig) -> Tuple[AdamChain, AdamChain]:
-    """(detector chain, adversary chain), as train/loop.make_optimizers."""
+    """(detector chain, adversary chain), as train/loop.make_optimizers; in
+    freeze-detector mode the detector chain's schedule is multiplied by 0."""
     sched = make_lr_schedule(cfg)
-    det = AdamChain(sched, 1.0, cfg.grad_clip_norm, cfg.betas, cfg.weight_decay)
+    det = AdamChain(sched, 0.0 if cfg.freeze_detector else 1.0, cfg.grad_clip_norm, cfg.betas,
+                    cfg.weight_decay)
     adv = AdamChain(sched, cfg.adversary_lr_mult, cfg.grad_clip_norm, cfg.betas,
                     cfg.weight_decay, clip_value=cfg.adversary_grad_clip_value)
     return det, adv
@@ -212,6 +227,7 @@ class Trainer:
         self.anchor_cls = torch.as_tensor(anchor_cls, device=self.device)
         self.det_tx, self.adv_tx = make_optimizers(train_cfg)
         self.state: Optional[TrainState] = None
+        self._pgd = None
 
     # -- initialisation -----------------------------------------------------
     def init_state(self, seed: int = 0,
@@ -328,10 +344,27 @@ class Trainer:
         if self.state is None:
             raise RuntimeError("call init_state() first")
         gt, plan_t = self._to_device(batch, plan)
+        plan_t = self._maybe_pgd(batch, plan_t)
         old_stats = [b.clone() for b in self._bn_buffers()]
         grads, logs, is_nan = self._grads(gt, float(epoch), plan_t)
         self._apply(grads, is_nan, old_stats)
         return logs
+
+    def _maybe_pgd(self, batch, plan: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+        """PGD adversarial training: `plan` with its voxels attacked by a
+        pgd_steps-step PGD at the current weights (eval-mode forward, weights
+        frozen; BatchNorm running stats and `requires_grad` left as found)."""
+        if not self.train_cfg.pgd_steps:
+            return plan
+        if plan is None:
+            raise ValueError("pgd_steps > 0 needs the plan-fed path (the attack perturbs the "
+                             "plan's raw voxels): feed train_step a host plan")
+        if self._pgd is None:
+            from ..eval.attacks import make_plan_attack
+
+            self._pgd = make_plan_attack(self, steps=self.train_cfg.pgd_steps,
+                                         rel_step=self.train_cfg.pgd_rel_step)
+        return self._pgd(batch, plan)
 
     def make_plan_builder(self) -> HostPlanBuilder:
         """Host-side plan builder for the input pipeline."""

@@ -44,6 +44,10 @@ _EXPECTED = {
     "robustpointclouds_tpu_torch.data.kitti", "robustpointclouds_tpu_torch.train.checkpoint",
     "robustpointclouds_tpu_torch.cli.evaluate_kitti_3class",
     "robustpointclouds_tpu_torch.cli.evaluate_kitti_adversarial_attack",
+    "robustpointclouds_tpu_torch.core.config", "robustpointclouds_tpu_torch.core.builders",
+    "robustpointclouds_tpu_torch.core.tensorboard", "robustpointclouds_tpu_torch.data.native",
+    "robustpointclouds_tpu_torch.data.transforms",
+    "robustpointclouds_tpu_torch.tools.create_kitti_dbinfos",
 }
 
 
@@ -69,16 +73,17 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 
 
 def test_no_source_reaches_outside_the_package_but_build():
-    from robustpointclouds_tpu_torch.data import native_plan
+    from robustpointclouds_tpu_torch.data import native, native_plan
     from robustpointclouds_tpu_torch.kernels import _build
 
     # the native sources it compiles are its own ...
-    assert native_plan._SRC == os.path.join(PKG_DIR, "csrc", "plan.cpp")
     assert _build.CSRC_DIR == os.path.join(PKG_DIR, "csrc")
-    with open(native_plan._SRC, "rb") as a, open(os.path.join(REPO, "csrc", "plan.cpp"), "rb") as b:
-        assert a.read() == b.read()  # a byte-for-byte copy of the JAX package's builder
+    for mod, name in ((native_plan, "plan.cpp"), (native, "pointcloud.cpp")):
+        assert mod._SRC == os.path.join(PKG_DIR, "csrc", name)
+        with open(mod._SRC, "rb") as a, open(os.path.join(REPO, "csrc", name), "rb") as b:
+            assert a.read() == b.read()  # a byte-for-byte copy of the JAX package's source
     # ... and their builds go to the git-ignored build/ at the repo root
-    for d in (native_plan._BUILD_DIR, _build.BUILD_DIR):
+    for d in (native_plan._BUILD_DIR, native._BUILD_DIR, _build.BUILD_DIR):
         assert os.path.relpath(d, REPO).split(os.sep)[0] == "build"
     # every path built upward from a source file's own location names build/
     up = re.compile(r"dirname\(\s*_PKG\s*\)|_REPO_ROOT|os\.pardir|['\"]\.\.['\"]|"

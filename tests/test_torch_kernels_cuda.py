@@ -727,6 +727,211 @@ def test_pgd_launches_forward_and_dgrad_but_no_wgrad(cuda_device):
     assert all(p.requires_grad for p in tr.model.parameters())
 
 
+def _small_f32_trainer(dev, monkeypatch, cfg=None, **train_kw):
+    """A float32 trainer on the 16 m smoke grid at real widths (PERT_BF16 off)."""
+    import robustpointclouds_tpu_torch.nn.perturber as perturber
+    from robustpointclouds_tpu_torch.cli.common import tiny_voxelnet_cfg
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    monkeypatch.setattr(perturber, "PERT_BF16", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = cfg or tiny_voxelnet_cfg()._replace(compute_dtype="float32")
+    return Trainer(cfg, TrainConfig(**train_kw), device=dev)
+
+
+def _small_batch(cfg):
+    import numpy as np
+
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+
+    return synthetic_kitti_batch(np.random.RandomState(2), batch_size=2, num_points=600, max_gt=8,
+                                 num_objects=3, point_range=cfg.voxelizer.point_cloud_range)
+
+
+def _separated_cars(seed=5, n=512, max_gt=8):
+    """The PGD-AT setup of tests/test_attacks.py (tests/test_attack_quantified's
+    separated_car_batch): 2 frames of 6 Cars on a grid >= 4.5 m apart."""
+    import numpy as np
+
+    from robustpointclouds_tpu_torch.data.synthetic import PointCloudBatch
+
+    rng = np.random.RandomState(seed)
+    car = np.array([3.9, 1.6, 1.56], np.float32)
+    yaws = [0.0, 0.3, -0.3, 0.15, -0.15, 0.25]
+    points = np.zeros((2, n, 4), np.float32)
+    boxes = np.zeros((2, max_gt, 7), np.float32)
+    gt_mask = np.zeros((2, max_gt), bool)
+    for b in range(2):
+        centres = [(x, y) for x in (5.5, 10.5) for y in (-4.5, 0.0, 4.5)]
+        for i, (x, y) in enumerate(centres):
+            boxes[b, i] = [x, y, -0.6, *car, yaws[i]]
+            gt_mask[b, i] = True
+        per, idx = int(n * 0.8) // len(centres), 0
+        for i in range(len(centres)):
+            local = rng.uniform(-0.45, 0.45, (per, 3)).astype(np.float32) * car
+            c, s = np.cos(yaws[i]), np.sin(yaws[i])
+            world = local.copy()
+            world[:, 0] = local[:, 0] * c - local[:, 1] * s
+            world[:, 1] = local[:, 0] * s + local[:, 1] * c
+            points[b, idx:idx + per, :3] = world + boxes[b, i, :3]
+            idx += per
+        nbg = n - idx
+        points[b, idx:, :3] = np.stack([rng.uniform(0.5, 15.5, nbg), rng.uniform(-7.5, 7.5, nbg),
+                                        rng.uniform(-1.9, -1.6, nbg)], axis=1)
+        points[b, :, 3] = rng.uniform(0, 1, n)
+    return PointCloudBatch(points, np.ones((2, n), bool), boxes,
+                           np.zeros((2, max_gt), np.int32), gt_mask)
+
+
+# float32 train-step gradients card vs CPU (chip_smoke.py's small-grid bound):
+# summation order; tensors whose true gradient is 0 held to 1e-6 of the largest
+TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR = 1e-3, 1e-6
+# a ReLU-fused BatchNorm's output card vs CPU, relative to its largest entry
+# (17 outputs of the small-grid step: at most 2.7e-6 on the H100)
+BN_OUT_RTOL = 1e-5
+
+
+def _assert_grads_close(gc, gg):
+    gmax = max(v.abs().max().item() for v in gc.values())
+    for n, ref in gc.items():
+        scale = max(ref.abs().max().item(), TRAIN_GRAD_FLOOR * gmax / TRAIN_GRAD_RTOL)
+        assert (gg[n] - ref).abs().max().item() <= TRAIN_GRAD_RTOL * scale, n
+
+
+def _pgd_on_both_sides(cuda_device, monkeypatch, cfg, b, k):
+    """CPU and card trainers from the same weights, each attacking the same
+    host plan by k PGD steps; the attacked voxels held to each other."""
+    from robustpointclouds_tpu_torch.nn.perturber import _bound_profile
+
+    sides, sd = [], None
+    for dev in (torch.device("cpu"), cuda_device):
+        tr = _small_f32_trainer(dev, monkeypatch, cfg, pgd_steps=k)
+        tr.init_state(0, state_dict=sd)
+        sd = sd or {n: v.cpu() for n, v in tr.model.state_dict().items()}
+        plan = tr.make_plan_builder()(b.points, b.points_mask, b.gt_boxes, b.gt_labels, b.gt_mask)
+        gt, plan_d = tr._to_device(b, plan)
+        sides.append((tr, plan, tr._maybe_pgd(b, plan_d)["voxels"].cpu()))
+    (cpu_tr, plan, v_cpu), (card_tr, _, v_card) = sides
+    # the attack: sign(g) may flip where |g| is at rounding level
+    _, clamp = _bound_profile(4, 0.2, attack=True)
+    alpha = torch.as_tensor(2.5 * clamp / k, dtype=torch.float32)
+    assert (v_card == v_cpu).float().mean().item() >= 0.99
+    assert ((v_card - v_cpu).abs() <= 2 * alpha + 1e-5).all()
+    return cpu_tr, card_tr, plan, v_card
+
+
+def _loosened_iou(cfg):
+    """The loosened IoU thresholds of tests/test_torch_pgd_train.py: the
+    separated cars' anchors become positives."""
+    return cfg._replace(head=cfg.head._replace(
+        pos_iou_thr=(0.25, 0.1, 0.1), neg_iou_thr=(0.15, 0.05, 0.05),
+        min_pos_iou=(0.1, 0.05, 0.05)))
+
+
+@pytest.mark.parametrize("adversary", [False, True], ids=["no_adversary", "learned_adversary"])
+def test_pgd_train_step_on_card_matches_cpu(cuda_device, monkeypatch, adversary):
+    """PGD-AT on the separated cars with the loosened IoU thresholds (real
+    positives), without the learned adversary (the setup of
+    tests/test_torch_pgd_train.py) and with it (the default config's)."""
+    from robustpointclouds_tpu_torch.cli.common import tiny_voxelnet_cfg
+
+    k = 2
+    cfg = _loosened_iou(tiny_voxelnet_cfg()._replace(compute_dtype="float32"))
+    if not adversary:
+        cfg = cfg._replace(adversary=None)
+    b = _separated_cars()
+    cpu_tr, card_tr, plan, v_card = _pgd_on_both_sides(cuda_device, monkeypatch, cfg, b, k)
+    # the gradient half of the PGD-AT step on the card's attacked plan, both sides
+    grads = []
+    for tr in (cpu_tr, card_tr):
+        gt, plan_d = tr._to_device(b, dict(plan, voxels=v_card.numpy()))
+        g, logs, is_nan = tr._grads(gt, 5.0, plan_d)
+        assert not bool(is_nan) and float(logs["num_pos"]) > 1
+        grads.append({n: v.cpu() for n, v in g.items()})
+    _assert_grads_close(*grads)
+    # and the whole step on the card runs the attack (no weight gradient), then trains
+    before = (sparse_conv.launches, sparse_conv_wgrad.launches)
+    card_tr.train_step(b, 5, plan)
+    torch.cuda.synchronize()
+    assert (sparse_conv.launches - before[0], sparse_conv_wgrad.launches - before[1]) == (
+        12 * (k + 1), 12)
+    assert all(p.requires_grad for p in card_tr.model.parameters())
+
+
+def test_pgd_train_step_card_vs_cpu_gap_is_a_relu_kink(cuda_device, monkeypatch):
+    """The learned adversary on the seed-2 small batch (one positive), its
+    gradients on the card's attacked voxels. There the card and the CPU
+    round one ReLU's input (encoder_layer3.2's BN, row 179, channel 15) to
+    opposite sides of 0 (-1.8e-7 / +3.5e-7, depending on the CPU), and the
+    gradient of that layer's conv weight jumps by 3e-2 of its scale, past
+    the bound. This test finds every such unit and shows that it explains
+    the gap: each ReLU-fused BatchNorm's output agrees card vs CPU within
+    BN_OUT_RTOL, every unit whose gate differs has an input within that
+    rounding band of 0, and with the CPU's gates set to the card's (its
+    output there its input times the card's gate) the gradients agree at the
+    bound."""
+    from robustpointclouds_tpu_torch.cli.common import tiny_voxelnet_cfg
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+
+    k = 2
+    cfg = tiny_voxelnet_cfg()._replace(compute_dtype="float32")
+    b = _small_batch(cfg)
+    cpu_tr, card_tr, plan, v_card = _pgd_on_both_sides(cuda_device, monkeypatch, cfg, b, k)
+    card_out, cpu_in, card_at = {}, {}, {}
+    forward = MaskedBatchNorm.forward
+
+    def gated(self, x, mask, relu=False, row_mask=False, out_dtype=None):
+        if relu and self in card_at:  # CPU: the ReLU's input times the card's gate
+            y = forward(self, x, mask, relu=False, row_mask=row_mask, out_dtype=out_dtype)
+            cpu_in[self] = y.detach()
+            return y * (card_at[self] > 0)
+        out = forward(self, x, mask, relu=relu, row_mask=row_mask, out_dtype=out_dtype)
+        if relu and out.is_cuda:
+            card_out[self] = out.detach().cpu()
+        return out
+
+    monkeypatch.setattr(MaskedBatchNorm, "forward", gated)
+    grads = []
+    for tr in (card_tr, cpu_tr):
+        if tr is cpu_tr:  # the card's ReLU outputs by the CPU's modules
+            card_mods = dict(card_tr.model.named_modules())
+            card_at.update((m, card_out[card_mods[n]]) for n, m in cpu_tr.model.named_modules()
+                           if card_mods[n] in card_out)
+            assert len(card_at) == 17  # the encoder's 12 and the adversary's 5
+        gt, plan_d = tr._to_device(b, dict(plan, voxels=v_card.numpy()))
+        g, logs, is_nan = tr._grads(gt, 5.0, plan_d)
+        assert not bool(is_nan) and float(logs["num_pos"]) > 0
+        grads.append({n: v.cpu() for n, v in g.items()})
+    for m, card in card_at.items():
+        y = cpu_in[m]
+        band = BN_OUT_RTOL * card.abs().max().item()
+        assert (y.clamp(min=0) - card).abs().max().item() <= band
+        flipped = (y > 0) != (card > 0)
+        assert (y[flipped].abs() <= band).all()
+    gg, gc = grads
+    _assert_grads_close(gc, gg)
+
+
+def test_freeze_detector_on_card_keeps_the_detector(cuda_device, monkeypatch):
+    tr = _small_f32_trainer(cuda_device, monkeypatch, freeze_detector=True, adversary_lr_mult=20.0)
+    tr.init_state(0)
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    b = _small_batch(tr.model_cfg)
+    builder = tr.make_plan_builder()
+    for _ in range(3):
+        tr.train_step(b, 5, builder(b.points, b.points_mask, b.gt_boxes, b.gt_labels, b.gt_mask))
+    torch.cuda.synchronize()
+    moved = []
+    for n, p in tr.model.named_parameters():
+        same = torch.equal(p.detach().view(torch.int32), before[n].view(torch.int32))
+        if n.startswith("adversary."):
+            moved.append(not same)
+        else:
+            assert same, n
+    assert any(moved) and tr.state.count == 3
+
+
 def _bn_inputs(dev, n, c, dtype, seed, mask_kind="random"):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = (torch.randn(n, c, device=dev, generator=g) * 3 + 1).to(dtype)
