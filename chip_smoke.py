@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation and KITTI training paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training and CenterPoint paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -91,7 +91,29 @@ Phases (any failure exits non-zero and prints no result):
      (TRAIN_LAUNCHES; PGD_TRAIN_LAUNCHES for (d)); each run prints its step,
      plan and steady frames/s, and the median steady PGD-AT step is set
      against the median steady plain step of the same run shape, beside the
-     card's name and power limit.
+     card's name and power limit;
+  8. CenterPoint on NuScenes at full width (CenterPointConfig: the residual
+     encoder's 21 sparse convs, 5 point features, B=4 synthetic frames of
+     30000 points, bf16, random weights): (a) K1 forward, dgrad and wgrad on
+     the inputs of the 21 convs captured from one train step, bf16 and the
+     float32 route, each against its plain version and timed beside
+     index_select + matmul (no first design takes conv_input's 5 columns or
+     the 128 -> 128 wgrad, so no prev_ms); (b) K2's statistics and VJP at
+     the adversary's [B*60000*10, 5] float32, L2-cold (the VJP is off this
+     path: CenterPoint's objective leaves out the terms it serves); (c)
+     serving through
+     export_serving, 3 clean and 3 attack B=4 requests with their launches
+     checked, and a small-grid float32 forward with its decode + circle NMS
+     held card vs CPU; (d) train_nuscenes_adversarial.run(synthetic=True) at
+     B=4 for CP_EPOCHS epochs of CP_STEPS_PER_EPOCH steps (the adversary
+     from epoch 3), every step timed and its launches checked
+     (CP_TRAIN_LAUNCHES), the plan builds' native and target ms, the peak
+     memory, and a small-grid float32 step's gradients card vs CPU;
+     (e) (d)'s checkpoint scored through evaluate_nuscenes_adversarial
+     (clean and adversarial on synthetic frames, clean on
+     tests/fixtures/nuscenes_mini's multi-sweep frames) and
+     evaluate_adversarial_checkpoint, each batch's plan, device and metric
+     ms printed and the launches per batch checked.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -228,8 +250,10 @@ def _new_total():
 
 
 def _add(acc, row, nbytes, ops, peak):
-    for key in ("ms", "prev_ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
         acc[key] += row[key]
+    acc["prev_ms"] = (None if acc["prev_ms"] is None or row["prev_ms"] is None
+                      else acc["prev_ms"] + row["prev_ms"])
     # a conv whose device time was not measured leaves the sum not measured
     acc["device_ms"] = (None if acc["device_ms"] is None or row["device_ms"] is None
                         else acc["device_ms"] + row["device_ms"])
@@ -266,7 +290,10 @@ def _time_conv(tot, f32, kind, fn, prev, plain, lib, nbytes, hits, cin, cout, ro
     float32 row keeps the bound of the same products on the CUDA cores."""
     from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
 
-    row["ms"], row["prev_ms"] = abba_ms(fn, prev)
+    if prev is None:  # no first design takes this conv (phase 8's widths)
+        row["ms"], row["prev_ms"] = cuda_ms(fn, 10), None
+    else:
+        row["ms"], row["prev_ms"] = abba_ms(fn, prev)
     row["device_ms"] = device_ms(fn, 10, kernels=K1_KERNELS[(f32, kind)])
     row["plain_ms"] = cuda_ms(plain, iters=5)
     row["library_ms"] = cuda_ms(lib, iters=5)
@@ -289,11 +316,12 @@ def _time_conv(tot, f32, kind, fn, prev, plain, lib, nbytes, hits, cin, cout, ro
     return row
 
 
-def check_sparse_conv(captured, torch, f32: bool = False):
+def check_sparse_conv(captured, torch, f32: bool = False, with_prev: bool = True):
     """K1 forward on each captured (feats, kernel, idx) of the main path vs
     its plain version: the bf16 tensor-core kernel or, with f32, the float32
     route's 3xTF32 kernel on the same convs cast to float32; each timed
-    beside the CUDA-core kernel on the same inputs (prev_ms)."""
+    beside the CUDA-core kernel on the same inputs (prev_ms; not with_prev:
+    CenterPoint's widths, which that kernel does not take)."""
     from robustpointclouds_tpu_torch.kernels.sparse_conv import (
         sparse_conv, sparse_conv_cuda_cores, sparse_conv_ref)
 
@@ -319,7 +347,7 @@ def check_sparse_conv(captured, torch, f32: bool = False):
         nbytes = idx.numel() * 4 + n * cin * eb + kernel.numel() * eb + m * cout * eb
         rows.append(_time_conv(
             tot, f32, "gemm", lambda: sparse_conv(feats, kernel, idx),
-            lambda: sparse_conv_cuda_cores(feats, kernel, idx),
+            (lambda: sparse_conv_cuda_cores(feats, kernel, idx)) if with_prev else None,
             lambda: sparse_conv_ref(feats, kernel, idx),
             lambda: torch.matmul(torch.index_select(feats_pad, 0, flat).view(m, k * cin), kernel),
             nbytes, hits, cin, cout,
@@ -423,13 +451,16 @@ def check_masked_stats(torch, shapes, seed, prev):
         # alone; autograd_ms: the public call on an input that needs a
         # gradient (the autograd Function); device_ms: the kernels' device time
         sets = l2_cold(torch, (x, mask))
-        t, t_prev = abba_ms(in_turn(masked_stats, sets), in_turn(prev, sets))
+        if prev is None:  # the Triton yardstick takes power-of-two widths only
+            t, t_prev = cuda_ms(in_turn(masked_stats, sets)), None
+        else:
+            t, t_prev = abba_ms(in_turn(masked_stats, sets), in_turn(prev, sets))
         t_raw = cuda_ms(in_turn(_stats, sets))
         xg = x.detach().requires_grad_(True)
         t_fn = cuda_ms(lambda: masked_stats(xg, mask))
         split = {}
         t_dev = device_ms(in_turn(_stats, sets), 20, kernels={"stats_kernel": 1}, by_kernel=split)
-        t_prev_dev = device_ms(in_turn(prev, sets), 20)
+        t_prev_dev = None if prev is None else device_ms(in_turn(prev, sets), 20)
         t_plain = cuda_ms(in_turn(masked_stats_ref, sets), iters=5)
         t_lib = cuda_ms(in_turn(lambda a, m: torch.var_mean(a[m].float(), dim=0, unbiased=False),
                                 sets), iters=5)
@@ -443,9 +474,9 @@ def check_masked_stats(torch, shapes, seed, prev):
     return rows
 
 
-def check_sparse_conv_bwd(captured, torch, f32: bool = False):
+def check_sparse_conv_bwd(captured, torch, f32: bool = False, with_prev: bool = True):
     """K1 dgrad and wgrad on the (feats, weight, idx, bwd_idx, mirror, g) of
-    the 12 convs of one train step, each against its plain version, as
+    the convs of one train step, each against its plain version, as
     check_sparse_conv does for the forward."""
     from robustpointclouds_tpu_torch.kernels.sparse_conv import (
         backward_kernel, sparse_conv_cuda_cores, sparse_conv_dgrad, sparse_conv_ref,
@@ -477,7 +508,7 @@ def check_sparse_conv_bwd(captured, torch, f32: bool = False):
         nbytes = bwd_idx.numel() * 4 + m * cout * eb + w_bwd.numel() * eb + n * cin * eb
         rows.append(_time_conv(
             tot["dgrad"], f32, "gemm", lambda: sparse_conv_dgrad(g, w_bwd, bwd_idx),
-            lambda: sparse_conv_cuda_cores(g, w_bwd, bwd_idx),
+            (lambda: sparse_conv_cuda_cores(g, w_bwd, bwd_idx)) if with_prev else None,
             lambda: sparse_conv_ref(g, w_bwd, bwd_idx),
             lambda: torch.matmul(torch.index_select(g_pad, 0, bflat).view(n, k * cout), w_bwd),
             nbytes, hits, cin, cout,
@@ -501,7 +532,7 @@ def check_sparse_conv_bwd(captured, torch, f32: bool = False):
         nbytes = idx.numel() * 4 + n * cin * eb + m * cout * eb + k * cin * cout * 4
         rows.append(_time_conv(
             tot["wgrad"], f32, "wgrad", lambda: sparse_conv_wgrad(feats, g, idx),
-            lambda: sparse_conv_wgrad_cuda_cores(feats, g, idx),
+            (lambda: sparse_conv_wgrad_cuda_cores(feats, g, idx)) if with_prev else None,
             lambda: sparse_conv_wgrad_ref(feats, g, idx),
             lambda: torch.matmul(torch.index_select(feats_pad, 0, flat).view(m, k * cin).t(), g),
             nbytes, hits, cin, cout,
@@ -536,10 +567,13 @@ def check_masked_stats_bwd(torch, shapes, seed, prev_bwd):
             raise RuntimeError(f"masked_stats_bwd [{n},{c}]: a repeat call is not bit-identical")
         sets = l2_cold(torch, (x, mask))
         new = in_turn(lambda a, m: masked_stats_bwd(a, m, mean, cnt, gm, gv), sets)
-        old = in_turn(lambda a, m: prev_bwd(a, m, mean, cnt, gm, gv), sets)
-        t, t_prev = abba_ms(new, old)
+        if prev_bwd is None:  # the Triton yardstick takes power-of-two widths only
+            t, t_prev, t_prev_dev = cuda_ms(new), None, None
+        else:
+            old = in_turn(lambda a, m: prev_bwd(a, m, mean, cnt, gm, gv), sets)
+            t, t_prev = abba_ms(new, old)
+            t_prev_dev = device_ms(old, 20)
         t_dev = device_ms(new, 20, kernels={"vjp_kernel": 1})
-        t_prev_dev = device_ms(old, 20)
         t_plain = cuda_ms(in_turn(lambda a, m: masked_stats_bwd_ref(a, m, mean, cnt, gm, gv),
                                   sets), iters=5)
         # the mask and x on the rows it keeps read once (dx is 0 elsewhere
@@ -901,6 +935,455 @@ def run_kitti_training(cfg, dev, card: str, seed: int, read_counts, expect_bf16_
     shutil.rmtree(kitti_root, ignore_errors=True)
 
     return kitti_summary
+
+
+# phase 8: CenterPoint at full width (models/centerpoint.CenterPointConfig)
+CP_BATCH, CP_POINTS = 4, 30000  # the reference's per-GPU batch; the JAX CLIs' frames
+CP_CONVS = 21  # conv_input + 8 basic blocks x 2 + 3 downs + conv_out
+# kernel launches of a CenterPoint train step, derived from the code: each of
+# the 21 sparse convs runs the forward, the dgrad (every conv's input needs a
+# gradient: the adversary's delta is in the graph, gated, from epoch 0) and
+# the wgrad; the masked statistics (C = 5) run under the adversary's std
+# normalisation and its regulariser, forward only (the regulariser's per-dim
+# statistics feed the bias and imbalance terms, which CenterPoint's
+# objective leaves out, so no VJP); the 26 train-mode MaskedBatchNorms (the
+# encoder's 21, the adversary's 5) run the fused forward and backward with
+# bwd_reduce
+CP_TRAIN_LAUNCHES = {"sparse_conv": CP_CONVS, "sparse_conv_dgrad": CP_CONVS,
+                     "sparse_conv_wgrad": CP_CONVS, "masked_stats": 2, "masked_stats_bwd": 0,
+                     "masked_batch_norm": 26, "masked_batch_norm_bwd": 26, "bwd_reduce": 26}
+CP_BN_CLEAN, CP_BN_ATTACK = 21, 26
+CP_EPOCHS, CP_STEPS_PER_EPOCH = 4, 2  # epoch 3 trains the adversary
+CP_EVAL_FRAMES = 8
+
+
+def _conv_subtotal(rows, keep):
+    """Sums of the timed conv rows `keep` selects (ms, device_ms, plain,
+    library, bound), the largest error."""
+    sel = [r for r in rows if keep(r)]
+    tot = {k: sum(r[k] for r in sel) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    tot["device_ms"] = (None if any(r["device_ms"] is None for r in sel)
+                        else sum(r["device_ms"] for r in sel))
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in sel)
+    tot["convs"] = len(sel)
+    return tot
+
+
+def _centerpoint_small_grads(dev, seed, read_counts, read_f32_counts, zero_counts):
+    """The tiny_centerpoint_cfg float32 train step at epoch 5 on the CPU and
+    on the card from the same weights and plan: the gradients, with the
+    dense body's ReLU gates aligned where the two sides round an input to
+    opposite signs (each such input within BN_OUT_RTOL of its BN's scale).
+    Returns (worst error over scale, the aligned units, the float32 launches)."""
+    import numpy as np
+    import torch
+
+    import robustpointclouds_tpu_torch.nn.perturber as perturber
+    from robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial import tiny_centerpoint_cfg
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.models.centerpoint import CenterPointConfig
+    from robustpointclouds_tpu_torch.models.voxelnet import plan_to_device
+    from robustpointclouds_tpu_torch.nn.second import BatchNorm2d
+    from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer
+
+    cfg, n_pts = tiny_centerpoint_cfg(CenterPointConfig(compute_dtype="float32"))
+    b, vel = synthetic_nuscenes_batch(np.random.RandomState(seed + 3), batch_size=2,
+                                      num_points=n_pts, max_gt=cfg.head.max_objs, num_objects=6,
+                                      point_range=cfg.voxelizer.point_cloud_range)
+    perturber.PERT_BF16 = False
+    try:
+        trainers = [CenterPointTrainer(cfg, device=d) for d in (torch.device("cpu"), dev)]
+        trainers[0].init_state(seed)
+        sd = {k: v.cpu() for k, v in trainers[0].model.state_dict().items()}
+        plan = trainers[0].make_plan_builder()(b.points, b.points_mask, b.gt_boxes, b.gt_labels,
+                                               b.gt_mask, vel)
+
+        def grads(tr, flips=None):
+            tr.init_state(seed, state_dict=sd)
+            seen, hooks = {}, []
+            for name, mod in tr.model.named_modules():
+                if isinstance(mod, BatchNorm2d):
+                    def hook(m, inp, out, name=name):
+                        seen[name] = out.detach().cpu()
+                        if flips and name in flips:
+                            f = flips[name].to(out.device)
+                            return out + torch.where(f, -2 * out, 0 * out).detach()
+                    hooks.append(mod.register_forward_hook(hook))
+            try:
+                g, logs, is_nan = tr._grads(None, 5.0, plan_to_device(plan, tr.device))
+            finally:
+                for h in hooks:
+                    h.remove()
+            if bool(is_nan):
+                raise RuntimeError(f"CenterPoint small-grid float32 step on {tr.device}: NaN")
+            return {k: v.cpu() for k, v in g.items()}, seen
+
+        zero_counts()
+        gg, card_bn = grads(trainers[1])
+        torch.cuda.synchronize()
+        f32 = read_f32_counts()
+        if f32 != {k: read_counts()[k] for k in f32} or not all(f32.values()):
+            raise RuntimeError(f"CenterPoint float32 step: 3xTF32 launches {f32}, all "
+                               f"{read_counts()}")
+        gc, cpu_bn = grads(trainers[0])
+        flips = {}
+        for k, card_out in card_bn.items():
+            differ = (card_out > 0) != (cpu_bn[k] > 0)
+            if differ.any():
+                near = card_out[differ].abs().max().item() / card_out.abs().max().item()
+                if near > BN_OUT_RTOL:
+                    raise RuntimeError(f"CenterPoint small-grid step: {k} gates differ at "
+                                       f"{near} of its scale, not rounding level")
+                flips[k] = differ
+        if flips:
+            gc, _ = grads(trainers[0], flips)
+    finally:
+        perturber.PERT_BF16 = True
+    gmax = max(v.abs().max().item() for v in gc.values())
+    worst = 0.0
+    for k, ref in gc.items():
+        scale = max(ref.abs().max().item(), TRAIN_GRAD_FLOOR * gmax / TRAIN_GRAD_RTOL)
+        err = (gg[k] - ref).abs().max().item()
+        worst = max(worst, err / scale)
+        if not err <= TRAIN_GRAD_RTOL * scale:
+            raise RuntimeError(f"CenterPoint small-grid float32 gradient {k}: card vs CPU "
+                               f"{err} over scale {scale}")
+    return worst, {k: int(v.sum()) for k, v in flips.items()}, f32
+
+
+def run_centerpoint(dev, card: str, seed: int, zero_counts, read_counts, read_f32_counts,
+                    expect_bf16_kernels):
+    """Phase 8: CenterPoint on NuScenes at full width, bf16 (random weights
+    from the seed, synthetic 30000-point frames of 5 features):
+    (a) K1 on the inputs of the 21 convs of one B=4 train step, forward,
+        dgrad and wgrad, bf16 and the float32 route, each against its plain
+        version, timed beside index_select + matmul;
+    (b) K2's statistics and VJP at [B*60000*10, 5] float32, L2-cold;
+    (c) serving through export_serving: B=4 requests, clean and attack; a
+        small-grid float32 forward and its decode + circle NMS card vs CPU;
+    (d) training through train_nuscenes_adversarial.run(synthetic=True) at
+        B=4 to epoch 3 (adversary on), every step's launches checked; a
+        small-grid float32 step's gradients card vs CPU;
+    (e) evaluation of (d)'s checkpoint through evaluate_nuscenes_adversarial
+        (clean and adversarial on synthetic frames, clean on
+        tests/fixtures/nuscenes_mini) and evaluate_adversarial_checkpoint.
+    Returns the kernels JSON rows; prints a summary line."""
+    import numpy as np
+    import torch
+
+    from robustpointclouds_tpu_torch.cli import evaluate_adversarial_checkpoint as ckpt_cli
+    from robustpointclouds_tpu_torch.cli import evaluate_nuscenes_adversarial as nus_eval_cli
+    from robustpointclouds_tpu_torch.cli import train_nuscenes_adversarial as nus_train_cli
+    from robustpointclouds_tpu_torch.cli.export import export_serving
+    from robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial import tiny_centerpoint_cfg
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.models.center_detection import centerpoint_decode
+    from robustpointclouds_tpu_torch.models.centerpoint import (
+        AdversarialCenterPoint, CenterPointConfig, build_centerpoint_plan)
+    from robustpointclouds_tpu_torch.models.voxelnet import init_weights, plan_to_device
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+    from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d
+    from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer
+
+    t_phase = time.time()
+    cfg = CenterPointConfig()
+    pcr = cfg.voxelizer.point_cloud_range
+    rng = np.random.RandomState(seed + 8)
+
+    def frames():
+        return synthetic_nuscenes_batch(rng, batch_size=CP_BATCH, num_points=CP_POINTS,
+                                        max_gt=cfg.head.max_objs, point_range=pcr)
+
+    # (a) K1 on the inputs of one full-width B=4 train step's 21 convs
+    trainer = CenterPointTrainer(cfg, device=dev)
+    trainer.init_state(seed)
+    # the launch counts above, from the module structure: its sparse convs and
+    # MaskedBatchNorms (each of which a train step launches once)
+    structure = (sum(isinstance(m, SparseConv3d) for m in trainer.model.modules()),
+                 sum(isinstance(m, MaskedBatchNorm) for m in trainer.model.modules()))
+    if structure != (CP_CONVS, CP_TRAIN_LAUNCHES["masked_batch_norm"]):
+        raise RuntimeError(f"CenterPoint: {structure} sparse convs and MaskedBatchNorms, expected "
+                           f"{CP_CONVS} and {CP_TRAIN_LAUNCHES['masked_batch_norm']}")
+    b, vel = frames()
+    plan = trainer.make_plan_builder()(b.points, b.points_mask, b.gt_boxes, b.gt_labels,
+                                       b.gt_mask, vel)
+    captured, grads_out = [], {}
+    convs = [(n, m) for n, m in trainer.model.named_modules() if isinstance(m, SparseConv3d)]
+    hooks = [m.register_forward_pre_hook(lambda mod, a, name=n: captured.append(
+        (name, a[0].detach().contiguous(), mod.img2col_kernel(a[0].dtype).detach(), a[1], a[2],
+         a[3]))) for n, m in convs]
+    def capture_g(out, name):  # a forward hook that returns nothing keeps the output
+        out.register_hook(lambda g: grads_out.__setitem__(name, g.contiguous()))
+
+    hooks += [m.register_forward_hook(lambda mod, a, out, name=n: capture_g(out, name))
+              for n, m in convs]
+    trainer.train_step(b, 3, plan)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    del trainer
+    if len(captured) != CP_CONVS or len(grads_out) != CP_CONVS:
+        raise RuntimeError(f"CenterPoint: expected {CP_CONVS} sparse convs in the train step, "
+                           f"saw {len(captured)} inputs and {len(grads_out)} cotangents")
+    widths = sorted({(c[1].shape[1], c[2].shape[1], c[3].shape[1]) for c in captured})
+    print(f"phase 8: {CP_CONVS} convs of a B={CP_BATCH} train step, (Cin, Cout, K) {widths}; "
+          f"{int(plan['voxel_mask'].sum())} voxels [{card}]", flush=True)
+    t0 = time.time()
+    fwd_in = [c[:4] for c in captured]
+    bwd_in = [(*c, grads_out[c[0]]) for c in captured]
+    k1 = {}
+    for route, f32 in (("bf16", False), ("float32", True)):
+        rows, tot = check_sparse_conv(fwd_in, torch, f32=f32, with_prev=False)
+        brows, btot = check_sparse_conv_bwd(bwd_in, torch, f32=f32, with_prev=False)
+        k1[route] = {"sparse_conv": (rows, tot), "sparse_conv_dgrad": (
+            [r for r in brows if r["kernel"] == "dgrad"], btot["dgrad"]),
+            "sparse_conv_wgrad": ([r for r in brows if r["kernel"] == "wgrad"], btot["wgrad"])}
+    del captured, grads_out, fwd_in, bwd_in
+    for route, kinds in k1.items():
+        for key, (rows, tot) in kinds.items():
+            parts = {"all 21": lambda r: True,
+                     "conv_input (Cin 5, padded to 8)": lambda r: r["conv"].endswith(
+                         "conv_input.0"),
+                     "128 -> 128": lambda r: r["cin"] == 128 and r["cout"] == 128}
+            for label, keep in parts.items():
+                sub = _conv_subtotal(rows, keep)
+                print(f"phase 8 {key} {route} {label} ({sub['convs']} convs): {sub['ms']:.4f} ms "
+                      f"(device {_fmt(sub['device_ms'])}), bound {sub['bound_ms']:.4f}, plain "
+                      f"{sub['plain_ms']:.4f}, index_select + matmul {sub['library_ms']:.4f}, "
+                      f"max error {sub['max_abs_err']:.3e} [{card}]", flush=True)
+    print(f"phase 8 (a) K1 checks and timing: {time.time() - t0:.1f} s [{card}]", flush=True)
+
+    # (b) K2 at the adversary's [B*V*T, 5] float32
+    n_slots = CP_BATCH * cfg.voxelizer.max_voxels * cfg.voxelizer.max_points_per_voxel
+    stats_c5 = check_masked_stats(torch, [(n_slots, 5, torch.float32)], seed, None)[0]
+    vjp_c5 = check_masked_stats_bwd(torch, [(n_slots, 5, torch.float32)], seed, None)[0]
+    for name, r in (("masked_stats", stats_c5), ("masked_stats_bwd", vjp_c5)):
+        print(f"phase 8 {name} [{n_slots}, 5] float32: " + json.dumps(r) + f" [{card}]",
+              flush=True)
+
+    # (c) serving: B=4 requests, clean and attack=True
+    model = AdversarialCenterPoint(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    serve = export_serving(model, None, None, cfg.head)
+    requests = [(frames()[0], attack) for attack in (False, True) for _ in range(3)]
+    for rb, attack in requests[:1] + requests[3:4]:  # warm-up
+        serve(rb.points, rb.points_mask, build_centerpoint_plan(rb.points, rb.points_mask, cfg),
+              attack=attack)
+    torch.cuda.synchronize()
+    zero_counts()
+    served = []
+    k_out = len(cfg.tasks) * min(cfg.head.max_per_task, cfg.head.nms_pre)
+    for rb, attack in requests:
+        t0 = time.perf_counter()
+        rplan = build_centerpoint_plan(rb.points, rb.points_mask, cfg)
+        t1 = time.perf_counter()
+        boxes, scores, labels, valid = serve(rb.points, rb.points_mask, rplan, attack=attack)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if boxes.shape != (CP_BATCH, k_out, 9) or scores.shape != (CP_BATCH, k_out):
+            raise RuntimeError(f"CenterPoint serving: shapes {boxes.shape} {scores.shape}")
+        if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+            raise RuntimeError("CenterPoint serving: non-finite detections")
+        if labels.min() < 0 or labels.max() >= cfg.head.num_classes:
+            raise RuntimeError("CenterPoint serving: label out of range")
+        served.append(dict(attack=attack, plan_ms=(t1 - t0) * 1e3, serve_ms=(t2 - t1) * 1e3,
+                           valid=int(valid.sum())))
+    got = read_counts()
+    expect_bf16_kernels("CenterPoint serving")
+    want = {"sparse_conv": CP_CONVS * 6, "sparse_conv_dgrad": 0, "sparse_conv_wgrad": 0,
+            "masked_stats": 2 * 3, "masked_stats_bwd": 0,
+            "masked_batch_norm": (CP_BN_CLEAN + CP_BN_ATTACK) * 3, "masked_batch_norm_bwd": 0,
+            "bwd_reduce": 0}
+    if got != want:
+        raise RuntimeError(f"CenterPoint serving launches {got}, expected {want}")
+    serve_summary = {}
+    for attack in (False, True):
+        sel = [t for t in served if t["attack"] == attack]
+        key = "attack" if attack else "clean"
+        serve_summary[key] = {k: sum(t[k] for t in sel) / len(sel) for k in ("plan_ms",
+                                                                            "serve_ms")}
+        print(f"phase 8 serving {key} B={CP_BATCH}: " + json.dumps(sel) + f"; mean serve_ms "
+              f"{serve_summary[key]['serve_ms']:.3f}, plan_ms {serve_summary[key]['plan_ms']:.3f}"
+              f" [{card}]", flush=True)
+    del model, serve
+    # a small-grid float32 forward and its decode + circle NMS, card vs CPU
+    small, n_pts = tiny_centerpoint_cfg(CenterPointConfig(compute_dtype="float32"))
+    sb, _ = synthetic_nuscenes_batch(np.random.RandomState(seed + 1), batch_size=2,
+                                     num_points=n_pts, max_gt=8, num_objects=4,
+                                     point_range=small.voxelizer.point_cloud_range)
+    splan = build_centerpoint_plan(sb.points, sb.points_mask, small)
+    smodel = AdversarialCenterPoint(small)
+    init_weights(smodel, torch.Generator().manual_seed(seed))
+    smodel.eval()
+    with torch.no_grad():
+        ref = smodel(None, None, False, 100, True, -1.0, plan_to_device(splan, torch.device("cpu")))
+        out = smodel.to(dev)(None, None, False, 100, True, -1.0, plan_to_device(splan, dev))
+    for t, (r, g) in enumerate(zip(ref.task_preds, out.task_preds)):
+        for k in r:
+            err = (r[k] - g[k].cpu()).abs().max().item()
+            if not err <= E2E_F32_RTOL * max(r[k].abs().max().item(), 1e-6):
+                raise RuntimeError(f"CenterPoint small-grid float32 task {t} {k}: card vs CPU "
+                                   f"{err}")
+    shead = small.head._replace(score_thr=0.0)  # every candidate enters the NMS sweep
+    (cb, cs, cl, cv), (gb, gs, gl, gv) = [
+        centerpoint_decode([{k: v.to(d) for k, v in p.items()} for p in ref.task_preds], shead)
+        for d in (torch.device("cpu"), dev)]
+    gb, gs, gl, gv = gb.cpu(), gs.cpu(), gl.cpu(), gv.cpu()
+    if not (torch.equal(cv, gv) and torch.equal(cl[cv], gl[gv]) and int(cv.sum()) > 0):
+        raise RuntimeError("CenterPoint small-grid decode + circle NMS: card and CPU keep "
+                           "different detections")
+    box_err = (cb[cv] - gb[gv]).abs().max().item()
+    if not (box_err <= E2E_F32_RTOL * cb[cv].abs().max().item()
+            and (cs[cv] - gs[gv]).abs().max().item() <= 1e-6):
+        raise RuntimeError(f"CenterPoint small-grid decode + circle NMS: box error {box_err}")
+    print(f"phase 8 small-grid float32 forward and decode + circle NMS ({int(cv.sum())} "
+          f"detections): card agrees with the CPU [{card}]", flush=True)
+
+    # (d) training through the CLI's run() at B=4, to epoch 3 (adversary on)
+    steps, seen = [], {}
+    orig_step = CenterPointTrainer.train_step
+    watch = ("pts_middle_encoder.conv_input.0.weight",
+             "pts_bbox_head.task_heads.0.heatmap.1.weight", "adversary.mlp_out.weight")
+
+    def timed_step(self, batch, epoch, plan):
+        if not seen:
+            seen.update({k: v.detach().clone() for k, v in self.model.named_parameters()
+                         if k in watch})
+            seen["_trainer"] = self
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        logs = orig_step(self, batch, epoch, plan)
+        logs = {k: float(v) for k, v in logs.items()}  # waits for the step
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = read_counts()
+        if got != CP_TRAIN_LAUNCHES:
+            raise RuntimeError(f"CenterPoint train step launches {got}, expected "
+                               f"{CP_TRAIN_LAUNCHES}")
+        expect_bf16_kernels("CenterPoint training")
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise RuntimeError(f"CenterPoint train step: non-finite logs {logs}")
+        steps.append(dict(epoch=epoch, step_ms=ms, loss=logs["loss"],
+                          l2=logs["perturbation_l2_norm"]))
+        return logs
+
+    work_dir = os.path.join(REPO, "work_dirs", "chip_smoke_centerpoint")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    CenterPointTrainer.train_step = timed_step
+    try:
+        res = nus_train_cli.run(work_dir=work_dir, batch_size=CP_BATCH, max_epochs=CP_EPOCHS,
+                                steps_per_epoch=CP_STEPS_PER_EPOCH, synthetic=True, seed=seed,
+                                device=dev)
+    finally:
+        CenterPointTrainer.train_step = orig_step
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if len(steps) != CP_EPOCHS * CP_STEPS_PER_EPOCH:
+        raise RuntimeError(f"CenterPoint training ran {len(steps)} steps")
+    if not all(s["l2"] > 0 for s in steps if s["epoch"] >= 3):
+        raise RuntimeError("CenterPoint training: the adversary did not perturb at epoch 3")
+    params = dict(seen["_trainer"].model.named_parameters())
+    for k in watch:
+        if torch.equal(seen[k], params[k].detach()):
+            raise RuntimeError(f"CenterPoint training: {k} did not move")
+    del seen["_trainer"]
+    plans = res["plans"]
+    for st in steps:
+        print("phase 8 train step " + json.dumps(st) + f" [{card}]", flush=True)
+    for key in ("native_ms", "targets_ms", "plan_ms"):
+        print(f"phase 8 plan build {key} ({len(plans)} builds): "
+              f"{json.dumps([round(p[key], 3) for p in plans])} [{card}]", flush=True)
+    steady = [e for e in res["epochs"] if e["epoch"] >= 1]
+    train_summary = dict(
+        step_ms=statistics.median(s["step_ms"] for s in steps[1:]),
+        frames_per_s=[round(e["frames_per_s"], 3) for e in res["epochs"]],
+        steady_frames_per_s=sum(e["frames"] for e in steady) / sum(e["s"] for e in steady),
+        native_ms=statistics.mean(p["native_ms"] for p in plans),
+        targets_ms=statistics.mean(p["targets_ms"] for p in plans),
+        peak_gib=peak_gb)
+    print(f"phase 8 training B={CP_BATCH} full width (train_nuscenes_adversarial.run): median "
+          f"step_ms {train_summary['step_ms']:.1f} (host clock, the first step left out), "
+          f"frames/s per epoch {train_summary['frames_per_s']}, steady "
+          f"{train_summary['steady_frames_per_s']:.3f}; plan build native "
+          f"{train_summary['native_ms']:.1f} ms + targets {train_summary['targets_ms']:.1f} ms; "
+          f"max_memory_allocated {peak_gb:.2f} GiB; per step "
+          + ", ".join(f"{k} {v}" for k, v in CP_TRAIN_LAUNCHES.items()) + f" [{card}]",
+          flush=True)
+    worst, aligned, f32_launches = _centerpoint_small_grads(dev, seed, read_counts,
+                                                            read_f32_counts, zero_counts)
+    print(f"phase 8 small-grid float32 train step: gradients card vs CPU within {worst:.2e} of "
+          f"scale (ReLU gates aligned at rounding level: {aligned}); 3xTF32 launches "
+          f"{json.dumps(f32_launches)} [{card}]", flush=True)
+
+    # (e) evaluation of (d)'s checkpoint through the CLIs' entry points
+    mini = os.path.join(REPO, "tests", "fixtures", "nuscenes_mini")
+    eval_summary = {}
+    for name, entry, argv, fwd_bn, stats in (
+            ("clean synthetic", nus_eval_cli.main,
+             ["--mode", "clean", "--checkpoint", work_dir, "--synthetic", "--frames",
+              str(CP_EVAL_FRAMES), "--batch-size", str(CP_BATCH)], CP_BN_CLEAN, 0),
+            ("adversarial synthetic", nus_eval_cli.main,
+             ["--mode", "adversarial", "--checkpoint", work_dir, "--synthetic", "--frames",
+              str(CP_EVAL_FRAMES), "--batch-size", str(CP_BATCH)], CP_BN_ATTACK, 2),
+            ("clean nuscenes_mini", nus_eval_cli.main,
+             ["--mode", "clean", "--checkpoint", work_dir, "--data-root", mini, "--batch-size",
+              str(CP_BATCH)], CP_BN_CLEAN, 0),
+            ("checkpoint synthetic", ckpt_cli.main,
+             ["--work-dir", work_dir, "--synthetic", "--frames", str(CP_BATCH), "--batch-size",
+              str(CP_BATCH)], CP_BN_CLEAN, 0)):
+        zero_counts()
+        timings = {}
+        out = entry(argv, timings=timings)
+        torch.cuda.synchronize()
+        got = read_counts()
+        runs = {"checkpoint": out} if entry is ckpt_cli.main else out
+        batches = (timings["batches"] if entry is ckpt_cli.main
+                   else [bt for t in timings.values() for bt in t["batches"]])
+        nb = len(batches)
+        want = {"sparse_conv": CP_CONVS * nb, "sparse_conv_dgrad": 0, "sparse_conv_wgrad": 0,
+                "masked_stats": stats * nb, "masked_stats_bwd": 0,
+                "masked_batch_norm": fwd_bn * nb, "masked_batch_norm_bwd": 0, "bwd_reduce": 0}
+        if got != want:
+            raise RuntimeError(f"CenterPoint eval {name}: launches {got}, expected {want}")
+        for run, r in runs.items():
+            pre = "SYNTHETIC_" if "synthetic" in name else ""
+            if r is None or not all(np.isfinite(r[pre + k]) for k in ("mAP", "NDS", "mATE")):
+                raise RuntimeError(f"CenterPoint eval {name} {run}: {r}")
+        for i, bt in enumerate(batches):
+            print(f"phase 8 eval {name} batch {i}: " + json.dumps(bt) + f" [{card}]", flush=True)
+        eval_summary[name] = {k: statistics.mean(bt[k] for bt in batches)
+                              for k in ("plan_ms", "device_ms", "metric_ms")}
+        print(f"phase 8 eval {name} (B={CP_BATCH}, {nb} batches): mean per batch "
+              + ", ".join(f"{k} {v:.3f}" for k, v in eval_summary[name].items())
+              + f"; launches {json.dumps(got)} [{card}]", flush=True)
+    print(f"phase 8: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+
+    conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
+    tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
+    rows = []
+    for route, src, suffix in (("bf16", conv_src, ""), ("float32", tf32_src, "_f32")):
+        for key, (_, tot) in k1[route].items():
+            launches = (CP_TRAIN_LAUNCHES[key] * len(steps) if route == "bf16"
+                        else f32_launches[key])
+            rows.append({"name": f"{key}{suffix}_centerpoint", "route": "cuda", "source": src,
+                         "replaces": "robustpointclouds_tpu/kernels/mp_gather.py:192",
+                         "launches": launches, "max_abs_err": tot["err"], "ms": tot["ms"],
+                         "prev_ms": None, "device_ms": tot["device_ms"],
+                         "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                         "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]})
+    # the statistics at C = 5 run on this path; their VJP (held and timed in
+    # (b)) does not, so it keeps its row from phase 4's path alone
+    rows.append({"name": "masked_stats_c5", "route": "cuda",
+                 "source": "robustpointclouds_tpu_torch/csrc/masked_stats.cu",
+                 "replaces": "robustpointclouds_tpu/kernels/masked_stats.py:113",
+                 "launches": CP_TRAIN_LAUNCHES["masked_stats"] * len(steps),
+                 **{k: stats_c5[k] for k in ("max_abs_err", "ms", "prev_ms", "device_ms",
+                                             "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    print("phase 8 summary " + json.dumps(dict(
+        serving=serve_summary, training=train_summary, evaluation=eval_summary,
+        small_grid_grad_worst=worst, aligned_gates=aligned)) + f" [{card}]", flush=True)
+    return rows
 
 
 def bn_step_total(rows, kernel):
@@ -1450,6 +1933,10 @@ def main() -> int:
     zero_counts()
     kitti_summary = run_kitti_training(cfg, dev, card, args.seed, read_counts, expect_bf16_kernels)
 
+    # ---- phase 8: CenterPoint on NuScenes at full width
+    cp_rows = run_centerpoint(dev, card, args.seed, zero_counts, read_counts, read_f32_counts,
+                              expect_bf16_kernels)
+
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
     tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
@@ -1514,6 +2001,7 @@ def main() -> int:
                 "n", "c", "m", "dtype", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")}
         kernels.append(entry)
+    kernels.extend(cp_rows)
     for row in (*kernels, *(r["scale"] for r in kernels if "scale" in r)):
         for key in ("device_ms", "prev_device_ms"):
             if key in row and row[key] is None:  # the profiles did not hold their set

@@ -7,7 +7,8 @@ matching the reference's `save_l2_norms` schema (voxel_perturber.py:411-432)
 and TensorBoard scalar events under `work_dir/tf_logs`. It warm-starts from
 a port checkpoint (`load_from`), resumes from the newest one (`resume`) and
 traces steps 10-13 with torch.profiler (`profile_dir`). Evaluation: host
-plan -> (attack) -> eval forward -> decode + NMS -> the KITTI AP metric.
+plan -> (attack) -> eval forward -> decode + NMS -> the KITTI AP metric
+(CenterPoint's NuScenes evaluation: cli/train_nuscenes_adversarial).
 Not ported yet: the mesh / multi-host paths (ROADMAP.md, M10).
 """
 from __future__ import annotations
@@ -145,13 +146,17 @@ def prefetch_iterator(it: Iterator, depth: int = 2) -> Iterator:
         t.join(timeout=60)
 
 
-def with_plans(plan_builder: HostPlanBuilder, it: Iterator[PointCloudBatch]) -> Iterator:
-    """(batch, host plan) per batch of `it`: the input pipeline that
-    run_training puts behind prefetch_iterator. Each build's time is in
+def with_plans(plan_builder: HostPlanBuilder, it: Iterator) -> Iterator:
+    """(batch, host plan) per item of `it`: the input pipeline that
+    run_training puts behind prefetch_iterator. An item is a PointCloudBatch
+    or a tuple (batch, *extra GT arrays) whose extras go to the builder after
+    the batch's GTs (NuScenes: the velocities). Each build's time is in
     `plan_builder.timings`."""
-    for batch in it:
+    for item in it:
+        # a bare PointCloudBatch is itself a NamedTuple: test it first
+        batch, extra = (item, ()) if isinstance(item, PointCloudBatch) else (item[0], item[1:])
         yield batch, plan_builder(batch.points, batch.points_mask, batch.gt_boxes,
-                                  batch.gt_labels, batch.gt_mask)
+                                  batch.gt_labels, batch.gt_mask, *extra)
 
 
 def tiny_voxelnet_cfg():
@@ -172,7 +177,9 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
                  work_dir: str, max_epochs: int, log_interval: int = 50, seed: int = 0,
                  checkpoint_interval: int = 5, max_keep: int = 10, val_interval: int = 5,
                  val_loader: Optional[Callable[[], Iterator]] = None, resume: bool = False,
-                 load_from: Optional[str] = None, profile_dir: Optional[str] = None) -> Dict:
+                 load_from: Optional[str] = None, profile_dir: Optional[str] = None,
+                 evaluate: Optional[Callable[[Trainer, Iterator], Dict[str, float]]] = None
+                 ) -> Dict:
     """The training loop on one device (the reference scenario:
     train_kitti_3class_adversarial.py --validate).
 
@@ -186,8 +193,10 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
     `load_from`: warm start of the model weights from a port checkpoint (a
     file or a directory; zoo `.pth` files raise). `resume`: restore the
     newest checkpoint of `work_dir` and go on at the next epoch.
-    `val_loader`: () -> batches for run_evaluation every `val_interval`
-    epochs; the best `mAP_3d_moderate` (else `mAP`) is kept as best.pt.
+    `val_loader`: () -> batches for `evaluate` (run_evaluation, the KITTI
+    metric, by default) every `val_interval` epochs; the best
+    `mAP_3d_moderate` (else `mAP`) is kept as best.pt. The trainer may be
+    a CenterPointTrainer, its epoch loader yielding (batch, velocities).
     `profile_dir`: a torch.profiler Chrome trace of steps 10-13 of the first
     epoch (closed early if the epoch ends first). The result holds the
     newest plan builds' timings ("plans", HostPlanBuilder.timings) and each
@@ -259,7 +268,7 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
                        "frames_per_s": n_frames / max(dt, 1e-9)})
         ckpt.maybe_save(epoch, trainer)
         if val_loader is not None and (epoch + 1) % val_interval == 0:
-            metrics = run_evaluation(trainer, val_loader(), attack=False)
+            metrics = (evaluate or run_evaluation)(trainer, val_loader())
             history[f"val_epoch{epoch}"] = metrics
             print(f"[val epoch {epoch}] {metrics}", flush=True)
             # keep the best-mAP checkpoint (the reference CheckpointHook's save_best)

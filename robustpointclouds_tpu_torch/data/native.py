@@ -7,10 +7,10 @@ the JAX package's build. No compiler means an error: `prepare_batch` never
 falls back to numpy (data/kitti.kitti_epoch_loader takes the numpy path
 only when asked with `use_native=False`).
 
-Ported: `load_points` (the .bin reader) and `prepare_batch` (threaded IO +
-global flip / rotation / scale + range filter + shuffle and pad). The
-NuScenes multi-sweep reader (`load_sweeps`) is not ported yet (ROADMAP.md,
-M14).
+Bound: `load_points` (the .bin reader), `prepare_batch` (threaded IO +
+global flip / rotation / scale + range filter + shuffle and pad) and
+`load_sweeps` (the NuScenes multi-sweep reader: threaded IO of 5-float
+sweeps, each brought into the key frame and stamped with its time lag).
 """
 from __future__ import annotations
 
@@ -62,6 +62,10 @@ def get_lib() -> ctypes.CDLL:
                 ctypes.c_uint, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
                 _F32P, _I32P, ctypes.c_int, _U8P, _F32P, _U8P, ctypes.c_int, _I32P,
                 ctypes.c_int]
+            lib.rpc_load_sweeps.restype = None
+            lib.rpc_load_sweeps.argtypes = [
+                ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, _F32P, _U8P, _F32P,
+                ctypes.c_int, _F32P, ctypes.c_int, _I32P]
             _lib = lib
         return _lib
 
@@ -111,3 +115,28 @@ def prepare_batch(paths: Sequence[str], boxes: np.ndarray, n_boxes: np.ndarray,
     if bad:
         raise IOError(f"cannot read {bad}")
     return out_points, out_mask.astype(bool), box_keep.astype(bool), counts
+
+
+def load_sweeps(paths: Sequence[str], rts: Sequence[Optional[np.ndarray]], lags: Sequence[float],
+                max_points: int = 40000, stride: int = 5, ts_ch: int = 4) -> list:
+    """Threaded native multi-sweep load (NuScenes LoadPointsFromMultiSweeps):
+    one thread a sweep reads its [n, stride] float32 points (at most
+    max_points), applies xyz' = R xyz + T (rts[s]: [3, 4] row-major [R|T],
+    or None for the identity) and sets channel ts_ch to lags[s]. Returns
+    the sweeps' arrays, those that cannot be read dropped."""
+    lib = get_lib()
+    n = len(paths)
+    out = np.zeros((n, max_points, stride), np.float32)
+    counts = np.zeros(n, np.int32)
+    rt_arr = np.zeros((n, 12), np.float32)
+    rt_valid = np.zeros(n, np.uint8)
+    for i, rt in enumerate(rts):
+        if rt is not None:
+            rt_arr[i] = np.asarray(rt, np.float32).reshape(12)
+            rt_valid[i] = 1
+    lag_arr = np.ascontiguousarray(lags, np.float32)
+    path_arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    lib.rpc_load_sweeps(path_arr, n, stride, rt_arr.ctypes.data_as(_F32P),
+                        rt_valid.ctypes.data_as(_U8P), lag_arr.ctypes.data_as(_F32P), ts_ch,
+                        out.ctypes.data_as(_F32P), max_points, counts.ctypes.data_as(_I32P))
+    return [out[i, :counts[i]] for i in range(n) if counts[i] >= 0]

@@ -29,7 +29,11 @@ form of robustpointclouds_tpu/nn/layers.masked_mean), `masked_stats_bwd_ref`,
 `masked_batch_norm_ref` (the eager composition MaskedBatchNorm ran before:
 statistics, running-stat update, normalise, affine, cast, ReLU, row mask) and
 `masked_batch_norm_bwd_ref` (the analytic backward above in torch). Nothing
-falls back: what the kernels do not take raises. Each wrapper counts its
+falls back: what the kernels do not take raises, apart from the statistics
+and their VJP at a width between two of WIDTHS (CenterPoint's 5 point
+features): the wrapper zero-pads the columns to the next width (5 -> 8)
+and drops the pad columns of the result. The statistics are per channel,
+so the padding is exact. Each wrapper counts its
 launches (`.launches`); `masked_batch_norm_bwd.reduce_launches` counts the
 backward calls that ran `bwd_reduce`. The launch plan (`row_plan`) is plain
 Python, checked on the CPU.
@@ -40,6 +44,7 @@ import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ._build import load_library
 
@@ -260,13 +265,37 @@ def _launch_stats(name: str, x: torch.Tensor, mask: torch.Tensor, stream: int,
     return out[:c], out[c:2 * c], out[2 * c]
 
 
+def _stats_width(c: int) -> int:
+    """The kernel width the statistics and their VJP run [N, c] at: the
+    smallest of WIDTHS that holds c (c itself when it is one)."""
+    for w in WIDTHS:
+        if c <= w:
+            return w
+    raise ValueError(f"masked statistics: C={c} exceeds {WIDTHS[-1]}")
+
+
+def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
 def _stats(x: torch.Tensor, mask: torch.Tensor):
     if x.device.type == "cpu":
         return masked_stats_ref(x, mask)
-    _check_rows("masked_stats", x, mask)
-    out = _launch_stats("masked_stats", x, mask, _stream(x.device))
+    out = _stats_padded(x, mask)
     masked_stats.launches += 1
     return out
+
+
+def _stats_padded(x: torch.Tensor, mask: torch.Tensor):
+    """One statistics launch on x zero-padded to its kernel width; the pad
+    channels' results dropped."""
+    if x.dim() != 2:
+        raise ValueError(f"masked_stats: x must be [N, C], got {tuple(x.shape)}")
+    c = x.shape[1]
+    xp = _pad_cols(x, _stats_width(c))
+    _check_rows("masked_stats", xp, mask)
+    mean, var, cnt = _launch_stats("masked_stats", xp, mask, _stream(x.device))
+    return mean[:c], var[:c], cnt
 
 
 def masked_stats_bwd(x: torch.Tensor, mask: torch.Tensor, mean: torch.Tensor, cnt: torch.Tensor,
@@ -274,18 +303,36 @@ def masked_stats_bwd(x: torch.Tensor, mask: torch.Tensor, mean: torch.Tensor, cn
     """dx [N, C] in x's dtype; a missing g_mean or g_var counts as zero."""
     if x.device.type == "cpu":
         return masked_stats_bwd_ref(x, mask, mean, cnt, g_mean, g_var)
-    n, c = x.shape
+    dx = _stats_bwd_padded(x, mask, mean, cnt, g_mean, g_var)
+    masked_stats_bwd.launches += 1
+    return dx
+
+
+def _stats_bwd_padded(x, mask, mean, cnt, g_mean, g_var) -> torch.Tensor:
+    """One VJP launch on x (and the per-channel vectors) zero-padded to the
+    kernel width; the pad columns of dx dropped."""
+    if x.dim() != 2:
+        raise ValueError(f"masked_stats_bwd: x must be [N, C], got {tuple(x.shape)}")
+    c = x.shape[1]
+    w = _stats_width(c)
+    x = _pad_cols(x, w)
     _check_rows("masked_stats_bwd", x, mask)
+    mean, g_mean, g_var = (None if v is None else _pad_cols(v.float(), w).contiguous()
+                           for v in (mean, g_mean, g_var))
+    _check_channels("masked_stats_bwd", w, x.device, mean, g_mean, g_var)
+    dx = _launch_stats_vjp(x, mask, mean, cnt, g_mean, g_var)
+    return dx if w == c else dx[:, :c].contiguous()
+
+
+def _launch_stats_vjp(x, mask, mean, cnt, g_mean, g_var) -> torch.Tensor:
+    """One launch of the statistics' VJP kernel on checked inputs."""
+    n, c = x.shape
     plan = row_plan(n, c, x.dtype, reduce=False)
-    g_mean = None if g_mean is None else g_mean.float().contiguous()
-    g_var = None if g_var is None else g_var.float().contiguous()
-    _check_channels("masked_stats_bwd", c, x.device, mean, g_mean, g_var)
     dx = torch.empty_like(x)
     _rc("masked_stats_bwd", _fn("rpc_masked_stats_vjp")(
         x.data_ptr(), mask.data_ptr(), mean.data_ptr(), cnt.data_ptr(), _ptr(g_mean),
         _ptr(g_var), dx.data_ptr(), n, c, _DTYPE_CODES[x.dtype], plan.vec, plan.blocks,
         _stream(x.device)))
-    masked_stats_bwd.launches += 1
     return dx
 
 

@@ -33,6 +33,17 @@ A CUDA tensor launches hand-written kernels, chosen by dtype:
     each operand split into two tf32 parts in registers, three tf32 mma per
     product, float32 accuracy (see the source), fed by the same cp.async
     gathers.
+Both take rows whose width is a multiple of 4 (their 16-byte cp.async
+pieces). A narrower or odd width, CenterPoint's 5 point features (x, y, z,
+intensity, sweep lag) into conv_input and out of its dgrad, is zero-padded
+inside the wrapper to a multiple of 8 (`_narrow_pad`): feats or g get zero
+columns, the weight zero rows (input side, per tap) or zero columns (output
+side), and the padded output columns or dW rows are dropped. This is exact,
+since zero products add nothing, and it keeps one kernel instance set: an
+8-column bf16 row is one 16-byte piece. The padded copy of an [N, 5] input
+is one more pass over N rows; its cost shows on the host clock (a few more
+launches a call), hardly on the device. A kernel instance for narrow rows
+would have needed sub-16-byte gathers in both sources for one conv of 21.
 Their launch plans (`gather_gemm_plan`, `tf32_gemm_plan`, `wgrad_plan`) are
 plain Python, so the CPU tests check that every launch
 of the encoder fits the card's shared memory; the C entry points recompute
@@ -54,6 +65,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ._build import load_library
 
@@ -405,8 +417,27 @@ def _gather_gemm_tf32(name, feats, kernel, idx):
     return out
 
 
+def _narrow_pad(width: int) -> int:
+    """The width a row is zero-padded to before a tensor-core launch: itself
+    when a multiple of 4, else the next multiple of 8 (5 -> 8)."""
+    return width if width % 4 == 0 else -(-width // 8) * 8
+
+
+def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
+    return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
+
+
 def _gather_gemm(wrapper, name, feats, kernel, idx):
-    """bf16 -> the bf16 tensor-core kernel, float32 -> the 3xTF32 one; counted."""
+    """bf16 -> the bf16 tensor-core kernel, float32 -> the 3xTF32 one; counted.
+    Rows of a width the kernels do not take are zero-padded around the launch."""
+    _, k, cin, cout = _gather_gemm_shapes(name, feats, kernel, idx)
+    cin_p, cout_p = _narrow_pad(cin), _narrow_pad(cout)
+    if (cin_p, cout_p) != (cin, cout):
+        feats = _pad_cols(feats, cin_p)
+        kernel = _pad_cols(kernel.reshape(k, cin, cout).transpose(1, 2), cin_p)
+        kernel = _pad_cols(kernel.transpose(1, 2).reshape(k * cin_p, cout), cout_p)
+        out = _gather_gemm(wrapper, name, feats, kernel.contiguous(), idx)
+        return out[:, :cout].contiguous()
     if feats.dtype == torch.bfloat16:
         out = _gather_gemm_tc(name, feats, kernel, idx)
     else:
@@ -480,12 +511,23 @@ def _wgrad_tc(feats, g, idx):
     return dw
 
 
+def _wgrad(feats, g, idx):
+    """_wgrad_tc with rows of a width it does not take zero-padded around the
+    launch and the pad rows of dW dropped."""
+    _, k, cin, cout = _wgrad_shapes(feats, g, idx)
+    cin_p, cout_p = _narrow_pad(cin), _narrow_pad(cout)
+    dw = _wgrad_tc(_pad_cols(feats, cin_p), _pad_cols(g, cout_p), idx)
+    if (cin_p, cout_p) != (cin, cout):
+        dw = dw.reshape(k, cin_p, cout_p)[:, :cin, :cout].reshape(k * cin, cout)
+    return dw
+
+
 def sparse_conv_wgrad(feats: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """d_W [K*Cin, Cout] float32 from feats [N, Cin], g [M, Cout] and the
     forward index [M, K]."""
     if feats.device.type == "cpu":
         return sparse_conv_wgrad_ref(feats, g, idx)
-    dw = _wgrad_tc(feats, g, idx)
+    dw = _wgrad(feats, g, idx)
     if feats.dtype == torch.float32:
         sparse_conv_wgrad.tf32_launches += 1
     sparse_conv_wgrad.launches += 1

@@ -9,7 +9,7 @@ matched GT boxes by a one-hot matmul, a TPU workaround; here an index gather
 gives the same exact values.
 
 Serving: `anchor_head_predict` (decode + direction correction + per-class
-rotated NMS). The JAX version vmaps `_predict_single` over the batch; here
+rotated NMS, or circle NMS with `use_rotate_nms` off). The JAX version vmaps `_predict_single` over the batch; here
 the batch and the classes are leading dimensions of one computation, and
 every sort is stable so ties resolve to the lower index as `lax.top_k` and
 `jnp.argsort` do.
@@ -17,7 +17,7 @@ every sort is stable so ties resolve to the lower index as `lax.top_k` and
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -113,10 +113,7 @@ def anchor_head_loss(cls_scores: torch.Tensor, bbox_preds: torch.Tensor, dir_pre
             "num_pos": num_pos}
 
 
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Largest k along the last axis, ties to the lower index (lax.top_k's order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+_top_k = nms.top_k
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -125,9 +122,9 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _predict_single(cls_scores, bbox_preds, dir_preds, anchors, cfg: AnchorHeadConfig):
-    """Decode [B, N, ...] -> fixed-size detections via per-class NMS (batched over B)."""
-    if not cfg.use_rotate_nms:
-        raise NotImplementedError("circle NMS is not ported yet")
+    """Decode [B, N, ...] -> fixed-size detections via per-class NMS (batched
+    over B): rotated BEV NMS, or circle NMS of radius 4 m when
+    `use_rotate_nms` is off."""
     scores = torch.sigmoid(cls_scores)  # [B, N, C]
     b, n, c = scores.shape
     pre = min(cfg.nms_pre, n)
@@ -147,8 +144,11 @@ def _predict_single(cls_scores, bbox_preds, dir_preds, anchors, cfg: AnchorHeadC
     order = torch.argsort(-cls_sc, dim=-1, stable=True)
     boxes_c = _take(sel_boxes[:, None].expand(b, c, pre, 7), order)
     sc_sorted = torch.gather(cls_sc, -1, order)
-    keep = nms.rotated_nms(box_ops.boxes3d_to_bev(boxes_c), None,
-                           sc_sorted > cfg.score_thr, cfg.nms_iou_thr)
+    if cfg.use_rotate_nms:
+        keep = nms.rotated_nms(box_ops.boxes3d_to_bev(boxes_c), None,
+                               sc_sorted > cfg.score_thr, cfg.nms_iou_thr)
+    else:
+        keep = nms.circle_nms(boxes_c[..., :2], sc_sorted > cfg.score_thr, radius=4.0)
     all_scores = torch.where(keep, sc_sorted, torch.full_like(sc_sorted, -1.0)).reshape(b, c * pre)
     all_boxes = boxes_c.reshape(b, c * pre, 7)
     all_labels = torch.arange(c, dtype=torch.int32, device=scores.device).repeat_interleave(pre)

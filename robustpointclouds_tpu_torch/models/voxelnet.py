@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..nn.anchor_head import Anchor3DHead
+from ..nn.deform_conv import DeformConv2d
 from ..nn.perturber import VoxelPerturber
 from ..nn.second import SECONDFPN, SECONDBackbone
 from ..nn.sparse_encoder import SparseConv3d, SparseEncoder
@@ -175,32 +176,41 @@ class AdversarialVoxelNet(nn.Module):
         return ModelOutputs(cls_scores, bbox_preds, dir_preds, adv_aux)
 
 
-def plan_to_device(plan: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """The host plan (nested dict of numpy arrays or tensors) as tensors on `device`."""
-    def leaf(v):
-        if not isinstance(v, torch.Tensor):
-            v = torch.from_numpy(np.ascontiguousarray(v))
-        return v.to(device)
+def plan_to_device(plan: Any, device: torch.device) -> Any:
+    """The host plan (nested dicts and lists of numpy arrays or tensors) as
+    tensors on `device`."""
+    if isinstance(plan, dict):
+        return {k: plan_to_device(v, device) for k, v in plan.items()}
+    if isinstance(plan, (list, tuple)):
+        return [plan_to_device(v, device) for v in plan]
+    if not isinstance(plan, torch.Tensor):
+        plan = torch.from_numpy(np.ascontiguousarray(plan))
+    return plan.to(device)
 
-    return {k: plan_to_device(v, device) if isinstance(v, dict) else leaf(v)
-            for k, v in plan.items()}
 
-
-def init_weights(model: AdversarialVoxelNet, generator: torch.Generator) -> None:
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random initialisation from `generator`, following the JAX package's
-    flax initialisers: fan-in normal for convs and linears, the focal prior
-    bias -4.595 on the class logits, N(0, 0.025) on the adversary's output
-    layer, identity BatchNorm."""
+    flax initialisers: fan-in normal for convs (sparse, deformable, dense)
+    and linears, the focal prior bias -4.595 on the class logits and
+    heatmaps, zero DCN offset convs, N(0, 0.025) on the adversary's output
+    layer, identity BatchNorm. Serves AdversarialVoxelNet and
+    AdversarialCenterPoint."""
     def normal_(t: torch.Tensor, std: float):
         with torch.no_grad():
             t.copy_(torch.randn(t.shape, generator=generator) * std)
 
+    offsets = {id(m.conv_offset) for m in model.modules() if isinstance(m, DeformConv2d)}
     for name, mod in model.named_modules():
-        if isinstance(mod, SparseConv3d):
-            normal_(mod.weight, math.sqrt(1.0 / (mod.weight[0].numel())))
+        if isinstance(mod, (SparseConv3d, DeformConv2d)):
+            fan_in = mod.weight[0].numel() * getattr(mod, "groups", 1)
+            normal_(mod.weight, math.sqrt(1.0 / fan_in))
         elif isinstance(mod, nn.ConvTranspose2d):
             w = mod.weight  # (in, out, kh, kw): flax fans in over in * kh * kw
             normal_(w, math.sqrt(1.0 / (w.shape[0] * w.shape[2] * w.shape[3])))
+        elif id(mod) in offsets:
+            with torch.no_grad():
+                mod.weight.zero_()
+                mod.bias.zero_()
         elif isinstance(mod, (nn.Conv2d, nn.Linear)):
             std = 0.025 if name.endswith("mlp_out") else math.sqrt(1.0 / mod.weight[0].numel())
             normal_(mod.weight, std)
@@ -208,8 +218,9 @@ def init_weights(model: AdversarialVoxelNet, generator: torch.Generator) -> None
                 if name.endswith("mlp_out"):
                     normal_(mod.bias, 0.025)
                 else:
+                    prior = name.endswith(("conv_cls", "heatmap.1", "cls_head.1"))
                     with torch.no_grad():
-                        mod.bias.fill_(-4.595 if name.endswith("conv_cls") else 0.0)
+                        mod.bias.fill_(-4.595 if prior else 0.0)
         elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.reset_parameters()
 

@@ -1,23 +1,32 @@
-"""The SECOND sparse middle encoder, plan-fed (counterpart of robustpointclouds_tpu/nn/sparse_encoder.py).
+"""The sparse middle encoder, plan-fed (counterpart of robustpointclouds_tpu/nn/sparse_encoder.py).
 
-conv_input: subm k3 (in -> 16); stage 1: subm k3 (16); stages 2-4: a
-strided k3 s2 conv then two subm k3 convs (32, 64, 64; the last stride has
-z-padding 0); conv_out: strided k(3,1,1) s(2,1,1) (-> 128). Every conv is
+Two layouts of mmdet3d's SparseEncoder:
+  * `conv_module` (SECOND): conv_input: subm k3 (in -> 16); stage 1: subm
+    k3 (16); stages 2-4: a strided k3 s2 conv then two subm k3 convs (32,
+    64, 64; the last stride has z-padding 0);
+  * `basicblock` (CenterPoint): conv_input (5 -> 16), then per stage its
+    residual SparseBasicBlocks (two subm convs, conv1-bn1-relu-conv2-bn2,
+    plus the input, then ReLU) and the strided down as the stage's *last*
+    element, the final stage without one: channels ((16, 16, 32), (32, 32,
+    64), (64, 64, 128), (128, 128)), 21 sparse convs.
+Both end with conv_out: strided k(3,1,1) s(2,1,1) (-> 128). Every conv is
 the gather-GEMM kernel (kernels/sparse_conv.py) over a dense neighbour
 index that ops/sparse.py derives from the host plan, followed by
-MaskedBatchNorm with ReLU and the row mask fused into its kernels. A dense
-scatter and a z-fold end the encoder. Each conv also gets its backward
-index for the gather-only backward: a submanifold conv its own forward index
-read with mirrored taps, a strided conv (the three downs and conv_out) the
-plan's inverse `inv`.
+MaskedBatchNorm, which fuses the ReLU and the row mask into its kernels
+(a basic block's bn2 runs without them: the residual add comes first). A
+dense scatter and a z-fold end the encoder. Each conv also gets its
+backward index for the gather-only backward: a submanifold conv its own
+forward index read with mirrored taps, a strided conv (the three downs and
+conv_out) the plan's inverse `inv`. The two layouts read the same plan
+levels (rel0-3, down1-3, out) in the same order.
 
 Module names follow the mmdet3d state_dict (`conv_input`,
 `encoder_layers.encoder_layerN.j`, `conv_out`, each a `0` conv + `1` BN
-pair) and the sparse weights keep spconv2's (out, kz, ky, kx, in) layout, so
-tools/convert.py is the inverse of the JAX package's zoo converter.
+pair; a basic block's `conv1`/`bn1`/`conv2`/`bn2`) and the sparse weights
+keep spconv2's (out, kz, ky, kx, in) layout, so tools/convert.py is the
+inverse of the JAX package's zoo converter.
 
-Only the non-residual (SECOND) plan path is ported; the inline index build
-(plan=None) and the residual CenterPoint layout wait for later slices.
+The inline index build (plan=None) is not ported.
 """
 from __future__ import annotations
 
@@ -89,6 +98,27 @@ class SparseConvBlock(nn.Sequential):
         return self[1](out, out_mask, relu=True, row_mask=True)
 
 
+class SparseBasicBlock(nn.Module):
+    """Residual block over one grid: conv1-bn1-relu-conv2-bn2 (+x) relu, row
+    mask (spconv/mmdet3d SparseBasicBlock). Submanifold convs keep the
+    active set, so the residual add is row-wise."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = SparseConv3d(channels, channels)
+        self.bn1 = MaskedBatchNorm(channels, dtype=dtype)
+        self.conv2 = SparseConv3d(channels, channels)
+        self.bn2 = MaskedBatchNorm(channels, dtype=dtype)
+        self.dtype = dtype
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        identity = feats.to(self.dtype)
+        x = self.bn1(self.conv1(identity, idx, idx, True), mask, relu=True, row_mask=True)
+        x = self.bn2(self.conv2(x, idx, idx, True), mask)
+        x = torch.relu(x + identity)
+        return torch.where(mask[:, None], x, torch.zeros_like(x))
+
+
 def relation_index(rel: Dict[str, torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
     """A plan level's submanifold relation as the dense [N, 27] index."""
     if "rows" in rel:
@@ -103,12 +133,17 @@ class SparseEncoder(nn.Module):
                  base_channels: int = 16,
                  encoder_channels: Sequence[Sequence[int]] = (
                      (16,), (32, 32, 32), (64, 64, 64), (64, 64, 64)),
-                 out_channels: int = 128, dtype: torch.dtype = torch.float32):
+                 out_channels: int = 128, dtype: torch.dtype = torch.float32,
+                 block_type: str = "conv_module"):
         super().__init__()
+        if block_type not in ("conv_module", "basicblock"):
+            raise ValueError(f"unknown block_type {block_type!r}")
         self.encoder_channels = tuple(tuple(s) for s in encoder_channels)
+        self.residual = block_type == "basicblock"
+        n_stages = len(self.encoder_channels)
         shape = (1,) + tuple(sparse_shape)
-        for i in range(1, len(self.encoder_channels)):
-            shape = _down_shape(shape, *_down_geom(len(self.encoder_channels), i))
+        for i in range(1, n_stages):
+            shape = _down_shape(shape, *_down_geom(n_stages, i))
         # channels of the BEV map: the z planes left after conv_out, folded
         self.bev_channels = _down_shape(shape, *_OUT_GEOM)[1] * out_channels
         self.conv_input = SparseConvBlock(in_channels, base_channels, dtype=dtype)
@@ -116,8 +151,11 @@ class SparseEncoder(nn.Module):
         cin = base_channels
         for i, stage in enumerate(self.encoder_channels):
             blocks = []
-            for ch in stage:
-                blocks.append(SparseConvBlock(cin, ch, dtype=dtype))
+            for j, ch in enumerate(stage):
+                if self.residual and not (j == len(stage) - 1 and i != n_stages - 1):
+                    blocks.append(SparseBasicBlock(ch, dtype=dtype))  # cin == ch
+                else:
+                    blocks.append(SparseConvBlock(cin, ch, dtype=dtype))
                 cin = ch
             layers[f"encoder_layer{i + 1}"] = nn.ModuleList(blocks)
         self.encoder_layers = nn.ModuleDict(layers)
@@ -136,15 +174,23 @@ class SparseEncoder(nn.Module):
         mask = grid.mask
         idx = relation_index(plan["rel0"], grid.flat_ids)
         x = self.conv_input(voxel_features, mask, idx)
+        downs = 0
         for i in range(n_stages):
             for j, block in enumerate(self.encoder_layers[f"encoder_layer{i + 1}"]):
-                if i != 0 and j == 0:
-                    st = plan[f"down{i}"]
+                # a strided down: first of stages 2-4 (conv_module), last of
+                # stages 1-3 (basicblock); either way the plan's next level
+                if self.residual:
+                    is_down = not isinstance(block, SparseBasicBlock)
+                else:
+                    is_down = i != 0 and j == 0
+                if is_down:
+                    downs += 1
+                    st = plan[f"down{downs}"]
                     down_idx = sparse.inverse_from_forward(st["inv"], st["ids"].shape[0])
                     x = block(x, st["mask"], down_idx, st["inv"])
-                    shape = _down_shape(shape, *_down_geom(n_stages, i))
+                    shape = _down_shape(shape, *_down_geom(n_stages, downs))
                     mask = st["mask"]
-                    idx = relation_index(plan[f"rel{i}"], st["ids"])
+                    idx = relation_index(plan[f"rel{downs}"], st["ids"])
                 else:
                     x = block(x, mask, idx)
 
@@ -155,4 +201,3 @@ class SparseEncoder(nn.Module):
         dense = sparse.scatter_to_dense(x, out_grid)  # [B, Dz, H', W', C]
         b, dz, h, w, c = dense.shape
         return dense.permute(0, 1, 4, 2, 3).reshape(b, dz * c, h, w)
-

@@ -3,7 +3,8 @@
 Sigmoid focal, smooth-L1 and softmax cross-entropy with explicit per-element
 weights and an `avg_factor`, plus the sin-difference rotation trick — the
 losses the reference's SECOND config sets (FocalLoss gamma 2 alpha 0.25,
-SmoothL1Loss beta 1/9, direction CrossEntropyLoss). The JAX version picks
+SmoothL1Loss beta 1/9, direction CrossEntropyLoss) — and CenterPoint's
+gaussian focal loss (probability and logit forms) and L1. The JAX version picks
 the cross-entropy label by a one-hot mask-sum, a TPU workaround; here a
 gather gives the same exact value.
 """
@@ -59,6 +60,46 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if weight is not None:
         nll = nll * weight
     return _avg(nll.sum(), avg_factor)
+
+
+def gaussian_focal_loss(pred: torch.Tensor, gaussian_target: torch.Tensor, alpha: float = 2.0,
+                        gamma: float = 4.0, avg_factor: Scalar = 1.0) -> torch.Tensor:
+    """CornerNet gaussian focal loss on heatmap probabilities in (0, 1);
+    targets of exactly 1.0 mark the positive centres. The upper clip is
+    1 - 1e-6 (1 - 1e-8 rounds to 1.0 in float32, and log(1 - pred) would
+    reach log(0)); prefer the logit form."""
+    pred = torch.clamp(pred, 1e-8, 1.0 - 1e-6)
+    pos_w = (gaussian_target == 1.0).to(pred.dtype)
+    neg_w = (1.0 - gaussian_target) ** gamma
+    pos_loss = -torch.log(pred) * ((1.0 - pred) ** alpha) * pos_w
+    neg_loss = -torch.log(1.0 - pred) * (pred ** alpha) * neg_w * (1.0 - pos_w)
+    return _avg(pos_loss.sum() + neg_loss.sum(), avg_factor)
+
+
+def gaussian_focal_loss_logits(logits: torch.Tensor, gaussian_target: torch.Tensor,
+                               alpha: float = 2.0, gamma: float = 4.0,
+                               avg_factor: Scalar = 1.0) -> torch.Tensor:
+    """gaussian_focal_loss(sigmoid(logits), ...) with log(pred) and
+    log(1 - pred) taken as log_sigmoid(+-logits): finite in value and
+    gradient at any logit."""
+    logits = logits.float()
+    pred = torch.sigmoid(logits)
+    pos_w = (gaussian_target == 1.0).to(torch.float32)
+    neg_w = (1.0 - gaussian_target) ** gamma
+    pos_loss = -F.logsigmoid(logits) * ((1.0 - pred) ** alpha) * pos_w
+    neg_loss = -F.logsigmoid(-logits) * (pred ** alpha) * neg_w * (1.0 - pos_w)
+    return _avg(pos_loss.sum() + neg_loss.sum(), avg_factor)
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor, weight: Optional[torch.Tensor] = None,
+            avg_factor: Scalar = 1.0) -> torch.Tensor:
+    """L1; weight [...] (broadcast over the last axis) or [..., D]."""
+    loss = torch.abs(pred - target)
+    if weight is not None:
+        if weight.dim() == loss.dim() - 1:
+            weight = weight[..., None]
+        loss = loss * weight
+    return _avg(loss.sum(), avg_factor)
 
 
 def add_sin_difference(pred_rot: torch.Tensor, gt_rot: torch.Tensor):

@@ -48,6 +48,15 @@ _EXPECTED = {
     "robustpointclouds_tpu_torch.core.tensorboard", "robustpointclouds_tpu_torch.data.native",
     "robustpointclouds_tpu_torch.data.transforms",
     "robustpointclouds_tpu_torch.tools.create_kitti_dbinfos",
+    # the CenterPoint / NuScenes slice
+    "robustpointclouds_tpu_torch.nn.center_head", "robustpointclouds_tpu_torch.nn.deform_conv",
+    "robustpointclouds_tpu_torch.models.center_detection",
+    "robustpointclouds_tpu_torch.models.centerpoint",
+    "robustpointclouds_tpu_torch.train.centerpoint_loop",
+    "robustpointclouds_tpu_torch.data.nuscenes", "robustpointclouds_tpu_torch.eval.nuscenes_metric",
+    "robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial",
+    "robustpointclouds_tpu_torch.cli.evaluate_nuscenes_adversarial",
+    "robustpointclouds_tpu_torch.cli.evaluate_adversarial_checkpoint",
 }
 
 
@@ -111,3 +120,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         export_serving(AdversarialVoxelNet(cfg), None, np.zeros((1, 7), np.float32), cfg.head)
     assert resolve_device("cpu") == torch.device("cpu")
+    # the CenterPoint entry points: serving, training and both evaluation CLIs
+    from robustpointclouds_tpu_torch.cli import (evaluate_adversarial_checkpoint,
+                                                 evaluate_nuscenes_adversarial,
+                                                 train_nuscenes_adversarial)
+    from robustpointclouds_tpu_torch.models.centerpoint import (AdversarialCenterPoint,
+                                                                CenterPointConfig)
+
+    cp = CenterPointConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_serving(AdversarialCenterPoint(cp), None, None, cp.head)
+    for main in (train_nuscenes_adversarial.main, evaluate_nuscenes_adversarial.main,
+                 evaluate_adversarial_checkpoint.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--tiny", "--synthetic"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_nuscenes_adversarial.run(tiny=True, synthetic=True)

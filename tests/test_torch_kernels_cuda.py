@@ -53,8 +53,8 @@ def test_sparse_conv_matches_plain_version(cuda_device, dtype, cin, cout, k):
 def test_sparse_conv_rejects_what_it_cannot_take(cuda_device):
     feats = torch.zeros(10, 4, device=cuda_device)
     idx = torch.zeros(5, 27, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):  # Cout = 6: not whole 16-byte pieces
-        sparse_conv(feats, torch.zeros(27 * 4, 6, device=cuda_device), idx)
+    with pytest.raises(ValueError):  # a kernel that is not K x Cin rows
+        sparse_conv(feats, torch.zeros(27 * 5, 16, device=cuda_device), idx)
     with pytest.raises(TypeError):  # int64 index
         sparse_conv(feats, torch.zeros(27 * 4, 16, device=cuda_device), idx.long())
 
@@ -343,9 +343,9 @@ def test_sparse_conv_tf32_non_finite_rows(cuda_device):
 def test_tensor_cores_reject_what_they_cannot_take(cuda_device):
     idx = torch.zeros(5, 27, dtype=torch.int32, device=cuda_device)
     bf = torch.bfloat16
-    with pytest.raises(ValueError):  # 6 channels: not whole 8-byte pieces
-        sparse_conv(torch.zeros(10, 6, device=cuda_device, dtype=bf),
-                    torch.zeros(27 * 6, 16, device=cuda_device, dtype=bf), idx)
+    with pytest.raises(ValueError):  # 130 channels: padded to 136, past the widest instance
+        sparse_conv(torch.zeros(10, 130, device=cuda_device, dtype=bf),
+                    torch.zeros(27 * 130, 16, device=cuda_device, dtype=bf), idx)
     with pytest.raises(ValueError):  # wider than the largest instance
         sparse_conv(torch.zeros(10, 256, device=cuda_device, dtype=bf),
                     torch.zeros(27 * 256, 16, device=cuda_device, dtype=bf), idx)
@@ -1057,9 +1057,9 @@ def test_masked_kernels_reject_what_they_cannot_take(cuda_device):
     dev = cuda_device
     mask = torch.ones(10, dtype=torch.bool, device=dev)
     w, b = torch.ones(12, device=dev), torch.zeros(12, device=dev)
-    with pytest.raises(ValueError):  # 12 channels: not a supported width
-        masked_stats(torch.zeros(10, 12, device=dev), mask)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # not [N, C]
+        masked_stats(torch.zeros(10, 2, 4, device=dev), mask)
+    with pytest.raises(ValueError):  # 12 channels: not a width of the fused BatchNorm
         masked_batch_norm(torch.zeros(10, 12, device=dev), mask, w, b, torch.zeros(12, device=dev),
                           torch.ones(12, device=dev), True)
     with pytest.raises(ValueError):  # float16
@@ -1072,3 +1072,182 @@ def test_masked_kernels_reject_what_they_cannot_take(cuda_device):
         masked_stats(torch.zeros(41, device=dev)[1:].view(10, 4), mask)
     with pytest.raises(ValueError):  # not contiguous
         masked_stats(torch.zeros(10, 32, device=dev)[:, ::2], mask)
+
+
+# ---- CenterPoint's widths: K1 at Cin = 5 (zero-padded to 8 by the wrapper)
+# and at 128 -> 128, K2 at C = 5, and a float32 CenterPoint train step
+
+# (Cin, Cout, K) of the CenterPoint encoder's convs that SECOND's do not cover
+CENTERPOINT_CONVS = [(5, 16, 27), (64, 128, 27), (128, 128, 27), (128, 128, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("cin,cout,k", CENTERPOINT_CONVS)
+def test_sparse_conv_centerpoint_widths(cuda_device, dtype, cin, cout, k):
+    """Forward, dgrad (d_feats of Cin columns: 5 for conv_input) and wgrad
+    against the plain versions, each one counted launch, the float32 ones
+    on the 3xTF32 kernels; the bf16 bound is one output rounding, the
+    float32 ones those of the SECOND widths' tests."""
+    g = torch.Generator(device=cuda_device).manual_seed(cin + cout + k)
+    n, m = 3000, 4037
+    feats = torch.randn(n, cin, device=cuda_device, generator=g).to(dtype)
+    kernel = (torch.randn(k * cin, cout, device=cuda_device, generator=g) * 0.2).to(dtype)
+    grad = torch.randn(m, cout, device=cuda_device, generator=g).to(dtype)
+    idx = _tc_index(cuda_device, g, n, m, k)
+    bwd_idx = _tc_index(cuda_device, g, m, n, k)
+    f32 = int(dtype == torch.float32)
+    fns = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
+    before = [(fn.launches, fn.tf32_launches) for fn in fns]
+    out = sparse_conv(feats, kernel, idx)
+    w_bwd = backward_kernel(kernel, k, k == 27)
+    d = sparse_conv_dgrad(grad, w_bwd, bwd_idx)
+    dw = sparse_conv_wgrad(feats, grad, idx)
+    assert [(fn.launches - a, fn.tf32_launches - b) for fn, (a, b) in zip(fns, before)] == [
+        (1, f32)] * 3
+    tol = 1e-5 if f32 else 1e-2
+    for got, ref in ((out, sparse_conv_ref(feats, kernel, _missing_to_n(idx, n))),
+                     (d, sparse_conv_ref(grad, w_bwd, _missing_to_n(bwd_idx, m)))):
+        assert got.shape == ref.shape and got.dtype == dtype
+        assert (got.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+    ref = sparse_conv_wgrad_ref(feats, grad, _missing_to_n(idx, n))
+    assert dw.shape == (k * cin, cout) and dw.dtype == torch.float32
+    assert (dw - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(dw, sparse_conv_wgrad(feats, grad, idx))
+    assert out[64:128].abs().max().item() == 0.0  # the tile that misses every tap
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_sparse_conv_function_at_cin5_on_card_matches_cpu(cuda_device, dtype):
+    """conv_input's autograd Function (forward, mirrored dgrad, wgrad) on a
+    real submanifold index, card against CPU."""
+    idx, n = _local_index(cuda_device)
+    g = torch.Generator().manual_seed(21)
+    feats = torch.randn(n, 5, generator=g).to(dtype)
+    weight = torch.randn(27 * 5, 16, generator=g) * 0.2
+    grad = torch.randn(n, 16, generator=g).to(dtype)
+    res = []
+    for dev in (torch.device("cpu"), cuda_device):
+        f = feats.detach().to(dev).requires_grad_(True)
+        w = weight.detach().to(dev).requires_grad_(True)
+        out = sparse_conv_train(f, w, idx.to(dev), idx.to(dev), True)
+        out.backward(grad.to(dev))
+        res.append([t.float().cpu() for t in (out, f.grad, w.grad)])
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for c, k in zip(*res):
+        assert (k - c).abs().max().item() <= tol * c.abs().max().item()
+
+
+@pytest.mark.parametrize("n", [2_400_000, 300001, 1])
+def test_masked_stats_at_c5_pads_exactly(cuda_device, n):
+    """The CenterPoint adversary's statistics of [N, 5] float32 point
+    features and their VJP: one launch each, the plain versions' values,
+    bit-identical repeats (the statistics merge in a fixed order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(n, 5, device=cuda_device, generator=g) * torch.tensor(
+        [20.0, 20.0, 1.0, 0.3, 0.0], device=cuda_device)
+    mask = torch.rand(n, device=cuda_device, generator=g) > 0.3
+    mask[0] = True
+    before = (masked_stats.launches, masked_stats_bwd.launches)
+    mean, var, cnt = masked_stats(x, mask)
+    rm, rv, rc = masked_stats_ref(x, mask)
+    assert mean.shape == var.shape == (5,) and cnt.item() == rc.item()
+    torch.testing.assert_close(mean, rm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(var, rv, rtol=1e-4, atol=1e-4)
+    m2, v2, c2 = masked_stats(x, mask)
+    assert torch.equal(m2, mean) and torch.equal(v2, var) and torch.equal(c2, cnt)
+    gm = torch.randn(5, device=cuda_device, generator=g)
+    gv = torch.randn(5, device=cuda_device, generator=g)
+    dx = masked_stats_bwd(x, mask, mean, cnt, gm, gv)
+    ref = masked_stats_bwd_ref(x, mask, mean, cnt, gm, gv)
+    assert dx.shape == (n, 5) and (dx - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.equal(dx, masked_stats_bwd(x, mask, mean, cnt, gm, gv))
+    assert (masked_stats.launches - before[0], masked_stats_bwd.launches - before[1]) == (2, 2)
+
+
+def _centerpoint_small_f32(dev, monkeypatch):
+    import numpy as np
+
+    import robustpointclouds_tpu_torch.nn.perturber as perturber
+    from robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial import tiny_centerpoint_cfg
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.models.centerpoint import CenterPointConfig
+    from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer
+
+    monkeypatch.setattr(perturber, "PERT_BF16", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, n_pts = tiny_centerpoint_cfg(CenterPointConfig(compute_dtype="float32"))
+    b, vel = synthetic_nuscenes_batch(np.random.RandomState(3), batch_size=2, num_points=n_pts,
+                                      max_gt=cfg.head.max_objs, num_objects=6,
+                                      point_range=cfg.voxelizer.point_cloud_range)
+    return CenterPointTrainer(cfg, device=dev), b, vel
+
+
+def _bn2d_outputs_and_flips(model, flips=None):
+    """Hooks on the dense body's BatchNorms (each followed by a ReLU): record
+    their outputs and, for the units in `flips`, negate the value (the
+    gradient passing as before) so that those ReLU gates take the other side."""
+    from robustpointclouds_tpu_torch.nn.second import BatchNorm2d
+
+    seen, hooks = {}, []
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm2d):
+            def hook(m, inp, out, name=name):
+                seen[name] = out.detach().cpu()
+                if flips and name in flips:
+                    f = flips[name].to(out.device)
+                    return out + torch.where(f, -2 * out, 0 * out).detach()
+            hooks.append(mod.register_forward_hook(hook))
+    return seen, hooks
+
+
+@pytest.mark.parametrize("epoch", [5, 0])
+def test_centerpoint_train_step_on_card_matches_cpu(cuda_device, monkeypatch, epoch):
+    """The tiny_centerpoint_cfg float32 train step (epoch 5: the adversary
+    on), card against CPU from the same weights and plan, at the small-grid
+    bound of the SECOND step. A ReLU input that the two sides round to
+    opposite signs must lie within BN_OUT_RTOL of its BatchNorm's scale, and
+    is then aligned (the CPU's gate set to the card's), as the PGD-AT test
+    does; the step's launches are the module structure's."""
+    cpu_tr, b, vel = _centerpoint_small_f32(torch.device("cpu"), monkeypatch)
+    card_tr, _, _ = _centerpoint_small_f32(cuda_device, monkeypatch)
+    cpu_tr.init_state(0)
+    sd = {n: v.cpu() for n, v in cpu_tr.model.state_dict().items()}
+    card_tr.init_state(0, state_dict=sd)
+    plan = cpu_tr.make_plan_builder()(b.points, b.points_mask, b.gt_boxes, b.gt_labels,
+                                      b.gt_mask, vel)
+    from robustpointclouds_tpu_torch.models.voxelnet import plan_to_device
+
+    def grads(tr, flips=None):
+        tr.init_state(0, state_dict=sd)
+        seen, hooks = _bn2d_outputs_and_flips(tr.model, flips)
+        try:
+            g, logs, is_nan = tr._grads(None, float(epoch), plan_to_device(plan, tr.device))
+        finally:
+            for h in hooks:
+                h.remove()
+        assert not bool(is_nan)
+        return {n: v.cpu() for n, v in g.items()}, seen
+
+    counters = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad, masked_stats, masked_stats_bwd,
+                masked_batch_norm, masked_batch_norm_bwd)
+    before = [fn.launches for fn in counters]
+    gg, card_bn = grads(card_tr)
+    torch.cuda.synchronize()
+    launched = [fn.launches - n for fn, n in zip(counters, before)]
+    # 21 sparse convs (forward, dgrad, wgrad: the input needs its gradient, the
+    # adversary being in the graph, gated, at every epoch); the adversary's
+    # statistics: 2 (std, regulariser), no VJP (the regulariser's per-dim
+    # statistics feed the bias and imbalance terms, which CenterPoint's
+    # objective leaves out); BNs: 21 encoder + 5 adversary
+    assert launched == [21, 21, 21, 2, 0, 26, 26], launched
+    gc, cpu_bn = grads(cpu_tr)
+    flips = {}
+    for k, card in card_bn.items():
+        differ = (card > 0) != (cpu_bn[k] > 0)
+        if differ.any():
+            assert card[differ].abs().max().item() <= BN_OUT_RTOL * card.abs().max().item(), k
+            flips[k] = differ
+    if flips:
+        gc, _ = grads(cpu_tr, flips)
+    _assert_grads_close(gc, gg)

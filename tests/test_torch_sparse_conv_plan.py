@@ -3,9 +3,11 @@
 `gather_gemm_plan` and `wgrad_plan` (kernels/sparse_conv.py) are plain
 Python: the CUDA entry points recompute the shared-memory size from the same
 layout and refuse a plan that disagrees. So every launch of the full-width
-SECOND encoder -- forward, dgrad and wgrad of each of its 12 convs -- is held
-here to the card's limits (227 KB of shared memory a block, 16-byte rows for
-cp.async and ldmatrix) before it ever reaches the card.
+SECOND encoder -- forward, dgrad and wgrad of each of its 12 convs -- and of
+the full-width CenterPoint encoder (its 21 convs, conv_input's 5 point
+features at the 8 columns the wrapper pads them to, the 128 -> 128 convs)
+is held here to the card's limits (227 KB of shared memory a block, 16-byte
+rows for cp.async and ldmatrix) before it ever reaches the card.
 """
 import os
 import re
@@ -18,29 +20,49 @@ from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d, SparseEn
 
 TC_SOURCE = os.path.join(os.path.dirname(sc.__file__), os.pardir, "csrc", "sparse_conv_tc.cu")
 # rows of each level of a B=6 request: the 96000 voxel slots of level 0
-# and smaller levels, some not a multiple of any tile or chunk
-ROW_COUNTS = (96000, 50001, 4037, 1)
+# and smaller levels, some not a multiple of any tile or chunk; and the
+# 240000 slots of a B=4 CenterPoint batch
+ROW_COUNTS = (240000, 96000, 50001, 4037, 1)
 
 
-def _encoder_convs():
-    cfg = VoxelNetConfig()
-    enc = SparseEncoder(cfg.voxelizer.sparse_shape)
+def _encoder_convs(enc, prefix=""):
+    """(name, Cin, Cout, K) of every sparse conv, at the widths the kernel
+    wrappers launch them (a width not a multiple of 4 zero-padded: 5 -> 8)."""
     convs = []
     for name, mod in enc.named_modules():
         if isinstance(mod, SparseConv3d):
             cout, kz, ky, kx, cin = mod.weight.shape
-            convs.append((name, cin, cout, kz * ky * kx))
+            convs.append((prefix + name, sc._narrow_pad(cin), sc._narrow_pad(cout), kz * ky * kx))
     return convs
 
 
-CONVS = _encoder_convs()
+def _centerpoint_encoder():
+    from robustpointclouds_tpu_torch.models.centerpoint import CenterPointConfig
+
+    cfg = CenterPointConfig()
+    return SparseEncoder(cfg.voxelizer.sparse_shape, in_channels=cfg.num_point_features,
+                         encoder_channels=cfg.encoder_channels, block_type="basicblock")
+
+
+SECOND_CONVS = _encoder_convs(SparseEncoder(VoxelNetConfig().voxelizer.sparse_shape))
+CP_CONVS = _encoder_convs(_centerpoint_encoder(), "centerpoint.")
+CONVS = SECOND_CONVS + CP_CONVS
 
 
 def test_the_encoder_has_twelve_convs_of_the_expected_widths():
-    assert len(CONVS) == 12
-    assert sorted({(cin, cout, k) for _, cin, cout, k in CONVS}) == [
+    assert len(SECOND_CONVS) == 12
+    assert sorted({(cin, cout, k) for _, cin, cout, k in SECOND_CONVS}) == [
         (4, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27), (64, 64, 27),
         (64, 128, 3)]
+
+
+def test_the_centerpoint_encoder_has_21_convs_of_the_expected_widths():
+    # conv_input + 8 basic blocks x 2 + 3 downs + conv_out; Cin 5 launches as 8
+    assert len(CP_CONVS) == 21
+    assert sorted({(cin, cout, k) for _, cin, cout, k in CP_CONVS}) == [
+        (8, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27), (64, 64, 27),
+        (64, 128, 27), (128, 128, 3), (128, 128, 27)]
+    assert sc._narrow_pad(5) == 8 and sc._narrow_pad(4) == 4 and sc._narrow_pad(128) == 128
 
 
 def _check_gemm_plan(plan, cin, cout, k):

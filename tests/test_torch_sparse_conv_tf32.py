@@ -24,12 +24,13 @@ from robustpointclouds_tpu_torch.kernels import sparse_conv as sc
 from robustpointclouds_tpu_torch.ops import sparse as tsparse
 
 from test_torch_sparse_conv import DOWN, OUT, SUBM, _grid
-from test_torch_sparse_conv_plan import CONVS, ROW_COUNTS
+from test_torch_sparse_conv_plan import CONVS, ROW_COUNTS, SECOND_CONVS
 
 TF32_SOURCE = os.path.join(os.path.dirname(sc.__file__), os.pardir, "csrc",
                            "sparse_conv_tf32.cu")
-# the widths of the encoder's convs: (Cin, Cout, K)
-WIDTHS = sorted({(cin, cout, k) for _, cin, cout, k in CONVS})
+# the widths of the SECOND encoder's convs: (Cin, Cout, K); CenterPoint's
+# wider ones are held in tests/test_torch_centerpoint_ops.py
+WIDTHS = sorted({(cin, cout, k) for _, cin, cout, k in SECOND_CONVS})
 
 
 def _check_gemm_plan(plan, cin, cout, k):
