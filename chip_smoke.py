@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training and CenterPoint paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint and PointPillars paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -113,7 +113,26 @@ Phases (any failure exits non-zero and prints no result):
      (clean and adversarial on synthetic frames, clean on
      tests/fixtures/nuscenes_mini's multi-sweep frames) and
      evaluate_adversarial_checkpoint, each batch's plan, device and metric
-     ms printed and the launches per batch checked.
+     ms printed and the launches per batch checked;
+  9. PointPillars at full width (PointPillarsConfig: 0.16 m pillars, grid
+     432 x 496, 16000 pillars x 32 points, BEV 248 x 216, 321408 anchors,
+     B=6 synthetic frames of 20000 points, bf16, adversary (64, 128, 64),
+     random weights): (a) K2 on the inputs of one train step at the
+     3072000 point slots, each against its plain version (the PFN's fused
+     BN at [3072000, 64] bf16 and the adversary's at [3072000, 64 / 128]
+     bf16, forward and backward; the statistics and their VJP at
+     [3072000, 4] float32), L2-cold, with device times; (d) PP_TRAIN_STEPS
+     train steps at epoch 3 fed by with_plans through PillarPlanBuilder,
+     every step's launches checked (PP_TRAIN_LAUNCHES), the native-plan
+     and assignment ms a build, frames/s and peak memory; (f) run_evaluation
+     clean, learned and PGD-10 on two B=6 batches from (d)'s state, launches
+     per batch checked; (b) 3 clean and 3 attack B=6 requests through
+     export_serving on the native pillar plan; (c) a small-grid float32
+     forward and its decode + rotated NMS card vs CPU; (e) the generic
+     entry point cli/train.main on the pillar config file with --validate
+     --steps-per-epoch 2 on phase 7's KITTI layout (a checkpoint and a
+     validation result). No path of (b), (d) and (f) may reach a plain
+     version of K2 (PlainVersionCalls) or a float32 sparse-conv kernel.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -194,6 +213,7 @@ PGD_STEPS = 10  # evaluate_kitti_adversarial_attack's default
 KITTI_TRAIN_FRAMES, KITTI_VAL_FRAMES = 24, 6
 KITTI_POINTS, KITTI_BOXES, KITTI_OBJECT_POINTS = 120000, 8, 900
 LOADER_BATCHES = 6  # batches of the training loader timed alone
+KITTI_ROOT = os.path.join(REPO, "work_dirs", "chip_smoke_kitti")
 PGD_TRAIN_STEPS = 2  # runs (d): pgd_adversary.steps
 # runs (d)/(e): PGD-AT and plain steps in turns (plain, PGD-AT, PGD-AT,
 # plain), KITTI_TURN_STEPS each; a run's first step (the attack's build,
@@ -425,53 +445,61 @@ def make_prev(torch):
 
 
 def check_masked_stats(torch, shapes, seed, prev):
-    from robustpointclouds_tpu_torch.kernels.masked_stats import (
-        _stats, masked_stats, masked_stats_ref)
-    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
-
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for n, c, dtype in shapes:
         x = (torch.randn(n, c, device="cuda", generator=g) * 3 + 1).to(dtype)
         mask = torch.rand(n, device="cuda", generator=g) > 0.75  # ~ the padded-slot fill
-        mean, var, cnt = masked_stats(x, mask)
-        rmean, rvar, rcnt = masked_stats_ref(x, mask)
-        torch.cuda.synchronize()
-        err = max((mean - rmean).abs().max().item(), (var - rvar).abs().max().item())
-        scale = max(rvar.abs().max().item(), rmean.abs().max().item(), 1e-6)
-        if not (err <= MASKED_STATS_RTOL * scale) or cnt.item() != rcnt.item():
-            raise RuntimeError(f"masked_stats [{n},{c}]: max error {err} over {scale}, "
-                               f"count {cnt.item()} vs {rcnt.item()}")
-        again = masked_stats(x, mask)
-        if not all(torch.equal(a, b) for a, b in zip(again, (mean, var, cnt))):
-            raise RuntimeError(f"masked_stats [{n},{c}]: a repeat call is not bit-identical")
-        # inputs in turn over copies that exceed L2. ms: the public call as
-        # serving makes it (no gradient: the launch itself), timed in turns
-        # with the Triton pair (prev_ms); raw_ms: that launch (_stats)
-        # alone; autograd_ms: the public call on an input that needs a
-        # gradient (the autograd Function); device_ms: the kernels' device time
-        sets = l2_cold(torch, (x, mask))
-        if prev is None:  # the Triton yardstick takes power-of-two widths only
-            t, t_prev = cuda_ms(in_turn(masked_stats, sets)), None
-        else:
-            t, t_prev = abba_ms(in_turn(masked_stats, sets), in_turn(prev, sets))
-        t_raw = cuda_ms(in_turn(_stats, sets))
-        xg = x.detach().requires_grad_(True)
-        t_fn = cuda_ms(lambda: masked_stats(xg, mask))
-        split = {}
-        t_dev = device_ms(in_turn(_stats, sets), 20, kernels={"stats_kernel": 1}, by_kernel=split)
-        t_prev_dev = None if prev is None else device_ms(in_turn(prev, sets), 20)
-        t_plain = cuda_ms(in_turn(masked_stats_ref, sets), iters=5)
-        t_lib = cuda_ms(in_turn(lambda a, m: torch.var_mean(a[m].float(), dim=0, unbiased=False),
-                                sets), iters=5)
-        # the bytes this data needs: the mask, x on the rows it keeps, the outputs
-        nbytes = int(rcnt.item()) * c * x.element_size() + n + (2 * c + 1) * 4
-        b_ms, by = bound_ms(nbytes, 5.0 * n * c, "f32")
-        rows.append(dict(n=n, c=c, dtype=str(dtype).replace("torch.", ""), ms=t, prev_ms=t_prev,
-                         raw_ms=t_raw, autograd_ms=t_fn, device_ms=t_dev,
-                         prev_device_ms=t_prev_dev, plain_ms=t_plain, library_ms=t_lib,
-                         bound_ms=b_ms, bound_by=by, max_abs_err=err, device_kernels=split))
+        rows.append(stats_case(torch, x, mask, prev))
     return rows
+
+
+def stats_case(torch, x, mask, prev):
+    """K2's statistics on (x, mask) against the plain version: the checks,
+    the times (L2-cold inputs), the bound and var_mean of x[mask]."""
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        _stats, masked_stats, masked_stats_ref)
+    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
+
+    n, c = x.shape
+    dtype = x.dtype
+    mean, var, cnt = masked_stats(x, mask)
+    rmean, rvar, rcnt = masked_stats_ref(x, mask)
+    torch.cuda.synchronize()
+    err = max((mean - rmean).abs().max().item(), (var - rvar).abs().max().item())
+    scale = max(rvar.abs().max().item(), rmean.abs().max().item(), 1e-6)
+    if not (err <= MASKED_STATS_RTOL * scale) or cnt.item() != rcnt.item():
+        raise RuntimeError(f"masked_stats [{n},{c}]: max error {err} over {scale}, "
+                           f"count {cnt.item()} vs {rcnt.item()}")
+    again = masked_stats(x, mask)
+    if not all(torch.equal(a, b) for a, b in zip(again, (mean, var, cnt))):
+        raise RuntimeError(f"masked_stats [{n},{c}]: a repeat call is not bit-identical")
+    # inputs in turn over copies that exceed L2. ms: the public call as
+    # serving makes it (no gradient: the launch itself), timed in turns
+    # with the Triton pair (prev_ms); raw_ms: that launch (_stats)
+    # alone; autograd_ms: the public call on an input that needs a
+    # gradient (the autograd Function); device_ms: the kernels' device time
+    sets = l2_cold(torch, (x, mask))
+    if prev is None:  # the Triton yardstick takes power-of-two widths only
+        t, t_prev = cuda_ms(in_turn(masked_stats, sets)), None
+    else:
+        t, t_prev = abba_ms(in_turn(masked_stats, sets), in_turn(prev, sets))
+    t_raw = cuda_ms(in_turn(_stats, sets))
+    xg = x.detach().requires_grad_(True)
+    t_fn = cuda_ms(lambda: masked_stats(xg, mask))
+    split = {}
+    t_dev = device_ms(in_turn(_stats, sets), 20, kernels={"stats_kernel": 1}, by_kernel=split)
+    t_prev_dev = None if prev is None else device_ms(in_turn(prev, sets), 20)
+    t_plain = cuda_ms(in_turn(masked_stats_ref, sets), iters=5)
+    t_lib = cuda_ms(in_turn(lambda a, m: torch.var_mean(a[m].float(), dim=0, unbiased=False),
+                            sets), iters=5)
+    # the bytes this data needs: the mask, x on the rows it keeps, the outputs
+    nbytes = int(rcnt.item()) * c * x.element_size() + n + (2 * c + 1) * 4
+    b_ms, by = bound_ms(nbytes, 5.0 * n * c, "f32")
+    return dict(n=n, c=c, dtype=str(dtype).replace("torch.", ""), ms=t, prev_ms=t_prev,
+                raw_ms=t_raw, autograd_ms=t_fn, device_ms=t_dev,
+                prev_device_ms=t_prev_dev, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=b_ms, bound_by=by, max_abs_err=err, device_kernels=split)
 
 
 def check_sparse_conv_bwd(captured, torch, f32: bool = False, with_prev: bool = True):
@@ -543,10 +571,6 @@ def check_sparse_conv_bwd(captured, torch, f32: bool = False, with_prev: bool = 
 
 def check_masked_stats_bwd(torch, shapes, seed, prev_bwd):
     """K2's VJP against its plain version; no single PyTorch call computes it."""
-    from robustpointclouds_tpu_torch.kernels.masked_stats import (
-        masked_stats, masked_stats_bwd, masked_stats_bwd_ref)
-    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
-
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for n, c, dtype in shapes:
@@ -554,36 +578,48 @@ def check_masked_stats_bwd(torch, shapes, seed, prev_bwd):
         mask = torch.rand(n, device="cuda", generator=g) > 0.75
         gm = torch.randn(c, device="cuda", generator=g)
         gv = torch.randn(c, device="cuda", generator=g)
-        mean, _, cnt = masked_stats(x, mask)
-        dx = masked_stats_bwd(x, mask, mean, cnt, gm, gv)
-        ref = masked_stats_bwd_ref(x, mask, mean, cnt, gm, gv)
-        torch.cuda.synchronize()
-        err = (dx.float() - ref.float()).abs().max().item()
-        scale = max(ref.float().abs().max().item(), 1e-6)
-        dname = str(dtype).replace("torch.", "")
-        if not err <= STATS_BWD_RTOL[dname] * scale:
-            raise RuntimeError(f"masked_stats_bwd [{n},{c}] {dname}: max error {err} over {scale}")
-        if not torch.equal(dx, masked_stats_bwd(x, mask, mean, cnt, gm, gv)):
-            raise RuntimeError(f"masked_stats_bwd [{n},{c}]: a repeat call is not bit-identical")
-        sets = l2_cold(torch, (x, mask))
-        new = in_turn(lambda a, m: masked_stats_bwd(a, m, mean, cnt, gm, gv), sets)
-        if prev_bwd is None:  # the Triton yardstick takes power-of-two widths only
-            t, t_prev, t_prev_dev = cuda_ms(new), None, None
-        else:
-            old = in_turn(lambda a, m: prev_bwd(a, m, mean, cnt, gm, gv), sets)
-            t, t_prev = abba_ms(new, old)
-            t_prev_dev = device_ms(old, 20)
-        t_dev = device_ms(new, 20, kernels={"vjp_kernel": 1})
-        t_plain = cuda_ms(in_turn(lambda a, m: masked_stats_bwd_ref(a, m, mean, cnt, gm, gv),
-                                  sets), iters=5)
-        # the mask and x on the rows it keeps read once (dx is 0 elsewhere
-        # whatever x holds), dx written once
-        nbytes = (int(cnt.item()) + n) * c * x.element_size() + n + (3 * c + 1) * 4
-        b_ms, by = bound_ms(nbytes, 5.0 * n * c, "f32")
-        rows.append(dict(n=n, c=c, dtype=dname, ms=t, prev_ms=t_prev, device_ms=t_dev,
-                         prev_device_ms=t_prev_dev, plain_ms=t_plain, library_ms=None,
-                         bound_ms=b_ms, bound_by=by, max_abs_err=err))
+        rows.append(stats_bwd_case(torch, x, mask, gm, gv, prev_bwd))
     return rows
+
+
+def stats_bwd_case(torch, x, mask, gm, gv, prev_bwd):
+    """K2's VJP at (x, mask) for the cotangents (gm, gv) against its plain
+    version: the checks, the times (L2-cold inputs) and the bound."""
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        masked_stats, masked_stats_bwd, masked_stats_bwd_ref)
+    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
+
+    n, c = x.shape
+    dtype = x.dtype
+    mean, _, cnt = masked_stats(x, mask)
+    dx = masked_stats_bwd(x, mask, mean, cnt, gm, gv)
+    ref = masked_stats_bwd_ref(x, mask, mean, cnt, gm, gv)
+    torch.cuda.synchronize()
+    err = (dx.float() - ref.float()).abs().max().item()
+    scale = max(ref.float().abs().max().item(), 1e-6)
+    dname = str(dtype).replace("torch.", "")
+    if not err <= STATS_BWD_RTOL[dname] * scale:
+        raise RuntimeError(f"masked_stats_bwd [{n},{c}] {dname}: max error {err} over {scale}")
+    if not torch.equal(dx, masked_stats_bwd(x, mask, mean, cnt, gm, gv)):
+        raise RuntimeError(f"masked_stats_bwd [{n},{c}]: a repeat call is not bit-identical")
+    sets = l2_cold(torch, (x, mask))
+    new = in_turn(lambda a, m: masked_stats_bwd(a, m, mean, cnt, gm, gv), sets)
+    if prev_bwd is None:  # the Triton yardstick takes power-of-two widths only
+        t, t_prev, t_prev_dev = cuda_ms(new), None, None
+    else:
+        old = in_turn(lambda a, m: prev_bwd(a, m, mean, cnt, gm, gv), sets)
+        t, t_prev = abba_ms(new, old)
+        t_prev_dev = device_ms(old, 20)
+    t_dev = device_ms(new, 20, kernels={"vjp_kernel": 1})
+    t_plain = cuda_ms(in_turn(lambda a, m: masked_stats_bwd_ref(a, m, mean, cnt, gm, gv),
+                              sets), iters=5)
+    # the mask and x on the rows it keeps read once (dx is 0 elsewhere
+    # whatever x holds), dx written once
+    nbytes = (int(cnt.item()) + n) * c * x.element_size() + n + (3 * c + 1) * 4
+    b_ms, by = bound_ms(nbytes, 5.0 * n * c, "f32")
+    return dict(n=n, c=c, dtype=dname, ms=t, prev_ms=t_prev, device_ms=t_dev,
+                prev_device_ms=t_prev_dev, plain_ms=t_plain, library_ms=None,
+                bound_ms=b_ms, bound_by=by, max_abs_err=err)
 
 
 # every MaskedBatchNorm of one full-width train step, (name, N, C, count):
@@ -605,18 +641,12 @@ def check_masked_batch_norm(torch, seed, prev_bn):
     the bytes this data needs (each input read once, each output written
     once) and the two-pass one (the forward reads x twice, the backward x and
     g twice)."""
-    from robustpointclouds_tpu_torch.kernels.masked_stats import (
-        _bn_forward, _bn_ref, masked_batch_norm, masked_batch_norm_bwd,
-        masked_batch_norm_bwd_ref)
-    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
-
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = torch.bfloat16
     cases = [(name, n, c, count, True) for name, n, c, count in BN_TRAIN_SHAPES]
     cases.append(("perturber eval", 480000, 128, 0, False))
     rows = []
     for name, n, c, count, train in cases:
-        relu, row_mask = True, name == "encoder"
         x = (torch.randn(n, c, device="cuda", generator=gen) * 3 + 1).to(dt)
         mask = torch.rand(n, device="cuda", generator=gen) > 0.75
         w = 0.5 + torch.rand(c, device="cuda", generator=gen)
@@ -624,97 +654,137 @@ def check_masked_batch_norm(torch, seed, prev_bn):
         rm = torch.randn(c, device="cuda", generator=gen)
         rv = 0.5 + torch.rand(c, device="cuda", generator=gen)
         gout = torch.randn(n, c, device="cuda", generator=gen).to(dt)
-        flags = (train, 0.1, 1e-3, relu, row_mask, dt)
-        y, mean, var, cnt = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)
-        ref = _bn_ref(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
-        err = (y.float() - ref.float()).abs().max().item()
-        if not err <= BN_RTOL * ref.float().abs().max().item():
-            raise RuntimeError(f"masked_batch_norm {name} [{n},{c}]: max error {err}")
-        grads = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
-                                      row_mask, need_params=train)
-        refs = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
-                                         row_mask)
-        bwd_err = 0.0
-        for got, r, tol in zip(grads, refs, (BN_RTOL, BN_PARAM_GRAD_RTOL, BN_PARAM_GRAD_RTOL)):
-            if got is None:
-                continue
-            e = (got.float() - r.float()).abs().max().item()
-            if not e <= tol * max(r.float().abs().max().item(), 1e-6):
-                raise RuntimeError(f"masked_batch_norm_bwd {name} [{n},{c}]: max error {e}")
-            bwd_err = max(bwd_err, e)
-        y2 = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
-        again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
-                                      row_mask, need_params=train)
-        if not (torch.equal(y, y2) and all(p is None or torch.equal(p, q)
-                                           for p, q in zip(grads, again))):
-            raise RuntimeError(f"masked_batch_norm {name} [{n},{c}]: a repeat is not bit-identical")
+        rows += bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, True,
+                        name == "encoder", prev_bn)
+    return rows
 
-        sets = l2_cold(torch, (x, mask, gout, rm.clone(), rv.clone()))
-        new_f = in_turn(lambda a, m, _g, r1, r2: masked_batch_norm(
-            a, m, w, b, r1, r2, train, relu=relu, row_mask=row_mask, out_dtype=dt), sets)
+
+def bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, relu, row_mask, prev_bn,
+            momentum=0.1):
+    """The fused MaskedBatchNorm forward and backward on these inputs (y in
+    x's type) against the plain versions, bit-identical on a repeat call,
+    timed (L2-cold inputs) beside `prev_bn` when given: the forward row and
+    the backward row."""
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        _bn_forward, _bn_ref, masked_batch_norm, masked_batch_norm_bwd,
+        masked_batch_norm_bwd_ref)
+    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
+
+    n, c = x.shape
+    dt = x.dtype
+    rows = []
+    flags = (train, momentum, 1e-3, relu, row_mask, dt)
+    y, mean, var, cnt = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)
+    ref = _bn_ref(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
+    err = (y.float() - ref.float()).abs().max().item()
+    if not err <= BN_RTOL * ref.float().abs().max().item():
+        raise RuntimeError(f"masked_batch_norm {name} [{n},{c}]: max error {err}")
+    grads = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                  row_mask, need_params=train)
+    refs = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                     row_mask)
+    bwd_err = 0.0
+    for got, r, tol in zip(grads, refs, (BN_RTOL, BN_PARAM_GRAD_RTOL, BN_PARAM_GRAD_RTOL)):
+        if got is None:
+            continue
+        e = (got.float() - r.float()).abs().max().item()
+        if not e <= tol * max(r.float().abs().max().item(), 1e-6):
+            raise RuntimeError(f"masked_batch_norm_bwd {name} [{n},{c}]: max error {e}")
+        bwd_err = max(bwd_err, e)
+    y2 = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
+    again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                  row_mask, need_params=train)
+    if not (torch.equal(y, y2) and all(p is None or torch.equal(p, q)
+                                       for p, q in zip(grads, again))):
+        raise RuntimeError(f"masked_batch_norm {name} [{n},{c}]: a repeat is not bit-identical")
+
+    sets = l2_cold(torch, (x, mask, gout, rm.clone(), rv.clone()))
+    new_f = in_turn(lambda a, m, _g, r1, r2: masked_batch_norm(
+        a, m, w, b, r1, r2, train, momentum, relu=relu, row_mask=row_mask, out_dtype=dt),
+        sets)
+    if prev_bn is None:
+        t, t_prev, t_prev_dev = cuda_ms(new_f), None, None
+    else:
         old_f = in_turn(lambda a, m, _g, r1, r2: prev_bn(a, m, w, b, r1, r2, train, relu,
                                                          row_mask, dt), sets)
         t, t_prev = abba_ms(new_f, old_f)
-        split_f, split_b = {}, {}
-        fwd_kernels = {"stats_kernel": 1, "apply_kernel": 1} if train else {"apply_kernel": 1}
-        t_dev = device_ms(new_f, 20, kernels=fwd_kernels, by_kernel=split_f)
         t_prev_dev = device_ms(old_f, 20)
-        t_plain = cuda_ms(in_turn(lambda a, m, _g, r1, r2: _bn_ref(a, m, w, b, r1, r2, *flags)[0],
-                                  sets), iters=5)
-        # the backward, through autograd (new and prev) and the wrapper alone
-        wg, bg = w.clone().requires_grad_(train), b.clone().requires_grad_(train)
-        graphs_new, graphs_old, wrapped = [], [], []
-        for a, m, gg, r1, r2 in sets:
-            xg = a.detach().requires_grad_(True)
-            leaves = (xg, wg, bg) if train else (xg,)
-            yn = masked_batch_norm(xg, m, wg, bg, r1, r2, train, relu=relu, row_mask=row_mask,
-                                   out_dtype=dt)
+    split_f, split_b = {}, {}
+    fwd_kernels = {"stats_kernel": 1, "apply_kernel": 1} if train else {"apply_kernel": 1}
+    t_dev = device_ms(new_f, 20, kernels=fwd_kernels, by_kernel=split_f)
+    t_plain = cuda_ms(in_turn(lambda a, m, _g, r1, r2: _bn_ref(a, m, w, b, r1, r2, *flags)[0],
+                              sets), iters=5)
+    # the backward, through autograd (new and prev) and the wrapper alone
+    wg, bg = w.clone().requires_grad_(train), b.clone().requires_grad_(train)
+    graphs_new, graphs_old, wrapped = [], [], []
+    for a, m, gg, r1, r2 in sets:
+        xg = a.detach().requires_grad_(True)
+        leaves = (xg, wg, bg) if train else (xg,)
+        yn = masked_batch_norm(xg, m, wg, bg, r1, r2, train, momentum, relu=relu,
+                               row_mask=row_mask, out_dtype=dt)
+        graphs_new.append((yn, leaves, gg))
+        if prev_bn is not None:
             yo = prev_bn(xg, m, wg, bg, r1, r2, train, relu, row_mask, dt)
-            graphs_new.append((yn, leaves, gg))
             graphs_old.append((yo, leaves, gg))
-            _, mn, vr, cn = _bn_forward(a, m, w, b, r1.clone(), r2.clone(), *flags)
-            wrapped.append((gg, a, m, mn, vr, cn))
+        _, mn, vr, cn = _bn_forward(a, m, w, b, r1.clone(), r2.clone(), *flags)
+        wrapped.append((gg, a, m, mn, vr, cn))
 
-        def backward(yy, leaves, gg):
-            return torch.autograd.grad(yy, leaves, gg, retain_graph=True)
-        bnew, bold = in_turn(backward, graphs_new), in_turn(backward, graphs_old)
+    def backward(yy, leaves, gg):
+        return torch.autograd.grad(yy, leaves, gg, retain_graph=True)
+    bnew = in_turn(backward, graphs_new)
+    if prev_bn is None:
+        tb_fn, tb_prev = cuda_ms(bnew), None
+    else:
+        bold = in_turn(backward, graphs_old)
         tb_fn, tb_prev = abba_ms(bnew, bold)
-        wrap = in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd(
-            gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask, need_params=train), wrapped)
-        tb = cuda_ms(wrap)
-        bwd_kernels = {"bwd_reduce_kernel": 1, "dx_kernel": 1} if train else {"dx_kernel": 1}
-        tb_dev = device_ms(wrap, 20, kernels=bwd_kernels, by_kernel=split_b)
-        tb_prev_dev = device_ms(bold, 20)
-        tb_plain = cuda_ms(in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd_ref(
-            gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask), wrapped), iters=5)
-        del graphs_new, graphs_old, wrapped, sets
+    wrap = in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd(
+        gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask, need_params=train), wrapped)
+    tb = cuda_ms(wrap)
+    bwd_kernels = {"bwd_reduce_kernel": 1, "dx_kernel": 1} if train else {"dx_kernel": 1}
+    tb_dev = device_ms(wrap, 20, kernels=bwd_kernels, by_kernel=split_b)
+    tb_prev_dev = None if prev_bn is None else device_ms(bold, 20)
+    tb_plain = cuda_ms(in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd_ref(
+        gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask), wrapped), iters=5)
+    del graphs_new, graphs_old, wrapped, sets
 
-        # bound_ms counts the bytes this data needs: x (and g) on
-        # every row, or with the row mask only on the rows it keeps (the
-        # statistics read no others), y or dx written once, the mask once;
-        # the two-pass bound reads x (and g) twice in train mode
-        eb, small = x.element_size(), 6 * c * 4
-        passes = 2 if train else 1
-        rows_in = int(mask.sum().item()) if row_mask else n
-        f_one = (rows_in + n) * c * eb + n + small
-        f_two = (passes + 1) * n * c * eb + passes * n + small
-        b_one = (2 * rows_in + n) * c * eb + n + small
-        b_two = (2 * passes + 1) * n * c * eb + passes * n + small
-        fb, fby = bound_ms(f_one, 8.0 * n * c, "f32")
-        bb, bby = bound_ms(b_one, 12.0 * n * c, "f32")
-        common = dict(name=name, n=n, c=c, count=count, train=train, relu=relu,
-                      row_mask=row_mask)
-        rows.append(dict(common, kernel="masked_batch_norm", ms=t, prev_ms=t_prev,
-                         device_ms=t_dev, prev_device_ms=t_prev_dev, plain_ms=t_plain,
-                         library_ms=None, bound_ms=fb, bound_by=fby,
-                         bound_two_pass_ms=f_two / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-                         device_kernels=split_f))
-        rows.append(dict(common, kernel="masked_batch_norm_bwd", ms=tb, autograd_ms=tb_fn,
-                         prev_ms=tb_prev, device_ms=tb_dev, prev_device_ms=tb_prev_dev,
-                         plain_ms=tb_plain, library_ms=None, bound_ms=bb, bound_by=bby,
-                         bound_two_pass_ms=b_two / HBM_BYTES_PER_S * 1e3, max_abs_err=bwd_err,
-                         device_kernels=split_b))
+    # bound_ms counts the bytes this data needs: x (and g) on
+    # every row, or with the row mask only on the rows it keeps (the
+    # statistics read no others), y or dx written once, the mask once;
+    # the two-pass bound reads x (and g) twice in train mode
+    eb, small = x.element_size(), 6 * c * 4
+    passes = 2 if train else 1
+    rows_in = int(mask.sum().item()) if row_mask else n
+    f_one = (rows_in + n) * c * eb + n + small
+    f_two = (passes + 1) * n * c * eb + passes * n + small
+    b_one = (2 * rows_in + n) * c * eb + n + small
+    b_two = (2 * passes + 1) * n * c * eb + passes * n + small
+    fb, fby = bound_ms(f_one, 8.0 * n * c, "f32")
+    bb, bby = bound_ms(b_one, 12.0 * n * c, "f32")
+    common = dict(name=name, n=n, c=c, count=count, train=train, relu=relu,
+                  row_mask=row_mask)
+    rows.append(dict(common, kernel="masked_batch_norm", ms=t, prev_ms=t_prev,
+                     device_ms=t_dev, prev_device_ms=t_prev_dev, plain_ms=t_plain,
+                     library_ms=None, bound_ms=fb, bound_by=fby,
+                     bound_two_pass_ms=f_two / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                     device_kernels=split_f))
+    rows.append(dict(common, kernel="masked_batch_norm_bwd", ms=tb, autograd_ms=tb_fn,
+                     prev_ms=tb_prev, device_ms=tb_dev, prev_device_ms=tb_prev_dev,
+                     plain_ms=tb_plain, library_ms=None, bound_ms=bb, bound_by=bby,
+                     bound_two_pass_ms=b_two / HBM_BYTES_PER_S * 1e3, max_abs_err=bwd_err,
+                     device_kernels=split_b))
     return rows
+
+
+def mean_row(rows):
+    """One row for BNs of one shape, each measured on its own inputs: the
+    mean of their times and bounds (device ms None if any is), the largest
+    error."""
+    out = dict(rows[0])
+    for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_kept_ms"):
+        vals = [r[k] for r in rows]
+        out[k] = None if None in vals else sum(vals) / len(vals)
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return out
 
 
 def write_kitti_layout(root: str, seed: int, point_range, np):
@@ -790,7 +860,7 @@ def run_kitti_training(cfg, dev, card: str, seed: int, read_counts, expect_bf16_
     from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
     from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
 
-    kitti_root = os.path.join(REPO, "work_dirs", "chip_smoke_kitti")
+    kitti_root = KITTI_ROOT
     shutil.rmtree(kitti_root, ignore_errors=True)
     t0 = time.perf_counter()
     train_ids, val_ids = write_kitti_layout(os.path.join(kitti_root, "data"), seed,
@@ -932,7 +1002,6 @@ def run_kitti_training(cfg, dev, card: str, seed: int, read_counts, expect_bf16_
           f"the plain step {plain_ms:.3f} ms (runs {ks['e_plain_1']['median_step_ms']:.3f} / "
           f"{ks['e_plain_2']['median_step_ms']:.3f}), {pgd_ms / plain_ms:.3f}x; "
           f"{2 * (KITTI_TURN_STEPS - 1)} steady steps each, in turns ({card})", flush=True)
-    shutil.rmtree(kitti_root, ignore_errors=True)
 
     return kitti_summary
 
@@ -1383,6 +1452,448 @@ def run_centerpoint(dev, card: str, seed: int, zero_counts, read_counts, read_f3
     print("phase 8 summary " + json.dumps(dict(
         serving=serve_summary, training=train_summary, evaluation=eval_summary,
         small_grid_grad_worst=worst, aligned_gates=aligned)) + f" [{card}]", flush=True)
+    return rows
+
+
+# phase 9: PointPillars at full width (models/pointpillars.PointPillarsConfig:
+# 0.16 m pillars over [0, 69.12] x [-39.68, 39.68], grid 432 x 496 x 1, 16000
+# pillars x 32 points, BEV 248 x 216, 321408 anchors, adversary (64, 128, 64))
+PP_BATCH, PP_POINTS = 6, 20000  # the config's batch_size; the KITTI loader's frames
+# kernel launches of a pillar train step, derived from the code: no sparse
+# conv; the masked statistics under the adversary's std normalisation
+# (forward only) and perturbation_losses (forward and VJP: the bias and
+# imbalance terms take the per-dim statistics); 6 train-mode
+# MaskedBatchNorms (the PFN's and the adversary's 5), each with the fused
+# forward and backward and bwd_reduce (their parameters train)
+PP_TRAIN_LAUNCHES = {"sparse_conv": 0, "sparse_conv_dgrad": 0, "sparse_conv_wgrad": 0,
+                     "masked_stats": 2, "masked_stats_bwd": 1, "masked_batch_norm": 6,
+                     "masked_batch_norm_bwd": 6, "bwd_reduce": 6}
+# MaskedBatchNorms of an eval forward: the PFN's, plus the adversary's 5 under attack
+PP_BN_CLEAN, PP_BN_ATTACK = 1, 6
+PP_TRAIN_STEPS = 6  # timed steps at epoch 3 after one warm-up step
+PP_EVAL_BATCHES = 2
+
+
+def _launches(**per):
+    """A launch-count dict with every wrapper, 0 where `per` does not say."""
+    out = {k: 0 for k in PP_TRAIN_LAUNCHES}
+    out.update(per)
+    return out
+
+
+class PlainVersionCalls:
+    """Counts the calls of K2's plain versions (kernels/masked_stats.py's
+    *_ref), which a wrapper takes only for a tensor on the CPU; the main
+    path on the card must make none."""
+
+    NAMES = ("masked_stats_ref", "masked_stats_bwd_ref", "_bn_ref", "masked_batch_norm_bwd_ref")
+
+    def __enter__(self):
+        import robustpointclouds_tpu_torch.kernels.masked_stats as ms
+
+        self.module, self.calls = ms, 0
+        self.saved = {n: getattr(ms, n) for n in self.NAMES}
+
+        def counted(fn):
+            def call(*a, **kw):
+                self.calls += 1
+                return fn(*a, **kw)
+            return call
+        for n in self.NAMES:
+            setattr(ms, n, counted(self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def run_pointpillars(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_kernels,
+                     data_root: str, work_root: str):
+    """Phase 9: the PointPillars family at full width, bf16 (random weights
+    from the seed, 20000-point synthetic frames in the pillar range):
+    (a) K2 at the pillar shapes on the inputs of one B=6 train step (the
+        PFN's BN at [3072000, 64] bf16, the adversary's 5 BNs at [3072000,
+        64 / 128] bf16, forward and backward; its statistics and their VJP
+        at [3072000, 4] float32), each against its plain version;
+    (b) serving through export_serving: 3 clean and 3 attack B=6 requests
+        on the native pillar plan, launches checked, no plain version;
+    (c) a small-grid float32 forward with decode + rotated NMS, card vs CPU;
+    (d) training at epoch 3 fed by with_plans through PillarPlanBuilder,
+        every step's launches checked;
+    (e) the generic entry point cli/train.main on the config file with
+        --validate --steps-per-epoch 2 on phase 7's KITTI-layout dataset;
+    (f) run_evaluation clean, learned and PGD-10 on two B=6 batches from
+        (d)'s state.
+    Returns the kernels JSON rows; prints a summary line."""
+    import numpy as np
+    import torch
+
+    import robustpointclouds_tpu_torch.nn.perturber as perturber
+    from robustpointclouds_tpu_torch.cli import train as generic_cli
+    from robustpointclouds_tpu_torch.cli.common import (
+        prefetch_iterator, run_evaluation, synthetic_loader, tiny_pointpillars_cfg, with_plans)
+    from robustpointclouds_tpu_torch.cli.export import export_serving
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.models.detection import anchor_head_predict
+    from robustpointclouds_tpu_torch.models.pointpillars import (
+        AdversarialPointPillars, PointPillarsConfig, build_pillar_plan)
+    from robustpointclouds_tpu_torch.models.voxelnet import init_weights, plan_to_device
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+    from robustpointclouds_tpu_torch.nn.perturber import VoxelPerturber
+    from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+    from robustpointclouds_tpu_torch.train.loop import PillarPlanBuilder, TrainConfig, Trainer
+
+    t_phase = time.time()
+    cfg = PointPillarsConfig()
+    pcr = cfg.voxelizer.point_cloud_range
+    vz = cfg.voxelizer
+    n_slots = PP_BATCH * vz.max_voxels * vz.max_points_per_voxel
+    rng = np.random.RandomState(seed + 9)
+
+    def frames():
+        return synthetic_kitti_batch(rng, batch_size=PP_BATCH, num_points=PP_POINTS, max_gt=20,
+                                     num_objects=8, point_range=pcr)
+
+    # the trainer (full width, bf16) and its input pipeline: pillar plans
+    # (native plan + anchor assignment) built in the prefetch thread
+    trainer = Trainer(cfg, TrainConfig(), device=dev)
+    trainer.init_state(seed)
+    structure = sum(isinstance(m, MaskedBatchNorm) for m in trainer.model.modules())
+    if structure != PP_TRAIN_LAUNCHES["masked_batch_norm"] or structure != PP_BN_ATTACK:
+        raise RuntimeError(f"PointPillars: {structure} MaskedBatchNorms, expected "
+                           f"{PP_TRAIN_LAUNCHES['masked_batch_norm']}")
+    builder = trainer.make_plan_builder()
+    if not isinstance(builder, PillarPlanBuilder):
+        raise RuntimeError(f"PointPillars trainer built a {type(builder).__name__}")
+    loader = synthetic_loader(PP_BATCH, 1 + PP_TRAIN_STEPS, num_points=PP_POINTS, seed=seed,
+                              point_range=pcr)
+    train_iter = prefetch_iterator(with_plans(builder, loader(0)))
+
+    # warm-up step at epoch 3, capturing each MaskedBatchNorm's (x, mask) and
+    # output cotangent and the adversary's input rows
+    bn_in, bn_g, adv_in, hooks = {}, {}, {}, []
+
+    def capture_g(out, name):  # a forward hook that returns nothing keeps the output
+        out.register_hook(lambda g: bn_g.__setitem__(name, g.contiguous()))
+
+    for name, mod in trainer.model.named_modules():
+        if isinstance(mod, MaskedBatchNorm):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a, name=name: bn_in.__setitem__(name, (a[0].detach(), a[1]))))
+            hooks.append(mod.register_forward_hook(
+                lambda m, a, out, name=name: capture_g(out, name)))
+        elif isinstance(mod, VoxelPerturber):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a: adv_in.update(x=a[0].detach(), mask=a[1])))
+    batch, tplan = next(train_iter)
+    warm_logs = trainer.train_step(batch, epoch=3, plan=tplan)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    if len(bn_in) != structure or len(bn_g) != structure or adv_in["x"].shape != (n_slots, 4):
+        raise RuntimeError(f"PointPillars warm-up captured {len(bn_in)} BN inputs, {len(bn_g)} "
+                           f"cotangents, adversary rows {tuple(adv_in['x'].shape)}")
+    kept = int(tplan["point_mask"].sum())
+    print(f"phase 9: B={PP_BATCH} train warm-up loss {float(warm_logs['loss']):.4f}, num_pos "
+          f"{float(warm_logs['num_pos']):.0f}; {int(tplan['voxel_mask'].sum())} pillars, {kept} "
+          f"of {n_slots} point slots kept ({kept / n_slots:.4f}) [{card}]", flush=True)
+
+    # (a) K2 at the pillar shapes, on the warm-up step's own inputs
+    t0 = time.time()
+    mods = dict(trainer.model.named_modules())
+    cases = {"pfn": ["voxel_encoder.pfn_layers.0.norm"]}
+    for name in sorted(n for n in bn_in if n.startswith("adversary.")):
+        cases.setdefault(f"perturber {bn_in[name][0].shape[1]}", []).append(name)
+    bn_rows = {}  # label -> [(fwd, bwd)], one pair for each BN of the label
+    for label, names in cases.items():
+        for name in names:
+            mod = mods[name]
+            x, mask = bn_in[name]
+            if x.shape[0] != n_slots or x.dtype != torch.bfloat16:
+                raise RuntimeError(f"PointPillars {name}: x {tuple(x.shape)} {x.dtype}")
+            with torch.no_grad():
+                w, b = mod.weight.detach().clone(), mod.bias.detach().clone()
+                rm, rv = mod.running_mean.clone(), mod.running_var.clone()
+            fwd, bwd = bn_case(torch, name, 1, x.contiguous(), mask.contiguous(), w, b, rm, rv,
+                               bn_g[name], True, True, False, None, momentum=mod.momentum)
+            # the bytes the model needs of this BN: x (and g) read and y (or
+            # dx) written on the kept slots only, the mask once; the function
+            # as called (bound_ms) writes every slot, ~97% of them padding
+            n_kept, small = int(mask.sum().item()), 6 * x.shape[1] * 4 + x.shape[0]
+            row_bytes = x.shape[1] * x.element_size()
+            fwd["bound_kept_ms"] = (2 * n_kept * row_bytes + small) / HBM_BYTES_PER_S * 1e3
+            bwd["bound_kept_ms"] = (3 * n_kept * row_bytes + small) / HBM_BYTES_PER_S * 1e3
+            bn_rows.setdefault(label, []).append((fwd, bwd))
+            for r in (fwd, bwd):
+                print(f"phase 9 {r['kernel']} {label}: {name} [{r['n']}, {r['c']}] bf16: "
+                      + json.dumps(r) + f" [{card}]", flush=True)
+    del bn_in, bn_g
+    ax, am = adv_in["x"].contiguous(), adv_in["mask"].contiguous()
+    stats_row = stats_case(torch, ax, am, None)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vjp_row = stats_bwd_case(torch, ax, am, torch.randn(4, device=dev, generator=g),
+                             torch.randn(4, device=dev, generator=g), None)
+    del adv_in, ax, am
+    for name, r in (("masked_stats", stats_row), ("masked_stats_bwd", vjp_row)):
+        print(f"phase 9 {name} [{n_slots}, 4] float32: " + json.dumps(r) + f" [{card}]",
+              flush=True)
+    step_bn = {}
+    for i, kernel in enumerate(("masked_batch_norm", "masked_batch_norm_bwd")):
+        rows = [pair[i] for pairs in bn_rows.values() for pair in pairs]
+        tot = {k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "bound_kept_ms")}
+        tot["device_ms"] = (None if any(r["device_ms"] is None for r in rows)
+                            else sum(r["device_ms"] for r in rows))
+        tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        step_bn[kernel] = tot
+        print(f"phase 9 {kernel} summed over the {len(rows)} BNs of a train step, each "
+              f"measured on its own inputs: "
+              f"{tot['ms']:.4f} ms (device {_fmt(tot['device_ms'])}), bound {tot['bound_ms']:.4f} "
+              f"(kept slots only {tot['bound_kept_ms']:.4f}), plain {tot['plain_ms']:.4f} "
+              f"[{card}]", flush=True)
+    print(f"phase 9 (a) K2 checks and timing: {time.time() - t0:.1f} s [{card}]", flush=True)
+
+    # (d) training: timed steps at epoch 3 (adversary on), every step's launches checked
+    params = dict(trainer.model.named_parameters())
+    watch = ("voxel_encoder.pfn_layers.0.linear.weight", "backbone.blocks.0.0.weight",
+             "adversary.mlp_0.weight")
+    before = {k: params[k].detach().clone() for k in watch}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    with PlainVersionCalls() as plain:
+        for _ in range(PP_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batch, tplan = next(train_iter)
+            t1 = time.perf_counter()
+            zero_counts()
+            logs = trainer.train_step(batch, epoch=3, plan=tplan)
+            logs = {k: float(v) for k, v in logs.items()}  # waits for the step
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            got = read_counts()
+            if got != PP_TRAIN_LAUNCHES:
+                raise RuntimeError(f"PointPillars train step launches {got}, expected "
+                                   f"{PP_TRAIN_LAUNCHES}")
+            if not all(np.isfinite(v) for v in logs.values()) or logs["num_pos"] <= 0:
+                raise RuntimeError(f"PointPillars train step logs {logs}")
+            steps.append(dict(wait_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+                              loss=logs["loss"], num_pos=logs["num_pos"],
+                              l2=logs["perturbation_l2_norm"]))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    for rest in train_iter:  # drain the prefetch thread
+        pass
+    expect_bf16_kernels("PointPillars training")
+    if plain.calls:
+        raise RuntimeError(f"PointPillars training reached a plain version {plain.calls} times")
+    if int(trainer.state.nan_count) != 0 or not all(st["l2"] > 0 for st in steps):
+        raise RuntimeError("PointPillars training: NaN steps or no perturbation at epoch 3")
+    for k in watch:
+        if torch.equal(before[k], params[k].detach()):
+            raise RuntimeError(f"PointPillars training: {k} did not move")
+    for st in steps:
+        print("phase 9 train step " + json.dumps(st) + f" [{card}]", flush=True)
+    builds = list(builder.timings)
+    for key in ("native_ms", "assign_ms", "plan_ms"):
+        print(f"phase 9 plan build {key} ({len(builds)} builds): "
+              f"{json.dumps([round(b[key], 3) for b in builds])} [{card}]", flush=True)
+    steady = steps[PREFETCHED_STEPS:]
+    train_summary = dict(
+        median_step_ms=statistics.median(st["step_ms"] for st in steps),
+        steady_frames_per_s=PP_BATCH * len(steady) / sum(
+            (st["wait_ms"] + st["step_ms"]) / 1e3 for st in steady),
+        native_ms=statistics.mean(b["native_ms"] for b in builds),
+        assign_ms=statistics.mean(b["assign_ms"] for b in builds), peak_gib=peak_gib)
+    print(f"phase 9 training B={PP_BATCH} full width: median step_ms "
+          f"{train_summary['median_step_ms']:.1f} (host clock, step to synchronise), steady "
+          f"{train_summary['steady_frames_per_s']:.3f} frames/s over the last {len(steady)} "
+          f"steps; plan build native {train_summary['native_ms']:.1f} ms + assignment "
+          f"{train_summary['assign_ms']:.1f} ms ({len(cfg.make_anchors()[0])} anchors); "
+          f"max_memory_allocated {peak_gib:.2f} GiB; per step "
+          + json.dumps(PP_TRAIN_LAUNCHES) + f" [{card}]", flush=True)
+
+    # (f) evaluation from (d)'s state: clean, learned and PGD-10 on two batches
+    eval_batches = [frames() for _ in range(PP_EVAL_BATCHES)]
+    eval_summary = {}
+    for name, kw, want in (
+            ("clean", {}, _launches(masked_batch_norm=PP_BN_CLEAN)),
+            ("learned", dict(attack=True),
+             _launches(masked_stats=2, masked_batch_norm=PP_BN_ATTACK)),
+            ("pgd", dict(attack=True, attack_method="pgd", attack_steps=PGD_STEPS),
+             _launches(masked_batch_norm=PP_BN_CLEAN * (PGD_STEPS + 1),
+                       masked_batch_norm_bwd=PP_BN_CLEAN * PGD_STEPS))):
+        torch.cuda.synchronize()
+        zero_counts()
+        timings = {}
+        with PlainVersionCalls() as plain:
+            res = run_evaluation(trainer, eval_batches, timings=timings, **kw)
+            torch.cuda.synchronize()
+        got = read_counts()
+        want = {k: v * PP_EVAL_BATCHES for k, v in want.items()}
+        if got != want or plain.calls:
+            raise RuntimeError(f"PointPillars eval {name}: launches {got}, expected {want}; "
+                               f"{plain.calls} plain-version calls")
+        if res["num_frames"] != PP_BATCH * PP_EVAL_BATCHES or not np.isfinite(
+                res["mAP_3d_moderate"]):
+            raise RuntimeError(f"PointPillars eval {name}: {res}")
+        for i, bt in enumerate(timings["batches"]):
+            print(f"phase 9 eval {name} batch {i}: " + json.dumps(bt) + f" [{card}]", flush=True)
+        eval_summary[name] = {k: statistics.mean(bt[k] for bt in timings["batches"])
+                              for k in ("plan_ms", "device_ms", "metric_ms")}
+        print(f"phase 9 eval {name} (B={PP_BATCH}, {PP_EVAL_BATCHES} batches): mean per batch "
+              + ", ".join(f"{k} {v:.3f}" for k, v in eval_summary[name].items())
+              + f"; launches {json.dumps(got)} [{card}]", flush=True)
+    expect_bf16_kernels("PointPillars evaluation")
+    del trainer, builder, train_iter
+
+    # (b) serving: B=6 requests, clean and attack=True, on the native pillar plan
+    model = AdversarialPointPillars(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    anchors, _ = cfg.make_anchors()
+    serve = export_serving(model, None, anchors, cfg.head)
+    requests = [(frames(), attack) for attack in (False, True) for _ in range(3)]
+    for rb, attack in requests[:1] + requests[3:4]:  # warm-up
+        serve(rb.points, rb.points_mask, build_pillar_plan(rb.points, rb.points_mask, cfg),
+              attack=attack)
+    torch.cuda.synchronize()
+    zero_counts()
+    served = []
+    with PlainVersionCalls() as plain:
+        for rb, attack in requests:
+            t0 = time.perf_counter()
+            rplan = build_pillar_plan(rb.points, rb.points_mask, cfg)
+            t1 = time.perf_counter()
+            boxes, scores, labels, valid = serve(rb.points, rb.points_mask, rplan, attack=attack)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if boxes.shape != (PP_BATCH, cfg.head.max_num, 7) or not (
+                    torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+                raise RuntimeError(f"PointPillars serving: {tuple(boxes.shape)} or non-finite")
+            if labels.min() < 0 or labels.max() >= cfg.num_classes:
+                raise RuntimeError("PointPillars serving: label out of range")
+            served.append(dict(attack=attack, plan_ms=(t1 - t0) * 1e3, serve_ms=(t2 - t1) * 1e3,
+                               valid=int(valid.sum())))
+    got = read_counts()
+    expect_bf16_kernels("PointPillars serving")
+    want = _launches(masked_stats=2 * 3, masked_batch_norm=(PP_BN_CLEAN + PP_BN_ATTACK) * 3)
+    if got != want or plain.calls:
+        raise RuntimeError(f"PointPillars serving launches {got}, expected {want}; "
+                           f"{plain.calls} plain-version calls")
+    serve_summary = {}
+    for attack in (False, True):
+        sel = [t for t in served if t["attack"] == attack]
+        key = "attack" if attack else "clean"
+        serve_summary[key] = {k: statistics.mean(t[k] for t in sel)
+                              for k in ("plan_ms", "serve_ms")}
+        print(f"phase 9 serving {key} B={PP_BATCH}: " + json.dumps(sel) + f"; mean serve_ms "
+              f"{serve_summary[key]['serve_ms']:.3f}, plan_ms {serve_summary[key]['plan_ms']:.3f};"
+              f" per request masked_batch_norm {PP_BN_ATTACK if attack else PP_BN_CLEAN}, "
+              f"masked_stats {2 if attack else 0} [{card}]", flush=True)
+    del model, serve
+
+    # (c) a small-grid float32 forward and its decode + rotated NMS, card vs CPU
+    small = tiny_pointpillars_cfg()._replace(compute_dtype="float32")
+    sb = synthetic_kitti_batch(np.random.RandomState(seed + 1), batch_size=2, num_points=600,
+                               max_gt=4, num_objects=3,
+                               point_range=small.voxelizer.point_cloud_range)
+    splan = build_pillar_plan(sb.points, sb.points_mask, small)
+    smodel = AdversarialPointPillars(small)
+    init_weights(smodel, torch.Generator().manual_seed(seed))
+    smodel.eval()
+    perturber.PERT_BF16 = False
+    try:
+        with torch.no_grad():
+            ref = smodel(None, None, False, 100, True, -1.0,
+                         plan_to_device(splan, torch.device("cpu")))
+            out = smodel.to(dev)(None, None, False, 100, True, -1.0, plan_to_device(splan, dev))
+    finally:
+        perturber.PERT_BF16 = True
+    for name in ("cls_scores", "bbox_preds", "dir_preds"):
+        r, o = getattr(ref, name), getattr(out, name).cpu()
+        err = (r - o).abs().max().item()
+        if not err <= E2E_F32_RTOL * max(r.abs().max().item(), 1e-6):
+            raise RuntimeError(f"PointPillars small-grid float32 {name}: card vs CPU {err}")
+    shead = small.head._replace(score_thr=0.0)  # every candidate enters the NMS sweep
+    sanchors = torch.as_tensor(small.make_anchors()[0])
+    (cb, cs, cl, cv), (gb, gs, gl, gv) = [
+        anchor_head_predict(ref.cls_scores.to(d), ref.bbox_preds.to(d), ref.dir_preds.to(d),
+                            sanchors.to(d), shead) for d in (torch.device("cpu"), dev)]
+    gb, gs, gl, gv = gb.cpu(), gs.cpu(), gl.cpu(), gv.cpu()
+    if not (torch.equal(cv, gv) and torch.equal(cl[cv], gl[gv]) and int(cv.sum()) > 0):
+        raise RuntimeError("PointPillars small-grid decode + NMS: card and CPU keep different "
+                           "detections")
+    box_err = (cb[cv] - gb[gv]).abs().max().item()
+    if not (box_err <= E2E_F32_RTOL * cb[cv].abs().max().item()
+            and (cs[cv] - gs[gv]).abs().max().item() <= 1e-6):
+        raise RuntimeError(f"PointPillars small-grid decode + NMS: box error {box_err}")
+    print(f"phase 9 small-grid float32 forward and decode + rotated NMS ({int(cv.sum())} "
+          f"detections): card agrees with the CPU [{card}]", flush=True)
+
+    # (e) the generic entry point on the config file, phase 7's KITTI layout
+    config = os.path.join(REPO, "configs", "adversarial",
+                          "adversarial-pointpillars_kitti-3d-3class.py")
+    work = os.path.join(work_root, "pointpillars")
+    shutil.rmtree(work, ignore_errors=True)
+    cli_steps = []
+    plain_step = Trainer.train_step
+
+    def counted_step(self, batch, epoch, plan):
+        zero_counts()
+        t0 = time.perf_counter()
+        logs = plain_step(self, batch, epoch, plan)
+        torch.cuda.synchronize()
+        cli_steps.append({"step_ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts()})
+        return logs
+
+    t0 = time.perf_counter()
+    Trainer.train_step = counted_step
+    try:
+        out = generic_cli.main([config, "--validate", "--steps-per-epoch", "2", "--work-dir", work,
+                                "--seed", str(seed), "--cfg-options", f"data_root={data_root}",
+                                "max_epochs=1", "val_interval=1"])
+    finally:
+        Trainer.train_step = plain_step
+    cli_s = time.perf_counter() - t0
+    expect_bf16_kernels("PointPillars generic CLI")
+    if len(cli_steps) != 2 or any(st["launches"] != PP_TRAIN_LAUNCHES for st in cli_steps):
+        raise RuntimeError(f"generic CLI steps {cli_steps}")
+    ap = out["history"].get("val_epoch0", {})
+    if CheckpointManager(work).latest_epoch() != 0 or not ap or not all(
+            np.isfinite(v) for v in ap.values()) or not os.path.isfile(
+            os.path.join(work, "best_metric.json")):
+        raise RuntimeError(f"generic CLI: checkpoint {CheckpointManager(work).latest_epoch()}, "
+                           f"validation {ap}")
+    print(f"phase 9 generic CLI (cli/train.main, the config file, KITTI layout, 2 steps + "
+          f"validation on {ap['num_frames']} frames): {cli_s:.1f} s; steps "
+          f"{json.dumps([round(st['step_ms'], 1) for st in cli_steps])} ms; plans "
+          f"{json.dumps([round(p['plan_ms'], 1) for p in out['plans']])} ms; mAP_3d_moderate "
+          f"{ap['mAP_3d_moderate']:.3f}; epoch_0.pt and best_metric.json written [{card}]",
+          flush=True)
+    print(f"phase 9: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+
+    src = "robustpointclouds_tpu_torch/csrc/masked_stats.cu"
+    tpu = "robustpointclouds_tpu/kernels/masked_stats.py"
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = []
+    for label, names in cases.items():
+        suffix, per_step = ("pfn" if label == "pfn" else "pillar_" + label.replace(" ", "_"),
+                            len(names))
+        for i, (kernel, line) in enumerate((("masked_batch_norm", 63),
+                                            ("masked_batch_norm_bwd", 102))):
+            r = mean_row([pair[i] for pair in bn_rows[label]])
+            rows.append({"name": f"{kernel}_{suffix}", "route": "cuda", "source": src,
+                         "replaces": f"{tpu}:{line}", "launches": per_step * len(steps),
+                         "shape": [r["n"], r["c"], "bfloat16"], "count_a_step": per_step,
+                         "bound_kept_ms": r["bound_kept_ms"], **{k: r[k] for k in keys}})
+    for name, line, r in (("masked_stats_pillars", 113, stats_row),
+                          ("masked_stats_bwd_pillars", 102, vjp_row)):
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": f"{tpu}:{line}",
+                     "launches": PP_TRAIN_LAUNCHES[name.rsplit("_", 1)[0]] * len(steps),
+                     "shape": [n_slots, 4, "float32"], **{k: r[k] for k in keys}})
+    print("phase 9 summary " + json.dumps(dict(
+        training=train_summary, serving=serve_summary, evaluation=eval_summary,
+        k2_step=step_bn, generic_cli_s=cli_s)) + f" [{card}]", flush=True)
     return rows
 
 
@@ -1937,6 +2448,11 @@ def main() -> int:
     cp_rows = run_centerpoint(dev, card, args.seed, zero_counts, read_counts, read_f32_counts,
                               expect_bf16_kernels)
 
+    # ---- phase 9: PointPillars at full width, and the generic training entry point
+    pp_rows = run_pointpillars(dev, card, args.seed, zero_counts, read_counts,
+                               expect_bf16_kernels, os.path.join(KITTI_ROOT, "data"), KITTI_ROOT)
+    shutil.rmtree(KITTI_ROOT, ignore_errors=True)
+
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
     tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
@@ -2002,6 +2518,7 @@ def main() -> int:
                 "bound_by")}
         kernels.append(entry)
     kernels.extend(cp_rows)
+    kernels.extend(pp_rows)
     for row in (*kernels, *(r["scale"] for r in kernels if "scale" in r)):
         for key in ("device_ms", "prev_device_ms"):
             if key in row and row[key] is None:  # the profiles did not hold their set

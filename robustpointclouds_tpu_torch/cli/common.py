@@ -37,6 +37,16 @@ from ..train.hooks import NaNLadder, reinit_adversary_params
 from ..train.loop import HostPlanBuilder, Trainer
 
 
+def parse_ported_args(parser, argv: Optional[List[str]], prog: str):
+    """parser.parse_args, where a flag the parser does not declare raises "not
+    ported yet": among them the JAX CLIs' --devices and --multihost (data
+    parallel, ROADMAP.md M10) and --amp (M16)."""
+    args, unknown = parser.parse_known_args(argv)
+    if unknown:
+        raise SystemExit(f"{prog}: {' '.join(unknown)}: not ported yet")
+    return args
+
+
 class MetricsLogger:
     """Accumulates per-step scalars; writes the reference-compatible CSVs and
     TensorBoard scalar events `train/<key>` (step = the logged row's index)
@@ -170,6 +180,24 @@ def tiny_voxelnet_cfg():
                                   voxel_size=(0.5, 0.5, 0.125), max_points_per_voxel=3,
                                   max_voxels=512),
         anchor_ranges=tuple((0, -8.0, -0.6, 16.0, 8.0, -0.6) for _ in range(3)),
+    )
+
+
+def tiny_pointpillars_cfg():
+    """The pillar family's smoke config: its real widths on a 16 m grid of
+    0.5 m pillars, 128 pillars of 8 points, adversary (8, 16, 8)
+    (tests/test_pointpillars.py's tiny setup)."""
+    from ..models.pointpillars import PointPillarsConfig
+    from ..ops.voxelize import VoxelizerConfig
+
+    return PointPillarsConfig(
+        voxelizer=VoxelizerConfig(point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+                                  voxel_size=(0.5, 0.5, 4.0), max_points_per_voxel=8,
+                                  max_voxels=128),
+        anchor_ranges=((0, -8.0, -1.78, 16.0, 8.0, -1.78), (0, -8.0, -0.6, 16.0, 8.0, -0.6),
+                       (0, -8.0, -0.6, 16.0, 8.0, -0.6)),
+        adversary={"sensor_error_bound": 0.2, "use_spatial_attention": True,
+                   "hidden_channels": (8, 16, 8)},
     )
 
 

@@ -3,8 +3,8 @@
 `export_serving(model, state_dict, anchors, head)` returns
 `serve(points, mask, plan, attack=False) -> (boxes, scores, labels,
 valid)`: the plan-fed model forward with the weights loaded, then
-  * SECOND (AdversarialVoxelNet): anchor decode + rotated NMS, boxes
-    [B, K, 7];
+  * SECOND (AdversarialVoxelNet) and PointPillars (AdversarialPointPillars,
+    on the native pillar plan): anchor decode + rotated NMS, boxes [B, K, 7];
   * CenterPoint (AdversarialCenterPoint, `anchors` None): per-task heatmap
     top-k + circle NMS (models/center_detection.centerpoint_decode), boxes
     [B, K, 9] with the velocity.
@@ -22,14 +22,16 @@ from ..core.device import resolve_device
 from ..models.center_detection import CenterHeadConfig, centerpoint_decode
 from ..models.centerpoint import AdversarialCenterPoint
 from ..models.detection import AnchorHeadConfig, anchor_head_predict
+from ..models.pointpillars import AdversarialPointPillars
 from ..models.voxelnet import AdversarialVoxelNet, plan_to_device
 
 
-def export_serving(model: Union[AdversarialVoxelNet, AdversarialCenterPoint],
+def export_serving(model: Union[AdversarialVoxelNet, AdversarialPointPillars,
+                                AdversarialCenterPoint],
                    state_dict: Optional[Dict[str, torch.Tensor]],
                    anchors: Optional[np.ndarray], head: Union[AnchorHeadConfig, CenterHeadConfig],
                    device: Optional[Union[str, torch.device]] = None) -> Callable:
-    """Bind weights, anchors (SECOND; None for CenterPoint) and the head
+    """Bind weights, anchors (SECOND, PointPillars; None for CenterPoint) and the head
     config into a serving function.
 
     Runs on the card unless `device` asks for another; raises when no card

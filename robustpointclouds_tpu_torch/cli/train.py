@@ -1,0 +1,127 @@
+"""Generic config-driven training entry point (counterpart of robustpointclouds_tpu/cli/train.py).
+
+    python -m robustpointclouds_tpu_torch.cli.train CONFIG [--work-dir DIR] \
+        [--resume] [--load-from CKPT] [--synthetic] [--validate] \
+        [--steps-per-epoch N] [--seed 0] [--auto-scale-lr] [--cpu] \
+        [--cfg-options k=v ...]
+
+Builds the model named by `model.type` through the config file
+(core/builders.build_model_config; `--cfg-options` dotted overrides change
+the built model) and trains it:
+  * AdversarialCenterPoint goes to cli/train_nuscenes_adversarial.run with
+    the config (NuScenes loader, or synthetic scenes);
+  * AdversarialVoxelNet (SECOND) and AdversarialPointPillars go through
+    train/loop.Trainer and cli/common.run_training, on the KITTI epoch
+    loader under the config's `data_root`, or on synthetic scenes in the
+    config's point range with --synthetic or when no KITTI layout is there.
+`batch_size`, `max_epochs`, `val_interval`, `work_dir`, `data_root`,
+`load_from` and `auto_scale_lr.base_batch_size` come from the config.
+`--auto-scale-lr` scales the learning rate by batch_size / base_batch_size.
+Runs on the card unless --cpu. The JAX CLI's `--devices` and `--multihost`
+(data parallel, ROADMAP.md M10) and `--amp` (M16) raise "not ported yet",
+as any other undeclared flag does; so do zoo `.pth` warm starts (M11).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Dict, List, Optional
+
+
+def parse_args(argv: Optional[List[str]] = None):
+    p = argparse.ArgumentParser(description="Train a detector from a config file (PyTorch port)")
+    p.add_argument("config", help="config python file")
+    p.add_argument("--work-dir", default=None)
+    p.add_argument("--resume", nargs="?", const="auto", default=None,
+                   help="resume from the work dir's newest checkpoint")
+    p.add_argument("--load-from", default=None, help="warm start from a port checkpoint")
+    p.add_argument("--auto-scale-lr", action="store_true",
+                   help="scale lr by batch_size / auto_scale_lr.base_batch_size")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on synthetic scenes even if the dataset exists")
+    p.add_argument("--validate", action="store_true")
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--cfg-options", nargs="*", default=[])
+    from .common import parse_ported_args
+
+    return parse_ported_args(p, argv, "train")
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    """Run the CLI; returns run_training's result."""
+    args = parse_args(argv)
+    from ..core.builders import build_model_config, build_train_config
+    from ..core.config import Config
+
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        cfg.merge_from_cli(args.cfg_options)
+
+    work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/train")
+    model_type = cfg.get("model", {}).get("type", "AdversarialVoxelNet")
+    batch_size = int(cfg.get("batch_size", 6))
+    max_epochs = int(cfg.get("max_epochs", 20))
+    val_interval = int(cfg.get("val_interval", 5))
+    data_root = cfg.get("data_root", "data/kitti")
+    load_from = args.load_from or cfg.get("load_from")
+    if load_from is not None and load_from.endswith(".pth"):
+        raise SystemExit(f"train: --load-from {load_from}: zoo .pth warm starts are not "
+                         "ported yet")
+    device = "cpu" if args.cpu else None
+
+    if model_type in ("AdversarialCenterPoint", "CenterPoint"):
+        # CenterPoint runs through its own trainer (another loss and evaluation)
+        from .train_nuscenes_adversarial import run as nus_run
+
+        return nus_run(cfg=cfg, work_dir=work_dir, data_root=data_root, batch_size=batch_size,
+                       max_epochs=max_epochs, resume=bool(args.resume), pretrained=load_from,
+                       synthetic=args.synthetic, validate=args.validate, seed=args.seed,
+                       steps_per_epoch=args.steps_per_epoch, device=device)
+
+    from ..data.kitti import kitti_available, kitti_epoch_loader, kitti_val_loader
+    from ..train.loop import Trainer
+    from .common import run_training, synthetic_loader
+
+    model_cfg = build_model_config(cfg)
+    steps_per_epoch = args.steps_per_epoch
+    train_cfg = build_train_config(cfg, steps_per_epoch=steps_per_epoch or 1000,
+                                   max_epochs=max_epochs)
+    if args.auto_scale_lr:
+        base_bs = int(cfg.get("auto_scale_lr", {}).get("base_batch_size", 48))
+        scale = batch_size / base_bs
+        train_cfg = dataclasses.replace(train_cfg,
+                                        learning_rate=train_cfg.learning_rate * scale)
+        print(f"[auto-scale-lr] x{scale:.3f} -> lr {train_cfg.learning_rate:.2e}", flush=True)
+    trainer = Trainer(model_cfg, train_cfg, device=device)
+
+    use_synth = args.synthetic
+    if not use_synth and not kitti_available(data_root):
+        print(f"[data] KITTI not found under {data_root!r}; falling back to synthetic scenes",
+              flush=True)
+        use_synth = True
+    if use_synth:
+        pcr = model_cfg.voxelizer.point_cloud_range
+        loader = synthetic_loader(batch_size, steps_per_epoch or 100, seed=args.seed,
+                                  point_range=pcr)
+
+        def val_loader():
+            return synthetic_loader(batch_size, 4, seed=args.seed + 999, point_range=pcr)(0)
+    else:
+        loader = kitti_epoch_loader(data_root, batch_size, model_cfg, seed=args.seed,
+                                    steps_per_epoch=steps_per_epoch)
+
+        def val_loader():
+            return kitti_val_loader(data_root, batch_size, model_cfg)
+
+    out = run_training(trainer, loader, work_dir=work_dir, max_epochs=max_epochs,
+                       val_interval=val_interval,
+                       val_loader=val_loader if args.validate else None,
+                       resume=bool(args.resume), seed=args.seed, load_from=load_from)
+    print(f"[done] work_dir={out['work_dir']}", flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

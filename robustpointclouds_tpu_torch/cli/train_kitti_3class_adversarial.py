@@ -56,10 +56,9 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="write a torch.profiler trace of steps 10-13")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cfg-options", nargs="*", default=[], help="dotted config overrides key=value")
-    args, unknown = p.parse_known_args(argv)
-    if unknown:
-        # among them the JAX CLI's --devices (data parallel, ROADMAP.md M10) and --amp
-        raise SystemExit(f"train_kitti_3class_adversarial: {' '.join(unknown)}: not ported yet")
+    from .common import parse_ported_args
+
+    args = parse_ported_args(p, argv, "train_kitti_3class_adversarial")
     if args.load_from is not None and args.load_from.endswith(".pth"):
         raise SystemExit(f"train_kitti_3class_adversarial: --load-from {args.load_from}: zoo "
                          ".pth warm starts are not ported yet")

@@ -86,13 +86,17 @@ def synthetic_nuscenes_loader(batch_size: int, steps_per_epoch: int, num_points:
     return epoch_iter
 
 
-def run(work_dir: str = "work_dirs/nuscenes_adversarial_training",
+def run(cfg=None, work_dir: str = "work_dirs/nuscenes_adversarial_training",
         data_root: str = "data/nuscenes", batch_size: int = 1, max_epochs: int = 20,
         steps_per_epoch: Optional[int] = None, resume: bool = False,
         pretrained: Optional[str] = None, synthetic: bool = False, validate: bool = False,
         tiny: bool = False, max_sweeps: int = 9, seed: int = 0, mesh=None,
         max_steps: Optional[int] = None, device=None) -> Dict:
-    """Programmatic entry; returns cli/common.run_training's result."""
+    """Programmatic entry (cli/train.py's dispatch for CenterPoint); returns
+    cli/common.run_training's result. `cfg`: a core/config.Config whose
+    model config (core/builders.build_centerpoint_config) and learning rate
+    replace CenterPointConfig() and the recipe's 5e-5, as the JAX entry
+    takes them."""
     from ..data.nuscenes import nuscenes_available, nuscenes_epoch_loader, nuscenes_val_loader
     from ..models.centerpoint import CenterPointConfig
     from ..train.centerpoint_loop import CENTERPOINT_TRAIN, CenterPointTrainer
@@ -101,11 +105,16 @@ def run(work_dir: str = "work_dirs/nuscenes_adversarial_training",
 
     if mesh is not None:
         raise NotImplementedError("a device mesh (data-parallel CenterPoint) is not ported yet")
-    model_cfg, num_points = CenterPointConfig(), 30000
+    model_cfg, num_points, lr = CenterPointConfig(), 30000, CENTERPOINT_TRAIN.learning_rate
+    if cfg is not None:
+        from ..core.builders import build_centerpoint_config, build_train_config
+
+        model_cfg = build_centerpoint_config(cfg)
+        lr = build_train_config(cfg).learning_rate
     if tiny:
         model_cfg, num_points = tiny_centerpoint_cfg(model_cfg)
     steps_per_epoch = steps_per_epoch or (max_steps or 500)
-    train_cfg = dataclasses.replace(CENTERPOINT_TRAIN, max_epochs=max_epochs,
+    train_cfg = dataclasses.replace(CENTERPOINT_TRAIN, learning_rate=lr, max_epochs=max_epochs,
                                     steps_per_epoch=steps_per_epoch)
     trainer = CenterPointTrainer(model_cfg, train_cfg, device=device)
 

@@ -69,6 +69,69 @@ def build_voxelnet_config(cfg: Config):
     )
 
 
+def build_centerpoint_config(cfg: Config):
+    """configs/adversarial/adversarial-centerpoint_nuscenes.py schema ->
+    models.centerpoint.CenterPointConfig."""
+    from ..models.centerpoint import CenterPointConfig
+
+    m = cfg.get("model", {})
+    if not m.get("residual_encoder", True):
+        raise NotImplementedError("model.residual_encoder=False (the plain-block CenterPoint "
+                                  "encoder) is not ported yet")
+    base = CenterPointConfig()
+    tasks = m.get("tasks")
+    return CenterPointConfig(
+        voxelizer=build_voxelizer(m.get("voxelizer", {})) if m.get("voxelizer") else base.voxelizer,
+        num_point_features=int(m.get("num_point_features", base.num_point_features)),
+        tasks=_as_tuple(tasks, depth=2) if tasks else base.tasks,
+        head=base.head if not tasks else base.head._replace(tasks=_as_tuple(tasks, depth=2)),
+        adversary=_adversary_dict(m),
+        adversarial_loss_weight=float(m.get("adversarial_loss_weight",
+                                            base.adversarial_loss_weight)),
+        regularization_weight=float(m.get("regularization_weight", base.regularization_weight)),
+        adversary_start_epoch=int(m.get("adversary_start_epoch", base.adversary_start_epoch)),
+        encoder_channels=(_as_tuple(m["encoder_channels"], depth=2)
+                          if m.get("encoder_channels") else base.encoder_channels),
+        use_dcn_head=bool(m.get("use_dcn_head", base.use_dcn_head)),
+    )
+
+
+def build_pointpillars_config(cfg: Config):
+    """The pillar family's schema (the voxelnet schema's keys) ->
+    models.pointpillars.PointPillarsConfig."""
+    from ..models.pointpillars import PointPillarsConfig
+
+    m = cfg.get("model", {})
+    head_d = m.get("bbox_head", {})
+    base = PointPillarsConfig()
+    return PointPillarsConfig(
+        voxelizer=build_voxelizer(m["voxelizer"]) if m.get("voxelizer") else base.voxelizer,
+        num_classes=int(head_d.get("num_classes", 3)),
+        head=_build_anchor_head(cfg),
+        class_names=_as_tuple(cfg.get("class_names", base.class_names)),
+        anchor_ranges=_as_tuple(head_d.get("anchor_ranges", base.anchor_ranges), depth=2),
+        anchor_sizes=_as_tuple(head_d.get("anchor_sizes", base.anchor_sizes), depth=2),
+        anchor_rotations=_as_tuple(head_d.get("anchor_rotations", base.anchor_rotations)),
+        adversary=_adversary_dict(m),
+        adversarial_loss_weight=float(m.get("adversarial_loss_weight",
+                                            base.adversarial_loss_weight)),
+        regularization_weight=float(m.get("regularization_weight", base.regularization_weight)),
+        adversary_start_epoch=int(m.get("adversary_start_epoch", base.adversary_start_epoch)),
+    )
+
+
+def build_model_config(cfg: Config):
+    """Dispatch on model.type (the registry names of the config files)."""
+    mtype = cfg.get("model", {}).get("type", "AdversarialVoxelNet")
+    if mtype in ("AdversarialVoxelNet", "VoxelNet", "StrongAdversarialVoxelNet"):
+        return build_voxelnet_config(cfg)
+    if mtype in ("AdversarialCenterPoint", "CenterPoint"):
+        return build_centerpoint_config(cfg)
+    if mtype in ("AdversarialPointPillars", "PointPillars"):
+        return build_pointpillars_config(cfg)
+    raise ValueError(f"unknown model type {mtype!r}")
+
+
 def build_train_config(cfg: Config, **overrides):
     """The config's `optim` and schedule keys -> train.loop.TrainConfig.
     `overrides` win (CLI flags such as --freeze-detector)."""

@@ -11,7 +11,10 @@ encoder's index plan under "enc". The layout differs by level:
   * rel2, rel3, down3: dense `[M, 27]` `idx`;
   * out: `[n4, 3]` `idx` (the (3,1,1) conv_out taps);
   * every downN and out also carry the inverse index `inv`.
-No compiler means an error, not a fallback.
+The pillar family's plan (`build_pillar_plan_native`, `rpc_build_pillar_plan`)
+holds the voxels, the merged (batch, y, x) BEV grid and its dense-cell map
+"dense" instead of an encoder plan. No compiler means an error, not a
+fallback.
 """
 from __future__ import annotations
 
@@ -49,8 +52,64 @@ def get_lib() -> ctypes.CDLL:
                 os.replace(tmp, _SO)
             lib = ctypes.CDLL(_SO)
             lib.rpc_build_plan.restype = ctypes.c_int
+            lib.rpc_build_pillar_plan.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def build_pillar_plan_native(points: np.ndarray, points_mask: np.ndarray, voxelizer,
+                             num_features: int = 4) -> dict:
+    """The pillar family's host plan, as a dict of numpy arrays: voxels and
+    their masks, the merged 2D grid (`grid_coords` (b, y, x)) with the
+    order that aligns the voxels to it, and `dense`, the grid row of each
+    of the B * ny * nx BEV cells (B * V for an empty one).
+
+    Needs a single-z pillar grid (nz == 1): each sample's voxels then come
+    in ascending 2D flat order, which the batch merge relies on."""
+    lib = get_lib()
+    nx, ny, nz = voxelizer.grid_size
+    assert nz == 1, "the native pillar plan needs a single-z pillar grid"
+    B, P = points.shape[:2]
+    F = num_features
+    if B * ny * nx >= 2 ** 31:
+        raise ValueError(f"merged BEV id space of B={B} over {ny} x {nx} exceeds int32")
+    V, T = voxelizer.max_voxels, voxelizer.max_points_per_voxel
+    N = B * V
+    pts = np.ascontiguousarray(points[..., :F], np.float32)
+    msk = np.ascontiguousarray(points_mask, np.uint8)
+    pcr = np.asarray(voxelizer.point_cloud_range, np.float32)
+    vs = np.asarray(voxelizer.voxel_size, np.float32)
+    # output buffers, in the order rpc_build_pillar_plan writes them
+    a = {
+        "voxels": np.empty((B, V, T, F), np.float32),
+        "vox_coords": np.empty((B, V, 3), np.int32),
+        "num_points": np.empty((B, V), np.int32),
+        "voxel_mask": np.empty((B, V), bool),
+        "point_mask": np.empty((B, V, T), bool),
+        "order": np.empty((N,), np.int32),
+        "grid_ids": np.empty((N,), np.int32),
+        "grid_coords": np.empty((N, 3), np.int32),
+        "grid_mask": np.empty((N,), bool),
+        "dense": np.empty((B * ny * nx,), np.int32),
+        "slot_point": np.empty((B, V, T), np.int32),
+        "point_slot": np.empty((B, P), np.int32),
+    }
+    outs = (ctypes.c_void_p * len(a))(
+        *[v.ctypes.data_as(ctypes.c_void_p).value for v in a.values()]
+    )
+    rc = lib.rpc_build_pillar_plan(
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        msk.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(B), ctypes.c_int64(P), ctypes.c_int64(F),
+        pcr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        vs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64(V), ctypes.c_int64(T),
+        ctypes.c_int64(nx), ctypes.c_int64(ny), ctypes.c_int64(nz),
+        outs,
+    )
+    if rc != 0:
+        raise RuntimeError(f"rpc_build_pillar_plan failed: {rc}")
+    return a
 
 
 def build_plan_native(points: np.ndarray, points_mask: np.ndarray, voxelizer,

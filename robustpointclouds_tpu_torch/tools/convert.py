@@ -19,8 +19,12 @@ The VoxelPerturber, which the zoo map lacks, maps `mlp_i`/`mlp_out`/
 AdversarialCenterPoint: the residual encoder's `stage{i}_res{j}` blocks
 (conv1/bn1/conv2/bn2) and `stage{i}_down` convs, the backbone and neck
 under `pts_`, and the CenterHead (flax convs -> Conv2d, the DCN kernel ->
-mmcv's grouped [Cout, Cin/g, 3, 3] weight). Inputs are nested mappings of
-numpy-convertible arrays.
+mmcv's grouped [Cout, Cin/g, 3, 3] weight). `pointpillars_to_state_dict`
+maps the JAX AdversarialPointPillars: the PillarFeatureNet's `pfn/Dense_0`
+kernel (in, out) into `voxel_encoder.pfn_layers.0.linear` (out, in) and its
+MaskedBatchNorm into `.norm`, then the dense body, the head and the
+adversary as for SECOND. Inputs are nested mappings of numpy-convertible
+arrays.
 """
 from __future__ import annotations
 
@@ -98,18 +102,11 @@ def _dense_body(sd: Dict[str, np.ndarray], prefix: str, params: Mapping, batch_s
         i += 1
 
 
-def jax_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """(params, batch_stats) of the JAX AdversarialVoxelNet -> port state_dict."""
-    sd: Dict[str, np.ndarray] = {}
-
-    me, mes = params["middle_encoder"], batch_stats["middle_encoder"]
-    for prefix, name in _SPARSE_BLOCKS:
-        ks = (3, 1, 1) if name == "conv_out" else (3, 3, 3)
-        sd[f"{prefix}.0.weight"] = sparse_kernel_to_spconv(me[name]["kernel"], ks)
-        _bn(sd, f"{prefix}.1", me[name]["MaskedBatchNorm_0"], mes[name]["MaskedBatchNorm_0"])
-
+def _anchor_model_tail(sd: Dict[str, np.ndarray], params: Mapping,
+                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """The dense body, the Anchor3DHead and the adversary of an anchor-head
+    model added to `sd`, as tensors."""
     _dense_body(sd, "", params, batch_stats)
-
     for name in ("conv_cls", "conv_reg", "conv_dir_cls"):
         p = params["bbox_head"][name]
         sd[f"bbox_head.{name}.weight"] = _conv2d(p["kernel"])
@@ -120,6 +117,27 @@ def jax_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.
         adv = perturber_to_state_dict(params["adversary"], batch_stats["adversary"])
         out.update({f"adversary.{k}": v for k, v in adv.items()})
     return out
+
+
+def jax_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """(params, batch_stats) of the JAX AdversarialVoxelNet -> port state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    me, mes = params["middle_encoder"], batch_stats["middle_encoder"]
+    for prefix, name in _SPARSE_BLOCKS:
+        ks = (3, 1, 1) if name == "conv_out" else (3, 3, 3)
+        sd[f"{prefix}.0.weight"] = sparse_kernel_to_spconv(me[name]["kernel"], ks)
+        _bn(sd, f"{prefix}.1", me[name]["MaskedBatchNorm_0"], mes[name]["MaskedBatchNorm_0"])
+    return _anchor_model_tail(sd, params, batch_stats)
+
+
+def pointpillars_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """(params, batch_stats) of the JAX AdversarialPointPillars -> port state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    pfn = "voxel_encoder.pfn_layers.0"
+    sd[f"{pfn}.linear.weight"] = _np(params["pfn"]["Dense_0"]["kernel"]).T
+    _bn(sd, f"{pfn}.norm", params["pfn"]["MaskedBatchNorm_0"],
+        batch_stats["pfn"]["MaskedBatchNorm_0"])
+    return _anchor_model_tail(sd, params, batch_stats)
 
 
 def perturber_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:

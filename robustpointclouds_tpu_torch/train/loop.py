@@ -1,7 +1,8 @@
 """Min-max adversarial training: one backward, two optimizers (counterpart of robustpointclouds_tpu/train/loop.py).
 
-One train step: the plan-fed AdversarialVoxelNet forward in train mode (the
-adversary's perturbation delta behind the gradient-reversal layer) ->
+One train step: the plan-fed anchor-head model's forward in train mode
+(AdversarialVoxelNet, or AdversarialPointPillars for a PointPillarsConfig;
+the adversary's perturbation delta behind the gradient-reversal layer) ->
 anchor_head_loss + adversary_direct_terms -> one backward -> the two
 optimizer chains of the JAX package, written out because two torch.optim
 optimizers over disjoint parameter groups do not reproduce them:
@@ -31,8 +32,9 @@ running statistics still move in train mode. PGD adversarial training
 (TrainConfig.pgd_steps > 0, `_maybe_pgd`) rewrites the plan's voxels with a
 K-step white-box attack at the current weights (eval/attacks.PlanAttack)
 before the gradient half of the step; the attack is a constant of the
-step's backward. The sharded DDP step (`compile_sharded`) and the pillar
-plan builder are not ported yet (ROADMAP.md, M10 and M13).
+step's backward. The host plan comes from HostPlanBuilder (SECOND) or
+PillarPlanBuilder (the pillar family), as `make_plan_builder` picks. The
+sharded DDP step (`compile_sharded`) is not ported yet (ROADMAP.md, M10).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..data.native_plan import build_plan_native
 from ..models.detection import anchor_head_loss
+from ..models.pointpillars import AdversarialPointPillars, PointPillarsConfig, build_pillar_plan
 from ..models.voxelnet import (AdversarialVoxelNet, VoxelNetConfig, adversary_direct_terms,
                                anchor_assign_plan, init_weights, plan_to_device)
 from .hooks import device_nan_ladder
@@ -183,6 +186,7 @@ class HostPlanBuilder:
     plus, given GTs, the anchor assignment (models/voxelnet.anchor_assign_plan,
     CPU torch). Runs in the input pipeline's prefetch thread; both parts
     release the interpreter lock in native code. Returns numpy arrays.
+    Subclasses change `_native` (the index plan of their family).
 
     `timings` keeps, per call and in call order, the host-clock ms of the two
     parts ({"native_ms", "assign_ms", "plan_ms"}; assign_ms is 0 without GTs),
@@ -196,10 +200,12 @@ class HostPlanBuilder:
         self._anchors = (torch.from_numpy(a), torch.from_numpy(c))
         self.timings: collections.deque = collections.deque(maxlen=self._TIMINGS_KEPT)
 
+    def _native(self, points: np.ndarray, points_mask: np.ndarray) -> Dict[str, Any]:
+        return build_plan_native(points, points_mask, self._cfg.voxelizer, 4)
+
     def __call__(self, points, points_mask, gt_boxes=None, gt_labels=None, gt_mask=None):
         t0 = time.perf_counter()
-        plan = build_plan_native(np.asarray(points), np.asarray(points_mask),
-                                 self._cfg.voxelizer, 4)
+        plan = self._native(np.asarray(points), np.asarray(points_mask))
         t1 = time.perf_counter()
         if gt_boxes is not None:
             plan["assign"] = anchor_assign_plan(gt_boxes, gt_labels, gt_mask, self._cfg,
@@ -210,18 +216,36 @@ class HostPlanBuilder:
         return plan
 
 
+class PillarPlanBuilder(HostPlanBuilder):
+    """The pillar family's host plan: the native pillar plan (voxels, the
+    merged BEV grid and its dense-cell map; data/native_plan.py) plus the
+    anchor assignment, with HostPlanBuilder's `timings` split."""
+
+    def _native(self, points: np.ndarray, points_mask: np.ndarray) -> Dict[str, Any]:
+        return build_pillar_plan(points, points_mask, self._cfg)
+
+
 class Trainer:
-    """Owns the model, the two optimizer chains and the train state.
+    """Owns the model, the two optimizer chains and the train state: an
+    AdversarialVoxelNet for a VoxelNetConfig, an AdversarialPointPillars
+    for a PointPillarsConfig (the same call and loss contract).
 
     Runs on the card unless `device` asks for another (core/device)."""
 
-    def __init__(self, model_cfg: VoxelNetConfig = VoxelNetConfig(),
+    def __init__(self, model_cfg: Union[VoxelNetConfig, PointPillarsConfig] = VoxelNetConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
                  device: Optional[Union[str, torch.device]] = None):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
-        self.model = AdversarialVoxelNet(model_cfg).to(self.device)
+        if isinstance(model_cfg, PointPillarsConfig):
+            model = AdversarialPointPillars(model_cfg)
+        elif isinstance(model_cfg, VoxelNetConfig):
+            model = AdversarialVoxelNet(model_cfg)
+        else:
+            raise TypeError(f"Trainer takes a VoxelNetConfig or a PointPillarsConfig, not "
+                            f"{type(model_cfg).__name__}")
+        self.model = model.to(self.device)
         anchors, anchor_cls = model_cfg.make_anchors()
         self.anchors = torch.as_tensor(anchors, device=self.device)
         self.anchor_cls = torch.as_tensor(anchor_cls, device=self.device)
@@ -367,7 +391,9 @@ class Trainer:
         return self._pgd(batch, plan)
 
     def make_plan_builder(self) -> HostPlanBuilder:
-        """Host-side plan builder for the input pipeline."""
+        """Host-side plan builder of the model's family for the input pipeline."""
+        if isinstance(self.model_cfg, PointPillarsConfig):
+            return PillarPlanBuilder(self.model_cfg)
         return HostPlanBuilder(self.model_cfg)
 
     # -- eval ---------------------------------------------------------------

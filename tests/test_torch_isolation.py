@@ -57,6 +57,8 @@ _EXPECTED = {
     "robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial",
     "robustpointclouds_tpu_torch.cli.evaluate_nuscenes_adversarial",
     "robustpointclouds_tpu_torch.cli.evaluate_adversarial_checkpoint",
+    # the PointPillars slice and the generic entry point
+    "robustpointclouds_tpu_torch.models.pointpillars", "robustpointclouds_tpu_torch.cli.train",
 }
 
 

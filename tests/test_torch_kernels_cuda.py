@@ -1251,3 +1251,102 @@ def test_centerpoint_train_step_on_card_matches_cpu(cuda_device, monkeypatch, ep
     if flips:
         gc, _ = grads(cpu_tr, flips)
     _assert_grads_close(gc, gg)
+
+
+# the pillar family's K2 shapes: B * V * T = 6 * 16000 * 32 point slots, of
+# which a KITTI-like frame fills ~3.5%
+PILLAR_SLOTS = 6 * 16000 * 32
+
+
+@pytest.mark.parametrize("c,dtype", [(64, torch.bfloat16), (128, torch.float32)],
+                         ids=["pfn_bf16", "f32"])
+def test_masked_batch_norm_at_pillar_rows(cuda_device, c, dtype):
+    """The fused MaskedBatchNorm (train mode, ReLU, no row mask: the PFN's
+    and the perturber's epilogue) and its backward at the pillar slots
+    against the plain versions; [3072000, 128] float32 is x of 1.57 GB,
+    past 2^31 bytes, so every row offset must be 64-bit."""
+    n = PILLAR_SLOTS
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    x = (torch.randn(n, c, device=cuda_device, generator=g) * 3 + 1).to(dtype)
+    mask = torch.rand(n, device=cuda_device, generator=g) < 0.035
+    mask[-1000:] = True  # the last rows, past 2^31 bytes for float32
+    w = 0.5 + torch.rand(c, device=cuda_device, generator=g)
+    b = torch.randn(c, device=cuda_device, generator=g)
+    rm, rv = torch.zeros(c, device=cuda_device), torch.ones(c, device=cuda_device)
+    gout = torch.randn(n, c, device=cuda_device, generator=g).to(dtype)
+    rm_ref, rv_ref = rm.clone(), rv.clone()
+    y, mean, var, cnt = masked_stats_module._bn_forward(x, mask, w, b, rm, rv, True, 0.01, 1e-3,
+                                                        True, False, dtype)
+    ref, _, _, rcnt = masked_stats_module._bn_ref(x, mask, w, b, rm_ref, rv_ref, True, 0.01,
+                                                  1e-3, True, False, dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _close(y, ref, tol) and cnt.item() == rcnt.item() == mask.sum().item()
+    assert _close(y[-1000:], ref[-1000:], tol)
+    assert _close(rm, rm_ref, 1e-5) and _close(rv, rv_ref, 1e-5)
+    dx, dw, db = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, True, True,
+                                       False)
+    rdx, rdw, rdb = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, 1e-3, True,
+                                              True, False)
+    assert _close(dw, rdw, 1e-4) and _close(db, rdb, 1e-4)
+    assert _close(dx, rdx, 1e-4 if dtype == torch.float32 else 1e-2)
+    assert _close(dx[-1000:], rdx[-1000:], 1e-4 if dtype == torch.float32 else 1e-2)
+    again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, True, True, False)
+    assert all(torch.equal(p, q) for p, q in zip(again, (dx, dw, db)))
+
+
+def test_pillar_train_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """The tiny pillar config's float32 train step at epoch 5 (the adversary
+    on), card against CPU from the same weights and plan, at the small-grid
+    bound of the SECOND step, with the dense body's rounding-level ReLU
+    gates aligned as the CenterPoint test does; the step's launches are the
+    module structure's: no sparse conv, the adversary's 2 statistics and
+    their VJP, 6 fused BNs (the PFN's and the adversary's 5) with bwd_reduce."""
+    import numpy as np
+
+    import robustpointclouds_tpu_torch.nn.perturber as perturber
+    from robustpointclouds_tpu_torch.cli.common import tiny_pointpillars_cfg
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    monkeypatch.setattr(perturber, "PERT_BF16", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = tiny_pointpillars_cfg()._replace(compute_dtype="float32")
+    b = synthetic_kitti_batch(np.random.RandomState(2), batch_size=2, num_points=512, max_gt=8,
+                              num_objects=3, point_range=cfg.voxelizer.point_cloud_range)
+    cpu_tr = Trainer(cfg, TrainConfig(), device="cpu")
+    card_tr = Trainer(cfg, TrainConfig(), device=cuda_device)
+    cpu_tr.init_state(0)
+    sd = {n: v.cpu() for n, v in cpu_tr.model.state_dict().items()}
+    plan = cpu_tr.make_plan_builder()(b.points, b.points_mask, b.gt_boxes, b.gt_labels, b.gt_mask)
+
+    def grads(tr, flips=None):
+        tr.init_state(0, state_dict=sd)
+        seen, hooks = _bn2d_outputs_and_flips(tr.model, flips)
+        try:
+            gt, plan_t = tr._to_device(b, plan)
+            g, logs, is_nan = tr._grads(gt, 5.0, plan_t)
+        finally:
+            for h in hooks:
+                h.remove()
+        assert not bool(is_nan) and float(logs["num_pos"]) > 0
+        return {n: v.cpu() for n, v in g.items()}, seen
+
+    counters = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad, masked_stats, masked_stats_bwd,
+                masked_batch_norm, masked_batch_norm_bwd)
+    before = [fn.launches for fn in counters] + [masked_batch_norm_bwd.reduce_launches]
+    gg, card_bn = grads(card_tr)
+    torch.cuda.synchronize()
+    launched = [fn.launches - n for fn, n in zip(counters, before[:-1])]
+    launched.append(masked_batch_norm_bwd.reduce_launches - before[-1])
+    assert launched == [0, 0, 0, 2, 1, 6, 6, 6], launched
+    gc, cpu_bn = grads(cpu_tr)
+    flips = {}
+    for k, card in card_bn.items():
+        differ = (card > 0) != (cpu_bn[k] > 0)
+        if differ.any():
+            assert card[differ].abs().max().item() <= BN_OUT_RTOL * card.abs().max().item(), k
+            flips[k] = differ
+    if flips:
+        gc, _ = grads(cpu_tr, flips)
+    _assert_grads_close(gc, gg)
