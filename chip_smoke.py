@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint and PointPillars paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars and strong-family paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -132,7 +132,28 @@ Phases (any failure exits non-zero and prints no result):
      entry point cli/train.main on the pillar config file with --validate
      --steps-per-epoch 2 on phase 7's KITTI layout (a checkpoint and a
      validation result). No path of (b), (d) and (f) may reach a plain
-     version of K2 (PlainVersionCalls) or a float32 sparse-conv kernel.
+     version of K2 (PlainVersionCalls) or a float32 sparse-conv kernel;
+ 10. the strong family at full width (StrongVoxelNetConfig on the SECOND
+     base: grid [41, 1600, 1408], 16000 voxels x 5 points, adversary (64,
+     128, 256, 128) with dropout 0.1 on the post-VFE features, bf16, random
+     weights, synthetic 20000-point frames with GT boxes), at the recipe's
+     B=1 and at B=6: (a) K2 on the inputs of one train step: the two
+     256-wide fused BNs (enc_bn_2, dec_bn_1) forward and backward and the
+     statistics at [B*16000, 256] bf16, each against its plain version,
+     bit-identical on a repeat, L2-cold, with device times and byte bounds,
+     and the adversary's 64 / 128-wide BNs checked alone; (b)
+     ST_TRAIN_STEPS StrongTrainer steps fed by with_plans, every step's
+     launches checked (ST_TRAIN_LAUNCHES by wrapper, ST_C256_LAUNCHES by
+     K2 kernel at C = 256), the momentum carry, the dynamic
+     scale and moved weights checked, step / plan ms, frames/s and peak
+     memory printed; (c) run_evaluation from (b)'s B=6 state, clean and
+     under the learned attack, launches per batch checked; (d)
+     cli/train_kitti_adversarial_strong.main on phase 7's KITTI layout with
+     --validate --epochs 2 --steps-per-epoch 2 at B=1 (a checkpoint,
+     val_history.json and the dashboard's verdict); (e) a small-grid float32
+     strong train step at the adversary's full widths, card vs CPU, its
+     sparse convs on the 3xTF32 kernels. (b) and (c) may reach no plain
+     version of K2 and no float32 sparse-conv kernel.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -180,6 +201,11 @@ BN_PARAM_GRAD_RTOL = 1e-4
 # the largest gradient of the model
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_GRAD_FLOOR = 1e-6
+# a ReLU's input card vs CPU, relative to its largest entry: the band within
+# which the two sides may round it to opposite signs of 0 (the ReLU-fused
+# BatchNorms of the SECOND small-grid step: at most 2.7e-6 on the H100,
+# tests/test_torch_kernels_cuda.py)
+BN_OUT_RTOL = 1e-5
 
 # kernel launches per train step, derived from the code: each of the 12
 # encoder convs runs the forward, the dgrad (every conv's input needs a
@@ -781,6 +807,8 @@ def mean_row(rows):
     error."""
     out = dict(rows[0])
     for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_kept_ms"):
+        if k not in out:
+            continue
         vals = [r[k] for r in rows]
         out[k] = None if None in vals else sum(vals) / len(vals)
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
@@ -1897,6 +1925,474 @@ def run_pointpillars(dev, card: str, seed: int, zero_counts, read_counts, expect
     return rows
 
 
+# phase 10: the strong family at full width (models/strong.StrongVoxelNetConfig:
+# the SECOND base, adversary (64, 128, 256, 128), dropout 0.1)
+ST_BATCHES = (1, 6)  # the recipe's batch (adversarial-second_strong.py) and SECOND's
+ST_TRAIN_STEPS = 6  # timed steps at each batch, after one warm-up step
+ST_EVAL_BATCHES = 2
+ST_BN_ADVERSARY = 8  # enc_bn_0..3, bottleneck_bn, dec_bn_0..2
+# kernel launches of a strong train step, derived from the code: the 12
+# encoder convs' forward, dgrad (the perturbation delta reaches conv_input's
+# features) and wgrad; the masked statistics under the adversary's std
+# normalisation (its input needs no gradient) and perturbation_losses (no
+# VJP: the strong objective takes none of those terms with a gradient); 20
+# train-mode MaskedBatchNorms (the adversary's 8, the encoder's 12), each
+# with the fused forward and backward and bwd_reduce (their parameters train)
+ST_TRAIN_LAUNCHES = {"sparse_conv": 12, "sparse_conv_dgrad": 12, "sparse_conv_wgrad": 12,
+                     "masked_stats": 2, "masked_stats_bwd": 0, "masked_batch_norm": 20,
+                     "masked_batch_norm_bwd": 20, "bwd_reduce": 20}
+# of those, the K2 kernels that run at C = 256 (KERNEL_LAUNCHES): the fused
+# forward (statistics + apply) and backward (bwd_reduce + dx) of enc_bn_2
+# and dec_bn_1
+ST_C256_LAUNCHES = {"stats_kernel": 2, "apply_kernel": 2, "bwd_reduce_kernel": 2,
+                    "dx_kernel": 2}
+
+
+def _bn_check(torch, name, x, mask, mod, gout):
+    """One captured train-mode BN (ReLU, no row mask) of the strong adversary
+    against the plain versions, bit-identical on a repeat: the max errors."""
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        _bn_forward, _bn_ref, masked_batch_norm_bwd, masked_batch_norm_bwd_ref)
+
+    w, b = mod.weight.detach(), mod.bias.detach()
+    rm, rv = mod.running_mean.clone(), mod.running_var.clone()
+    flags = (True, mod.momentum, mod.eps, True, False, x.dtype)
+    y, mean, var, cnt = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)
+    ref = _bn_ref(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
+    grads = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, True, False)
+    refs = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, True,
+                                     False)
+    errs = [(y.float() - ref.float()).abs().max().item()]
+    for got, r, tol in zip((y, *grads), (ref, *refs),
+                           (BN_RTOL, BN_RTOL, BN_PARAM_GRAD_RTOL, BN_PARAM_GRAD_RTOL)):
+        e = (got.float() - r.float()).abs().max().item()
+        if not e <= tol * max(r.float().abs().max().item(), 1e-6):
+            raise RuntimeError(f"strong {name} [{x.shape[0]}, {x.shape[1]}]: max error {e}")
+        errs.append(e)
+    y2 = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
+    again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, True, False)
+    if not (torch.equal(y, y2) and all(torch.equal(p, q) for p, q in zip(grads, again))):
+        raise RuntimeError(f"strong {name}: a repeat is not bit-identical")
+    return max(errs)
+
+
+def _strong_small_grads(dev, seed, small, read_counts, read_f32_counts, zero_counts):
+    """The float32 strong train step of config `small` (dropout 0, the
+    anti-adaptation flag fixed) on the card and on the CPU from the same
+    weights and plan: the gradients, with every ReLU gate of the CPU's step
+    set to the card's (the ReLU-fused MaskedBatchNorms run unfused there and
+    take the card's gate; the dense body's BatchNorm2d outputs flip sign
+    where the two sides disagree). Each unit whose gate differs must have
+    its input within BN_OUT_RTOL of its layer's scale (a rounding-level
+    kink, tests/test_torch_kernels_cuda.py's PGD case). Returns (worst error
+    over scale, the units aligned by layer, the float32 launches, (CPU loss,
+    card loss))."""
+    import numpy as np
+    import torch
+
+    import robustpointclouds_tpu_torch.nn.perturber as perturber
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+    from robustpointclouds_tpu_torch.nn.second import BatchNorm2d
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig
+    from robustpointclouds_tpu_torch.train.strong_loop import StrongTrainer
+
+    tb = synthetic_kitti_batch(np.random.RandomState(seed + 3), batch_size=2, num_points=600,
+                               max_gt=8, num_objects=3,
+                               point_range=small.base.voxelizer.point_cloud_range)
+    card_out, names, aligned = {}, {}, {}
+    cpu_side = [False]
+    forward = MaskedBatchNorm.forward
+
+    def check_band(name, pre, card, rows=None):
+        """The units whose gates differ; `rows`: the valid rows, to count
+        the aligned units on them apart from the padding rows'."""
+        band = BN_OUT_RTOL * max(card.abs().max().item(), 1e-12)
+        flipped = (pre > 0) != (card > 0)
+        if flipped.any() and not (pre[flipped].abs() <= band).all():
+            raise RuntimeError(f"strong small grid: {name} gates differ card vs CPU past the "
+                               f"rounding band ({pre[flipped].abs().max().item()} > {band})")
+        if flipped.any():
+            aligned[name] = {"units": int(flipped.sum())}
+            if rows is not None:
+                aligned[name]["on_valid_rows"] = int(flipped[rows].sum())
+        return flipped
+
+    def gated(self, x, mask, relu=False, row_mask=False, out_dtype=None):
+        name = names[id(self)]
+        if relu and cpu_side[0]:  # the ReLU's input times the card's gate
+            y = forward(self, x, mask, relu=False, row_mask=row_mask, out_dtype=out_dtype)
+            card = card_out[name]
+            pre = y.detach()
+            if (pre.clamp(min=0) - card).abs().max().item() > BN_OUT_RTOL * max(
+                    card.abs().max().item(), 1e-12):
+                raise RuntimeError(f"strong small grid: {name} output card vs CPU past "
+                                   f"{BN_OUT_RTOL}")
+            check_band(name, pre, card, mask.cpu())
+            return y * (card > 0)
+        out = forward(self, x, mask, relu=relu, row_mask=row_mask, out_dtype=out_dtype)
+        if relu:
+            card_out[name] = out.detach().cpu()
+        return out
+
+    def bn2d_hook(mod, inp, out):
+        name = names[id(mod)]
+        if not cpu_side[0]:
+            card_out[name] = out.detach().cpu()
+            return None
+        flipped = check_band(name, out.detach(), card_out[name])
+        return out + torch.where(flipped, -2 * out, torch.zeros_like(out)).detach()
+
+    perturber.PERT_BF16 = False
+    MaskedBatchNorm.forward = gated
+    results, sd, hooks = [], None, []
+    try:
+        for d in (dev, torch.device("cpu")):
+            cpu_side[0] = d.type == "cpu"
+            tr = StrongTrainer(small, TrainConfig(), device=d)
+            tr.init_state(seed, state_dict=sd, batch_size=2)
+            sd = sd or {k: v.cpu() for k, v in tr.model.state_dict().items()}
+            for name, mod in tr.model.named_modules():
+                names[id(mod)] = name
+                if isinstance(mod, BatchNorm2d):
+                    hooks.append(mod.register_forward_hook(bn2d_hook))
+            splan = tr.make_plan_builder()(tb.points, tb.points_mask, tb.gt_boxes, tb.gt_labels,
+                                           tb.gt_mask)
+            gt, splan_d = tr._to_device(tb, splan)
+            if not cpu_side[0]:
+                zero_counts()
+            g_d, logs_d, nan_d = tr._grads(gt, 0.0, splan_d)
+            if bool(nan_d):
+                raise RuntimeError(f"strong small-grid train step on {d} is a NaN step")
+            if not cpu_side[0]:
+                torch.cuda.synchronize()
+                f32 = read_f32_counts()
+                if f32 != {k: read_counts()[k] for k in f32} or not all(f32.values()):
+                    raise RuntimeError(f"strong float32 small grid: 3xTF32 launches {f32}, all "
+                                       f"launches {read_counts()}")
+            results.append(({k: v.cpu() for k, v in g_d.items()}, float(logs_d["loss"])))
+            for h in hooks:
+                h.remove()
+            hooks = []
+    finally:
+        MaskedBatchNorm.forward = forward
+        perturber.PERT_BF16 = True
+    (gg, lg), (gc, lc) = results
+    gmax = max(v.abs().max().item() for v in gc.values())
+    worst = 0.0
+    for k, ref in gc.items():
+        scale = max(ref.abs().max().item(), TRAIN_GRAD_FLOOR * gmax / TRAIN_GRAD_RTOL)
+        err = (gg[k] - ref).abs().max().item()
+        worst = max(worst, err / scale)
+        if not err <= TRAIN_GRAD_RTOL * scale:
+            raise RuntimeError(f"strong small-grid float32 gradient {k}: card vs CPU error {err} "
+                               f"over scale {scale}")
+    if not abs(lc - lg) <= 1e-4 * abs(lc):
+        raise RuntimeError(f"strong small-grid float32 loss: card {lg} vs CPU {lc}")
+    return worst, aligned, f32, (lc, lg)
+
+
+def run_strong(dev, card: str, seed: int, zero_counts, read_counts, read_f32_counts,
+               expect_bf16_kernels, data_root: str, work_root: str):
+    """Phase 10: the strong family at full width (module docstring). Returns
+    the kernels JSON rows of K2 at C = 256; prints a summary line."""
+    import numpy as np
+    import torch
+
+    from robustpointclouds_tpu_torch.cli import train_kitti_adversarial_strong as strong_cli
+    from robustpointclouds_tpu_torch.cli.common import (
+        prefetch_iterator, run_evaluation, synthetic_loader, tiny_voxelnet_cfg, with_plans)
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.kernels.masked_stats import KERNEL_LAUNCHES
+    from robustpointclouds_tpu_torch.models.strong import StrongVoxelNetConfig
+    from robustpointclouds_tpu_torch.models.voxelnet import VoxelNetConfig
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+    from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig
+    from robustpointclouds_tpu_torch.train.strong_loop import StrongTrainer
+
+    t_phase = time.time()
+    cfg = StrongVoxelNetConfig(base=VoxelNetConfig(adversary=None))
+    pcr = cfg.base.voxelizer.point_cloud_range
+    max_voxels = cfg.base.voxelizer.max_voxels
+    wide = ("adversary.enc_bn_2", "adversary.dec_bn_1")
+    k2, train_summary, eval_summary = {}, {}, {}
+    for bsz in ST_BATCHES:
+        n_rows = bsz * max_voxels
+        trainer = StrongTrainer(cfg, TrainConfig(), device=dev)
+        trainer.init_state(seed, batch_size=bsz)
+        mods = dict(trainer.model.named_modules())
+        adv_bns = [n for n, m in mods.items() if n.startswith("adversary.")
+                   and isinstance(m, MaskedBatchNorm)]
+        n_bn = sum(isinstance(m, MaskedBatchNorm) for m in mods.values())
+        if len(adv_bns) != ST_BN_ADVERSARY or n_bn != ST_TRAIN_LAUNCHES["masked_batch_norm"] or [
+                mods[n].num_features for n in wide] != [256, 256]:
+            raise RuntimeError(f"strong model: BNs {adv_bns} of {n_bn}")
+        builder = trainer.make_plan_builder()
+        loader = synthetic_loader(bsz, 1 + ST_TRAIN_STEPS, num_points=20000, seed=seed + bsz,
+                                  point_range=pcr)
+        train_iter = prefetch_iterator(with_plans(builder, loader(0)))
+
+        # the warm-up step, capturing the adversary's BN inputs, their output
+        # cotangents and the adversary's input rows
+        bn_in, bn_g, adv_in, hooks = {}, {}, {}, []
+
+        def capture_g(out, name):  # a forward hook that returns nothing keeps the output
+            out.register_hook(lambda g: bn_g.__setitem__(name, g.contiguous()))
+
+        for name in adv_bns:
+            hooks.append(mods[name].register_forward_pre_hook(
+                lambda m, a, name=name: bn_in.__setitem__(name, (a[0].detach(), a[1]))))
+            hooks.append(mods[name].register_forward_hook(
+                lambda m, a, out, name=name: capture_g(out, name)))
+        hooks.append(trainer.model.adversary.register_forward_pre_hook(
+            lambda m, a: adv_in.update(x=a[0].detach(), mask=a[1])))
+        batch, tplan = next(train_iter)
+        warm = trainer.train_step(batch, 0, tplan)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        if len(bn_in) != ST_BN_ADVERSARY or len(bn_g) != ST_BN_ADVERSARY or adv_in[
+                "x"].shape != (n_rows, 4):
+            raise RuntimeError(f"strong B={bsz} warm-up captured {len(bn_in)} BN inputs, "
+                               f"{len(bn_g)} cotangents, adversary rows {tuple(adv_in['x'].shape)}")
+        if not float(trainer.state.momentum.abs().max()) > 0:
+            raise RuntimeError(f"strong B={bsz}: the momentum carry is zero after a step")
+        print(f"phase 10: B={bsz} train warm-up loss {float(warm['loss']):.4f}, "
+              f"{int(tplan['voxel_mask'].sum())} voxels of {n_rows} rows; momentum carried "
+              f"[{card}]", flush=True)
+
+        # (a) K2 on the warm-up step's own inputs: the 256-wide BNs and the
+        # statistics at C = 256 timed, the 64 / 128-wide BNs checked
+        t0 = time.time()
+        rows = {}
+        for name in adv_bns:
+            x, mask = bn_in[name]
+            if x.dtype != torch.bfloat16 or x.shape[0] != n_rows:
+                raise RuntimeError(f"strong {name}: x {tuple(x.shape)} {x.dtype}")
+            if name not in wide:
+                err = _bn_check(torch, name, x.contiguous(), mask.contiguous(), mods[name],
+                                bn_g[name])
+                print(f"phase 10 B={bsz} {name} [{n_rows}, {x.shape[1]}] bf16: fused forward and "
+                      f"backward agree with the plain versions (max error {err:.3g}), repeats "
+                      f"bit-identical [{card}]", flush=True)
+                continue
+            mod = mods[name]
+            with torch.no_grad():
+                w, b = mod.weight.detach().clone(), mod.bias.detach().clone()
+                rm, rv = mod.running_mean.clone(), mod.running_var.clone()
+            fwd, bwd = bn_case(torch, name, 1, x.contiguous(), mask.contiguous(), w, b, rm, rv,
+                               bn_g[name], True, True, False, None, momentum=mod.momentum)
+            rows.setdefault("masked_batch_norm", []).append(fwd)
+            rows.setdefault("masked_batch_norm_bwd", []).append(bwd)
+            for r in (fwd, bwd):
+                print(f"phase 10 B={bsz} {r['kernel']} {name} [{r['n']}, {r['c']}] bf16: "
+                      + json.dumps(r) + f" [{card}]", flush=True)
+        x, mask = bn_in[wide[0]]
+        rows["masked_stats"] = [stats_case(torch, x.contiguous(), mask.contiguous(), None)]
+        print(f"phase 10 B={bsz} masked_stats {wide[0]} input [{n_rows}, 256] bf16: "
+              + json.dumps(rows["masked_stats"][0]) + f" [{card}]", flush=True)
+        ax, am = adv_in["x"].contiguous(), adv_in["mask"].contiguous()
+        adv_stats = stats_case(torch, ax, am, None)
+        print(f"phase 10 B={bsz} masked_stats adversary input [{n_rows}, 4] float32: "
+              + json.dumps(adv_stats) + f" [{card}]", flush=True)
+        k2[bsz] = {k: mean_row(v) for k, v in rows.items()}
+        del bn_in, bn_g, adv_in, ax, am, x, mask
+        print(f"phase 10 B={bsz} (a) K2 checks and timing: {time.time() - t0:.1f} s [{card}]",
+              flush=True)
+
+        # (b) timed steps, every step's launches checked; the dynamic scale
+        # updated from each step's logs, as the CLI does at its log steps
+        params = dict(trainer.model.named_parameters())
+        watch = ("middle_encoder.conv_input.0.weight", "backbone.blocks.0.0.weight",
+                 "adversary.enc_2.weight", "adversary.out.weight")
+        before = {k: params[k].detach().clone() for k in watch}
+        trainer.update_dynamic_scaling(trainer.state, 1)
+        scale0 = float(trainer.state.scale_factor)
+        if scale0 == 1.0:
+            raise RuntimeError("strong: update_dynamic_scaling left the scale at 1")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps, c256 = [], dict.fromkeys(ST_C256_LAUNCHES, 0)
+        with PlainVersionCalls() as plain:
+            for _ in range(ST_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                batch, tplan = next(train_iter)
+                t1 = time.perf_counter()
+                zero_counts()
+                # the scale the step must apply: the dynamic one x the curriculum
+                scale = min(float(trainer.state.scale_factor)
+                            * min(1.0 + trainer.state.step / 1e4, 2.0), cfg.max_scaling)
+                logs = trainer.train_step(batch, 1, tplan)
+                logs = {k: float(v) for k, v in logs.items()}  # waits for the step
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                got = read_counts()
+                wide_got = {k: n for (k, c), n in KERNEL_LAUNCHES.items() if c == 256}
+                if got != ST_TRAIN_LAUNCHES or wide_got != ST_C256_LAUNCHES:
+                    raise RuntimeError(f"strong B={bsz} train step launches {got}, at C = 256 "
+                                       f"{wide_got}; expected {ST_TRAIN_LAUNCHES}, "
+                                       f"{ST_C256_LAUNCHES}")
+                for k, n in wide_got.items():
+                    c256[k] += n
+                if not all(np.isfinite(v) for v in logs.values()) or not (
+                        logs["perturbation_l2_norm"] > 0):
+                    raise RuntimeError(f"strong B={bsz} train step logs {logs}")
+                if abs(logs["attack_scale"] - scale) > 1e-5 * scale:
+                    raise RuntimeError(f"strong: attack_scale {logs['attack_scale']} from the "
+                                       f"dynamic scale {scale}")
+                trainer.update_dynamic_scaling(trainer.state, 1, logs)
+                steps.append(dict(wait_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+                                  loss=logs["loss"], anti=logs["anti_adaptation"],
+                                  scale=logs["attack_scale"], l2=logs["perturbation_l2_norm"]))
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        for _ in train_iter:  # drain the prefetch thread
+            pass
+        expect_bf16_kernels(f"strong B={bsz} training")
+        if plain.calls:
+            raise RuntimeError(f"strong training reached a plain version {plain.calls} times")
+        if int(trainer.state.nan_count) != 0:
+            raise RuntimeError(f"strong B={bsz}: NaN steps")
+        for k in watch:
+            if torch.equal(before[k], params[k].detach()):
+                raise RuntimeError(f"strong B={bsz}: {k} did not move")
+        for st in steps:
+            print(f"phase 10 B={bsz} train step " + json.dumps(st) + f" [{card}]", flush=True)
+        builds = list(builder.timings)
+        for key in ("native_ms", "assign_ms", "plan_ms"):
+            print(f"phase 10 B={bsz} plan build {key} ({len(builds)} builds): "
+                  f"{json.dumps([round(b[key], 3) for b in builds])} [{card}]", flush=True)
+        steady = steps[PREFETCHED_STEPS:]
+        train_summary[bsz] = dict(
+            median_step_ms=statistics.median(st["step_ms"] for st in steps),
+            steady_frames_per_s=bsz * len(steady) / sum(
+                (st["wait_ms"] + st["step_ms"]) / 1e3 for st in steady),
+            plan_ms=statistics.mean(b["plan_ms"] for b in builds),
+            native_ms=statistics.mean(b["native_ms"] for b in builds),
+            assign_ms=statistics.mean(b["assign_ms"] for b in builds), peak_gib=peak_gib)
+        print(f"phase 10 training B={bsz} full width: median step_ms "
+              f"{train_summary[bsz]['median_step_ms']:.1f} (host clock, step to synchronise), "
+              f"steady {train_summary[bsz]['steady_frames_per_s']:.3f} frames/s over the last "
+              f"{len(steady)} steps; plan build {train_summary[bsz]['plan_ms']:.1f} ms (native "
+              f"{train_summary[bsz]['native_ms']:.1f} + assignment "
+              f"{train_summary[bsz]['assign_ms']:.1f}); max_memory_allocated {peak_gib:.2f} GiB; "
+              f"per step " + json.dumps(ST_TRAIN_LAUNCHES) + f", K2 at C = 256 over the "
+              f"{len(steps)} steps " + json.dumps(c256) + f" [{card}]", flush=True)
+        k2[bsz]["launches"] = c256
+
+        # (c) evaluation from the B=6 state, clean and under the learned attack
+        if bsz == 6:
+            rng = np.random.RandomState(seed + 10)
+            eval_batches = [synthetic_kitti_batch(rng, batch_size=6, num_points=20000, max_gt=20,
+                                                  num_objects=8, point_range=pcr)
+                            for _ in range(ST_EVAL_BATCHES)]
+            clean = dict.fromkeys(ST_TRAIN_LAUNCHES, 0)
+            clean.update(sparse_conv=12, masked_batch_norm=12)
+            for name, kw, want in (("clean", {}, clean),
+                                   ("learned", dict(attack=True),
+                                    dict(clean, masked_stats=2,
+                                         masked_batch_norm=12 + ST_BN_ADVERSARY))):
+                torch.cuda.synchronize()
+                zero_counts()
+                timings = {}
+                with PlainVersionCalls() as plain:
+                    res = run_evaluation(trainer, eval_batches, timings=timings, **kw)
+                    torch.cuda.synchronize()
+                got = read_counts()
+                want = {k: v * ST_EVAL_BATCHES for k, v in want.items()}
+                if got != want or plain.calls:
+                    raise RuntimeError(f"strong eval {name}: launches {got}, expected {want}; "
+                                       f"{plain.calls} plain-version calls")
+                if res["num_frames"] != 6 * ST_EVAL_BATCHES or not np.isfinite(
+                        res["mAP_3d_moderate"]):
+                    raise RuntimeError(f"strong eval {name}: {res}")
+                eval_summary[name] = {k: statistics.mean(bt[k] for bt in timings["batches"])
+                                      for k in ("plan_ms", "device_ms", "metric_ms")}
+                print(f"phase 10 eval {name} (B=6, {ST_EVAL_BATCHES} batches): mean per batch "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in eval_summary[name].items())
+                      + f"; launches {json.dumps(got)} [{card}]", flush=True)
+            expect_bf16_kernels("strong evaluation")
+        del trainer, builder, train_iter, params, before
+
+    # (d) the strong CLI on phase 7's KITTI layout, B=1, validating every 2 epochs
+    work = os.path.join(work_root, "strong")
+    shutil.rmtree(work, ignore_errors=True)
+    cli_steps = []
+    plain_step = StrongTrainer.train_step
+
+    def counted_step(self, batch, epoch=0, plan=None):
+        zero_counts()
+        t0 = time.perf_counter()
+        logs = plain_step(self, batch, epoch, plan)
+        torch.cuda.synchronize()
+        cli_steps.append({"step_ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts()})
+        return logs
+
+    t0 = time.perf_counter()
+    StrongTrainer.train_step = counted_step
+    try:
+        out = strong_cli.main(["--data-root", data_root, "--validate", "--epochs", "2",
+                               "--steps-per-epoch", "2", "--work-dir", work, "--seed", str(seed)])
+    finally:
+        StrongTrainer.train_step = plain_step
+    cli_s = time.perf_counter() - t0
+    expect_bf16_kernels("strong CLI")
+    if len(cli_steps) != 4 or any(st["launches"] != ST_TRAIN_LAUNCHES for st in cli_steps):
+        raise RuntimeError(f"strong CLI steps {cli_steps}")
+    ap = out["history"].get("val_epoch1", {})
+    if CheckpointManager(work).latest_epoch() != 1 or not ap or not all(
+            np.isfinite(v) for v in ap.values()) or not os.path.isfile(
+            os.path.join(work, "val_history.json")) or not os.path.isfile(
+            os.path.join(work, "adversarial_progress.json")):
+        raise RuntimeError(f"strong CLI: checkpoint {CheckpointManager(work).latest_epoch()}, "
+                           f"validation {ap}")
+    print(f"phase 10 strong CLI (KITTI layout, B=1, 2 epochs x 2 steps + validation on "
+          f"{ap['num_frames']} frames): {cli_s:.1f} s; steps "
+          f"{json.dumps([round(st['step_ms'], 1) for st in cli_steps])} ms; plans "
+          f"{json.dumps([round(p['plan_ms'], 1) for p in out['plans']])} ms; mAP_3d_moderate "
+          f"{ap['mAP_3d_moderate']:.3f}; epoch_1.pt, val_history.json written; dashboard: "
+          f"{out['monitor'].verdict()} [{card}]", flush=True)
+
+    # (e) a small-grid float32 strong train step at the adversary's full
+    # widths (its 256-wide BNs in float32), card vs CPU
+    small = cfg._replace(
+        base=tiny_voxelnet_cfg()._replace(adversary=None, compute_dtype="float32"),
+        perturber={**cfg.perturber, "dropout_rate": 0.0}, anti_adaptation_prob=0.0)
+    worst, aligned, f32_launches, (lc, lg) = _strong_small_grads(
+        dev, seed, small, read_counts, read_f32_counts, zero_counts)
+    print(f"phase 10 small-grid float32 strong train step (adversary "
+          f"{cfg.perturber['hidden_channels']}): gradients agree card vs CPU (worst "
+          f"{worst:.2e} of scale) with the CPU's ReLU gates set to the card's where the two "
+          f"round an input within {BN_OUT_RTOL} of its scale to opposite signs "
+          f"({json.dumps(aligned)}), loss {lg:.6f} vs {lc:.6f}; 3xTF32 launches "
+          f"{json.dumps(f32_launches)} [{card}]", flush=True)
+    print(f"phase 10: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+
+    src = "robustpointclouds_tpu_torch/csrc/masked_stats.cu"
+    tpu = "robustpointclouds_tpu/kernels/masked_stats.py"
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    out_rows = []
+    for bsz, per in k2.items():
+        # launches: the C = 256 launches that (b)'s timed steps counted of the
+        # row's kernel (the fused forward's apply_kernel, the backward's
+        # dx_kernel); the statistics row is the stats_kernel that the fused
+        # forward launches, timed here alone through masked_stats
+        for name, kernel, line, counted in (
+                ("masked_batch_norm", "masked_batch_norm", 63, "apply_kernel"),
+                ("masked_batch_norm_bwd", "masked_batch_norm_bwd", 102, "dx_kernel"),
+                ("stats_kernel_in_masked_batch_norm", "masked_stats", 113, "stats_kernel")):
+            r = per[kernel]
+            out_rows.append({"name": f"{name}_strong_c256_b{bsz}", "route": "cuda",
+                             "source": src, "replaces": f"{tpu}:{line}",
+                             "launches": per["launches"][counted], "counted": counted,
+                             "shape": [r["n"], r["c"], "bfloat16"],
+                             **{k: r[k] for k in keys}})
+    print("phase 10 summary " + json.dumps(dict(
+        training=train_summary, evaluation=eval_summary, strong_cli_s=cli_s,
+        small_grid_worst=worst)) + f" [{card}]", flush=True)
+    return out_rows
+
+
 def bn_step_total(rows, kernel):
     """One train step's sum over its 17 MaskedBatchNorms (count x each
     shape); a device time that one shape did not measure leaves the sum not
@@ -1940,7 +2436,8 @@ def main() -> int:
     from robustpointclouds_tpu_torch.kernels.gather import (
         gather_elems, gather_onehot, gather_row_loop, gather_rows)
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
-        masked_batch_norm, masked_batch_norm_bwd, masked_stats, masked_stats_bwd)
+        KERNEL_LAUNCHES, masked_batch_norm, masked_batch_norm_bwd, masked_stats,
+        masked_stats_bwd)
     from robustpointclouds_tpu_torch.kernels.sparse_conv import (
         sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
     from robustpointclouds_tpu_torch.models.detection import anchor_head_predict
@@ -1965,6 +2462,7 @@ def main() -> int:
     def zero_counts():
         for fn in (*counters.values(), *gather_counters.values()):
             fn.launches = 0
+        KERNEL_LAUNCHES.clear()
         for fn in conv_counters.values():
             fn.tf32_launches = 0
         masked_batch_norm_bwd.reduce_launches = 0
@@ -2451,6 +2949,10 @@ def main() -> int:
     # ---- phase 9: PointPillars at full width, and the generic training entry point
     pp_rows = run_pointpillars(dev, card, args.seed, zero_counts, read_counts,
                                expect_bf16_kernels, os.path.join(KITTI_ROOT, "data"), KITTI_ROOT)
+
+    # ---- phase 10: the strong family at full width, and its training entry point
+    st_rows = run_strong(dev, card, args.seed, zero_counts, read_counts, read_f32_counts,
+                         expect_bf16_kernels, os.path.join(KITTI_ROOT, "data"), KITTI_ROOT)
     shutil.rmtree(KITTI_ROOT, ignore_errors=True)
 
     k2 = stats_rows[0]
@@ -2519,6 +3021,7 @@ def main() -> int:
         kernels.append(entry)
     kernels.extend(cp_rows)
     kernels.extend(pp_rows)
+    kernels.extend(st_rows)
     for row in (*kernels, *(r["scale"] for r in kernels if "scale" in r)):
         for key in ("device_ms", "prev_device_ms"):
             if key in row and row[key] is None:  # the profiles did not hold their set

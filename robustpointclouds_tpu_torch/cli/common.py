@@ -381,12 +381,16 @@ def run_evaluation(trainer: Trainer, batches, attack: bool = False,
     work up to the detections on the host, and of the metric updates) and
     "ap_ms" (the final AP computation).
     """
-    cfg = trainer.model_cfg
+    # a StrongTrainer wraps the base detector config under .base
+    cfg = getattr(trainer.model_cfg, "base", trainer.model_cfg)
     # 2d/aos compute only when the loader supplies image-plane metas
     metric = KittiMetric(classes=tuple(cfg.class_names), metrics=("3d", "bev", "2d", "aos"))
     plan_builder = trainer.make_plan_builder()
     attack_fn = None
     if attack and attack_method != "learned":
+        if hasattr(trainer.model_cfg, "base"):
+            raise ValueError(f"attack_method={attack_method!r} needs an anchor-head Trainer "
+                             "(the strong family attacks with its learned adversary only)")
         if attack_method == "fgsm":
             attack_fn = make_plan_attack(trainer, steps=1, rel_step=1.0)
         elif attack_method == "pgd":

@@ -3,10 +3,12 @@
 Maps the dict schema of `configs/*.py` (core/config.Config) onto the static
 NamedTuple / dataclass configs the port's models and trainer take, so that
 `--cfg-options model.adversary_cfg.sensor_error_bound=0.3` really changes
-the built model. Ported: the SECOND/VoxelNet family and the train config,
-which the KITTI training CLI needs. The CenterPoint, PointPillars and
-generic `build_model_config` builders are not ported yet (ROADMAP.md, M11,
-M13 and M14).
+the built model: the SECOND/VoxelNet, CenterPoint and PointPillars families,
+the dispatch on `model.type` (`build_model_config`) and the train config.
+As in the JAX package, `StrongAdversarialVoxelNet` maps to a plain
+VoxelNetConfig: the strong family trains through its own entry point
+(cli/train_kitti_adversarial_strong.py), which builds StrongVoxelNetConfig
+from its defaults.
 """
 from __future__ import annotations
 

@@ -38,8 +38,10 @@
 //
 // What bounds them on this card: a few flops a byte and no tensor-core work,
 // so bytes. Every kernel streams [N, C] rows with 16-byte loads (one float4 a
-// thread at C = 4 float32, 8 channels a load for bfloat16; 8-byte loads for
-// 4-channel bfloat16 rows), C / VEC threads a row, each thread's channels
+// thread at C = 4-128 float32, 8 channels a load for bfloat16; 8-byte loads
+// for 4-channel bfloat16 rows; two float4s a thread at C = 256 float32, so
+// that a row never spans more than one warp), C / VEC threads a row (at most
+// 32), each thread's channels
 // fixed for its whole grid-stride walk so its per-channel coefficients stay
 // in registers; several rows are loaded before any is used, so each thread
 // keeps several loads in flight. Rows outside the mask are not read where
@@ -51,7 +53,7 @@
 // reads the partials from L2 kMerge at a time; a small input gets fewer
 // blocks (a whole batch of rows a thread), so fewer partials to merge.
 //
-// Contract: x [N, C] row-major, N >= 1, C a power of two in [4, 128], float32
+// Contract: x [N, C] row-major, N >= 1, C a power of two in [4, 256], float32
 // or bfloat16; mask [N] bytes 0/1; statistics, parameters and running
 // statistics float32. The workspace and ticket belong to one (device,
 // stream): the port runs on one stream, so two reductions never share them
@@ -68,7 +70,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 2;  // blocks resident on each SM: the grids are one wave of them
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxC = 128;
+constexpr int kMaxC = 256;  // = kThreads: the merges give each channel a thread
+constexpr int kVec4MaxC = 128;  // float32 rows up to this width load one float4 a thread
 constexpr int kUnroll = 4;       // rows a thread loads before it uses any
 constexpr int kStatsUnroll = 8;  // the same for the statistics (one input, few registers)
 constexpr int kMerge = 8;        // partials the last block loads before it sums any
@@ -648,7 +651,7 @@ vjp_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
 
 bool bad_shape(int64_t n_rows, int c, int dtype, int vec, int blocks) {
   const bool pow2 = c >= 4 && c <= kMaxC && (c & (c - 1)) == 0;
-  const int want = (dtype == 0 || c == 4) ? 4 : 8;
+  const int want = ((dtype == 0 && c <= kVec4MaxC) || c == 4) ? 4 : 8;
   return !pow2 || (dtype != 0 && dtype != 1) || vec != want || n_rows < 1 || blocks < 1;
 }
 
@@ -657,11 +660,15 @@ cudaError_t invalid() { return cudaErrorInvalidValue; }
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. IN_CASES binds Tin and VEC (4 for
-// float32; 8 for bfloat16, 4 at C = 4), OUT_CASES binds To.
+// float32, 8 at C = 256; 8 for bfloat16, 4 at C = 4), OUT_CASES binds To.
 #define IN_CASES(dtype, vec, ...)                  \
   if ((dtype) == 0 && (vec) == 4) {                \
     using Tin = float;                             \
     constexpr int VEC = 4;                         \
+    __VA_ARGS__;                                   \
+  } else if ((dtype) == 0 && (vec) == 8) {         \
+    using Tin = float;                             \
+    constexpr int VEC = 8;                         \
     __VA_ARGS__;                                   \
   } else if ((dtype) == 1 && (vec) == 8) {         \
     using Tin = __nv_bfloat16;                     \

@@ -35,12 +35,14 @@ features): the wrapper zero-pads the columns to the next width (5 -> 8)
 and drops the pad columns of the result. The statistics are per channel,
 so the padding is exact. Each wrapper counts its
 launches (`.launches`); `masked_batch_norm_bwd.reduce_launches` counts the
-backward calls that ran `bwd_reduce`. The launch plan (`row_plan`) is plain
+backward calls that ran `bwd_reduce`; `KERNEL_LAUNCHES` counts every launch
+of the five kernels by (kernel, C), C the width the kernel ran at. The launch plan (`row_plan`) is plain
 Python, checked on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -49,17 +51,20 @@ import torch.nn.functional as F
 from ._build import load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-WIDTHS = (4, 8, 16, 32, 64, 128)  # C: powers of two up to csrc kMaxC
+WIDTHS = (4, 8, 16, 32, 64, 128, 256)  # C: powers of two up to csrc kMaxC
 _THREADS = 256  # csrc kThreads
 _SMS = 132  # an H100's SMs
 _BLOCKS_PER_SM = 2  # csrc kMinBlocks: every grid is one wave of resident blocks
 _REDUCE_ROWS = 8  # rows a reduction's thread takes at least (csrc kStatsUnroll)
+_VEC4_MAX_C = 128  # float32 rows up to this width load one float4 a thread (csrc kVec4MaxC)
+KERNEL_LAUNCHES: Counter = Counter()  # (kernel name in csrc, C) -> launches
 
 
 class RowPlan(NamedTuple):
     """Launch of one kernel of csrc/masked_stats.cu over [N, C] rows."""
-    vec: int  # channels a thread loads at once (16 bytes; 8 for 4-channel bf16 rows)
-    lanes: int  # threads a row: C / vec
+    vec: int  # channels a thread loads at once: 16 bytes (8 for 4-channel bf16
+    # rows; two 16-byte loads for 256-channel float32 rows, so a row fits a warp)
+    lanes: int  # threads a row: C / vec, at most 32
     rows_per_block: int  # rows a block visits per grid step
     blocks: int
     workspace_floats: int  # partials of a reduction: blocks * (2C + 1)
@@ -77,7 +82,7 @@ def row_plan(n: int, c: int, dtype: torch.dtype, reduce: bool) -> RowPlan:
         raise ValueError(f"masked statistics: C={c} must be one of {WIDTHS}")
     if n < 1:
         raise ValueError("masked statistics: x has no rows")
-    vec = 4 if dtype == torch.float32 or c == 4 else 8
+    vec = 4 if (dtype == torch.float32 and c <= _VEC4_MAX_C) or c == 4 else 8
     lanes = c // vec
     rows = _THREADS // lanes
     if reduce:  # a full batch of rows a thread: fewer partials on small inputs
@@ -171,25 +176,30 @@ _FNS: Dict[str, object] = {}
 _WORKSPACES: Dict[tuple, list] = {}
 
 
+def bind(lib: ctypes.CDLL) -> Dict[str, object]:
+    """The five entry points of a build of csrc/masked_stats.cu, typed."""
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    args = {  # pointers and the stream must not pass as 32-bit ints
+        "rpc_masked_stats": [p, p, p, p, p, p, p, f, f, i64, i, i, i, i, p],
+        "rpc_masked_bn_apply": [p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i, i, p],
+        "rpc_masked_bn_bwd_reduce": [p, p, p, p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i,
+                                     i, p],
+        "rpc_masked_bn_dx": [p, p, p, p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i, i, i, p],
+        "rpc_masked_stats_vjp": [p, p, p, p, p, p, p, i64, i, i, i, i, p],
+    }
+    fns = {}
+    for key, types in args.items():
+        fn = getattr(lib, key)
+        fn.argtypes = types
+        fn.restype = i
+        fns[key] = fn
+    return fns
+
+
 def _fn(name: str):
-    fn = _FNS.get(name)
-    if fn is None:
-        lib = load_library("masked_stats")
-        p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-        args = {  # pointers and the stream must not pass as 32-bit ints
-            "rpc_masked_stats": [p, p, p, p, p, p, p, f, f, i64, i, i, i, i, p],
-            "rpc_masked_bn_apply": [p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i, i, p],
-            "rpc_masked_bn_bwd_reduce": [p, p, p, p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i,
-                                         i, p],
-            "rpc_masked_bn_dx": [p, p, p, p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i, i, i, p],
-            "rpc_masked_stats_vjp": [p, p, p, p, p, p, p, i64, i, i, i, i, p],
-        }
-        for key, types in args.items():
-            getattr(lib, key).argtypes = types
-            getattr(lib, key).restype = i
-            _FNS[key] = getattr(lib, key)
-        fn = _FNS[name]
-    return fn
+    if not _FNS:
+        _FNS.update(bind(load_library("masked_stats")))
+    return _FNS[name]
 
 
 def _rc(name: str, rc: int) -> None:
@@ -262,6 +272,7 @@ def _launch_stats(name: str, x: torch.Tensor, mask: torch.Tensor, stream: int,
         x.data_ptr(), mask.data_ptr(), out.data_ptr(), ws, ticket, _ptr(running_mean),
         _ptr(running_var), momentum, 1.0 - momentum, n, c, _DTYPE_CODES[x.dtype], plan.vec,
         plan.blocks, stream))
+    KERNEL_LAUNCHES["stats_kernel", c] += 1
     return out[:c], out[c:2 * c], out[2 * c]
 
 
@@ -333,6 +344,7 @@ def _launch_stats_vjp(x, mask, mean, cnt, g_mean, g_var) -> torch.Tensor:
         x.data_ptr(), mask.data_ptr(), mean.data_ptr(), cnt.data_ptr(), _ptr(g_mean),
         _ptr(g_var), dx.data_ptr(), n, c, _DTYPE_CODES[x.dtype], plan.vec, plan.blocks,
         _stream(x.device)))
+    KERNEL_LAUNCHES["vjp_kernel", c] += 1
     return dx
 
 
@@ -388,6 +400,7 @@ def _bn_forward(x, mask, weight, bias, running_mean, running_var, training, mome
         x.data_ptr(), mask.data_ptr(), mean.data_ptr(), var.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), y.data_ptr(), n, c, eps, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
         plan.vec, int(relu), int(row_mask), plan.blocks, stream))
+    KERNEL_LAUNCHES["apply_kernel", c] += 1
     masked_batch_norm.launches += 1
     return y, mean, var, cnt
 
@@ -424,6 +437,7 @@ def masked_batch_norm_bwd(g: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
             weight.data_ptr(), bias.data_ptr(), sums.data_ptr(), ws, ticket, n, c, eps,
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[g.dtype], plan.vec, int(relu), int(row_mask),
             plan.blocks, stream))
+        KERNEL_LAUNCHES["bwd_reduce_kernel", c] += 1
         masked_batch_norm_bwd.reduce_launches += 1
         if need_params:
             db, dw = sums[:c], sums[c:]
@@ -435,6 +449,7 @@ def masked_batch_norm_bwd(g: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
             _ptr(cnt) if training else None, weight.data_ptr(), bias.data_ptr(), _ptr(sums),
             dx.data_ptr(), n, c, eps, _DTYPE_CODES[x.dtype], _DTYPE_CODES[g.dtype], plan.vec,
             int(relu), int(row_mask), int(training), plan.blocks, stream))
+        KERNEL_LAUNCHES["dx_kernel", c] += 1
     masked_batch_norm_bwd.launches += 1
     return dx, dw, db
 

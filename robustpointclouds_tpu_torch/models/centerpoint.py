@@ -22,6 +22,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core.registry import MODELS
 from ..data.native_plan import build_plan_native
 from ..nn.center_head import NUSCENES_TASKS, CenterHead
 from ..nn.perturber import VoxelPerturber
@@ -75,6 +76,8 @@ class CenterPointOutputs(NamedTuple):
     adv_aux: Dict[str, torch.Tensor]
 
 
+@MODELS.register_module()
+@MODELS.register_module(name="CenterPoint")
 class AdversarialCenterPoint(nn.Module):
     """CenterPoint with an optional pre-encoder voxel adversary; module names
     are mmdet3d's (`pts_middle_encoder`, `pts_backbone`, `pts_neck`,

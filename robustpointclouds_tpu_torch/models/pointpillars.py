@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.registry import MODELS
 from ..data.native_plan import build_pillar_plan_native
 from ..nn.anchor_head import Anchor3DHead
 from ..nn.layers import MaskedBatchNorm
@@ -155,6 +156,8 @@ def build_pillar_plan(points, points_mask, cfg: PointPillarsConfig) -> Dict[str,
     return build_pillar_plan_native(np.asarray(points), np.asarray(points_mask), cfg.voxelizer, 4)
 
 
+@MODELS.register_module()
+@MODELS.register_module(name="PointPillars")
 class AdversarialPointPillars(nn.Module):
     """PointPillars with the pre-encoder voxel adversary of AdversarialVoxelNet."""
 

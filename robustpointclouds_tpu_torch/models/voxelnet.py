@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.registry import MODELS
 from ..nn.anchor_head import Anchor3DHead
 from ..nn.deform_conv import DeformConv2d
 from ..nn.perturber import VoxelPerturber
@@ -117,12 +118,15 @@ def apply_voxel_adversary(adversary: VoxelPerturber, voxels: torch.Tensor,
     return voxels + gate * delta, {k: gate * val for k, val in aux.items()}
 
 
+@MODELS.register_module()
+@MODELS.register_module(name="VoxelNet")
 class AdversarialVoxelNet(nn.Module):
     """SECOND detector with an optional pre-encoder voxel adversary."""
 
     def __init__(self, cfg: VoxelNetConfig = VoxelNetConfig()):
         super().__init__()
         self.cfg = cfg
+        self.sparse_shape = tuple(cfg.voxelizer.sparse_shape)
         dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.middle_encoder = SparseEncoder(cfg.voxelizer.sparse_shape, dtype=dt)
         self.backbone = SECONDBackbone(self.middle_encoder.bev_channels, dtype=dt)
@@ -152,28 +156,37 @@ class AdversarialVoxelNet(nn.Module):
         profile regardless of `train`; `adv_grad_scale` is the gradient
         reversal factor on the perturbation delta.
         """
-        if plan is None:
-            raise NotImplementedError("the inline (plan=None) path is not ported yet")
-        if train != self.training:
-            self.train(train)
+        grid = self._grid(plan, train)
         voxels = plan["voxels"]
-        point_mask = plan["point_mask"]
-        b = voxels.shape[0]
-        grid = SparseGrid(plan["grid_ids"], plan["grid_coords"], plan["grid_mask"],
-                          (b,) + tuple(self.cfg.voxelizer.sparse_shape))
         zero = voxels.new_zeros(())
         adv_aux = {k: zero for k in _ADV_AUX_KEYS}
         if self.adversary is not None and (train or attack):
             voxels, adv_aux = apply_voxel_adversary(
-                self.adversary, voxels, point_mask, attack, epoch,
+                self.adversary, voxels, plan["point_mask"], attack, epoch,
                 self.cfg.adversary_start_epoch, adv_grad_scale,
             )
-        feats = HardSimpleVFE(voxels, point_mask)
-        feats = feats.reshape(-1, feats.shape[-1])[plan["order"].long()]
+        feats = self._vfe(voxels, plan)
+        return ModelOutputs(*self._detect(feats, grid, plan), adv_aux)
+
+    def _grid(self, plan: Optional[Dict[str, Any]], train: bool) -> SparseGrid:
+        """Refuses the inline path, sets the module's mode, and returns the
+        plan's sparse grid."""
+        if plan is None:
+            raise NotImplementedError("the inline (plan=None) path is not ported yet")
+        if train != self.training:
+            self.train(train)
+        return SparseGrid(plan["grid_ids"], plan["grid_coords"], plan["grid_mask"],
+                          (plan["voxels"].shape[0],) + self.sparse_shape)
+
+    def _vfe(self, voxels: torch.Tensor, plan: Dict[str, Any]) -> torch.Tensor:
+        """HardSimpleVFE's [B*V, F] features in the plan's `order`."""
+        feats = HardSimpleVFE(voxels, plan["point_mask"])
+        return feats.reshape(-1, feats.shape[-1])[plan["order"].long()]
+
+    def _detect(self, feats: torch.Tensor, grid: SparseGrid, plan: Dict[str, Any]):
+        """SparseEncoder -> backbone -> FPN -> Anchor3DHead: (cls, bbox, dir)."""
         bev = self.middle_encoder(feats, grid, plan["enc"])
-        fused = self.neck(self.backbone(bev))
-        cls_scores, bbox_preds, dir_preds = self.bbox_head(fused)
-        return ModelOutputs(cls_scores, bbox_preds, dir_preds, adv_aux)
+        return self.bbox_head(self.neck(self.backbone(bev)))
 
 
 def plan_to_device(plan: Any, device: torch.device) -> Any:

@@ -1,24 +1,31 @@
-"""The learned adversary VoxelPerturber (counterpart of robustpointclouds_tpu/nn/perturber.py).
+"""The learned adversaries VoxelPerturber and StrongVoxelPerturber (counterpart of robustpointclouds_tpu/nn/perturber.py).
 
-An encoder-decoder MLP over per-point features with sigmoid spatial
-attention, per-feature std normalisation, a sensor-error-bounded tanh output
-and the asymmetric train/attack bound profiles of the reference
-(models/adversarial/voxel_perturber.py). The masked statistics (the std
-normalisation and the per-dim mean/var of the regulariser) go through the
-masked-stats kernel.
+`VoxelPerturber`: an encoder-decoder MLP over per-point features with
+sigmoid spatial attention, per-feature std normalisation, a
+sensor-error-bounded tanh output and the asymmetric train/attack bound
+profiles of the reference (models/adversarial/voxel_perturber.py).
+`StrongVoxelPerturber`: the deeper variant of the strong family
+(models/adversarial/strong_voxel_perturber.py) with dropout, a bottleneck, a
+selectable activation and the momentum / dynamic-scale inputs; it returns
+deltas. The masked statistics (the std normalisation and the per-dim
+mean/var of the regulariser) go through the masked-stats kernel, and every
+MaskedBatchNorm through the fused one (ReLU fused into it).
 
-Parameter names (`mlp_i`, `bn_i`, `mlp_out`, `attn_0`, `attn_1`) follow the
-JAX module's, which tools/convert.py maps one to one.
+Parameter names (`mlp_i`, `bn_i`, `mlp_out`, `attn_0`, `attn_1`; the strong
+variant's `enc_i`, `enc_bn_i`, `bottleneck`, `bottleneck_bn`, `dec_i`,
+`dec_bn_i`, `out`) follow the JAX modules', which tools/convert.py maps one
+to one.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.registry import ADVERSARIES
 from ..kernels.masked_stats import masked_stats
 from .layers import MaskedBatchNorm
 
@@ -101,6 +108,7 @@ def perturbation_losses(perturbations: torch.Tensor, features: torch.Tensor,
     }
 
 
+@ADVERSARIES.register_module()
 class VoxelPerturber(nn.Module):
     """Bounded learned perturbations on raw point features [N, F]."""
 
@@ -165,3 +173,167 @@ class VoxelPerturber(nn.Module):
         pert = torch.nan_to_num(pert, nan=0.0, posinf=0.0, neginf=0.0)
         pert = torch.where(mask[:, None], pert, torch.zeros_like(pert))
         return features + pert, perturbation_losses(pert, features, mask)
+
+
+def _dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout as flax's: a unit is kept with probability 1 - rate
+    (a uniform draw below it, from `generator` on its own device) and scaled
+    by 1 / (1 - rate); dropped units are 0."""
+    keep = 1.0 - rate
+    kept = torch.rand(h.shape, generator=generator, device=generator.device) < keep
+    return torch.where(kept.to(h.device), h / keep, torch.zeros_like(h))
+
+
+@ADVERSARIES.register_module()
+class StrongVoxelPerturber(nn.Module):
+    """Deeper adversary with dropout, a bottleneck and dynamic-scaling hooks.
+
+    The epoch / effectiveness / magnitude scaling lives in the train loop
+    (host side, `strong_dynamic_scale`); the module takes the combined
+    `scale_factor`. Momentum over the previous step's perturbations is
+    carried by the caller ([N, F], `last_perturbations`).
+    """
+
+    def __init__(self, num_features: int = 4, sensor_error_bound: float = 0.18,
+                 use_spatial_attention: bool = True,
+                 hidden_channels: Sequence[int] = (64, 128, 256, 128),
+                 dropout_rate: float = 0.1, activation: str = "ReLU",
+                 use_batch_norm: bool = True, momentum_alpha: float = 0.9):
+        super().__init__()
+        self.num_features = num_features
+        self.sensor_error_bound = sensor_error_bound
+        self.use_spatial_attention = use_spatial_attention
+        self.dropout_rate = dropout_rate
+        self.activation = activation
+        self.use_batch_norm = use_batch_norm
+        self.momentum_alpha = momentum_alpha
+        chans = list(hidden_channels)
+        self.depth = len(chans)
+        cin = num_features
+        for i, c in enumerate(chans):
+            self.add_module(f"enc_{i}", nn.Linear(cin, c))
+            if use_batch_norm:
+                self.add_module(f"enc_bn_{i}", MaskedBatchNorm(c))
+            cin = c
+        width = max(chans[-1] // 2, 16)
+        self.bottleneck = nn.Linear(cin, width)
+        self.bottleneck_bn = MaskedBatchNorm(width) if use_batch_norm else None
+        cin = width
+        for i, c in enumerate(reversed(chans)):
+            self.add_module(f"dec_{i}", nn.Linear(cin, c))
+            if i < self.depth - 1 and use_batch_norm:
+                self.add_module(f"dec_bn_{i}", MaskedBatchNorm(c))
+            cin = c
+        self.out = nn.Linear(cin, num_features)
+        if use_spatial_attention:
+            ah = max(num_features // 2, 8)
+            self.attn_0 = nn.Linear(num_features, ah)
+            self.attn_1 = nn.Linear(ah, 1)
+
+    def _act(self, h: torch.Tensor) -> torch.Tensor:
+        if self.activation == "LeakyReLU":
+            return F.leaky_relu(h, 0.2)
+        if self.activation == "ELU":
+            return F.elu(h)
+        return torch.relu(h)
+
+    def _norm_act(self, name: str, h: torch.Tensor, mask: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+        """BatchNorm `name` (when the module has it) and the activation; ReLU
+        fuses into the BatchNorm kernel (rounding to `dtype` commutes with it)."""
+        bn = getattr(self, name, None) if self.use_batch_norm else None
+        if bn is None:
+            return self._act(h)
+        if self.activation in ("LeakyReLU", "ELU"):
+            return self._act(bn(h, mask, out_dtype=dtype))
+        return bn(h, mask, relu=True, out_dtype=dtype)
+
+    def forward(self, features: torch.Tensor, mask: torch.Tensor,
+                scale_factor: Union[float, torch.Tensor] = 1.0,
+                last_perturbations: Optional[torch.Tensor] = None,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """features [N, F], mask [N] -> (perturbation deltas [N, F], losses).
+
+        `self.training` selects batch-norm mode and the training bound
+        profile (eval: the attack one). Dropout runs unless `deterministic`,
+        with masks drawn from `generator`, which it then needs."""
+        f = self.num_features
+        if features.shape[-1] != f:
+            raise ValueError(f"expected {f} features, got {tuple(features.shape)}")
+        drop = not deterministic and self.dropout_rate > 0
+        if drop and generator is None:
+            raise ValueError("StrongVoxelPerturber: dropout needs an explicit torch.Generator")
+        mean, var, _ = masked_stats(features, mask)
+        x = torch.clamp((features - mean) / torch.sqrt(var + 1e-6), -5.0, 5.0)
+        x = torch.where(mask[:, None], x, torch.zeros_like(x))
+
+        mlp_dtype = torch.bfloat16 if PERT_BF16 else torch.float32
+        dense = VoxelPerturber._dense
+        h = x.to(mlp_dtype)
+        rate = self.dropout_rate
+        for i in range(self.depth):
+            h = self._norm_act(f"enc_bn_{i}", dense(getattr(self, f"enc_{i}"), h), mask,
+                               mlp_dtype)
+            if drop and i < self.depth - 1:
+                h = _dropout(h, rate, generator)
+        h = self._norm_act("bottleneck_bn", dense(self.bottleneck, h), mask, mlp_dtype)
+        if drop:
+            h = _dropout(h, rate * 1.5, generator)
+        for i in range(self.depth):
+            h = dense(getattr(self, f"dec_{i}"), h)
+            if i < self.depth - 1:
+                h = self._norm_act(f"dec_bn_{i}", h, mask, mlp_dtype)
+                if drop:
+                    h = _dropout(h, rate * 0.5, generator)
+        raw = torch.tanh(dense(self.out, h).float())
+
+        if self.use_spatial_attention:
+            a = self._act(dense(self.attn_0, x.to(mlp_dtype)))
+            raw = raw * torch.sigmoid(dense(self.attn_1, a).float())
+        if last_perturbations is not None:
+            raw = raw + 0.1 * (self.momentum_alpha * last_perturbations.detach())
+
+        bounds = torch.as_tensor(_strong_bounds(f, self.sensor_error_bound, self.training),
+                                 device=raw.device)
+        pert = raw * bounds * scale_factor
+        pert = torch.nan_to_num(pert, nan=0.0, posinf=0.0, neginf=0.0)
+        pert = torch.where(mask[:, None], pert, torch.zeros_like(pert))
+        return pert, perturbation_losses(pert, features, mask)
+
+
+def _strong_bounds(num_features: int, sensor_error_bound: float, train: bool) -> np.ndarray:
+    """The strong adversary's per-feature bounds (reference
+    strong_voxel_perturber.py): KITTI (F=4) x1.2 / x2.0 overall, spatial
+    x1.5 / x2.5, intensity 0.8 / 1.5 (train / eval), all x the class boost
+    avg(2.5, 1.8, 1.2); other widths the sensor error bound."""
+    bounds = np.full(num_features, sensor_error_bound, np.float32)
+    if num_features == 4:
+        class_boost = (2.5 + 1.8 + 1.2) / 3.0
+        mult, spatial, intensity = (1.2, 1.5, 0.8) if train else (2.0, 2.5, 1.5)
+        bounds *= mult
+        bounds[:3] *= spatial
+        bounds[3] = intensity
+        bounds *= class_boost
+    return bounds
+
+
+def strong_dynamic_scale(epoch: float, effectiveness_recent: Optional[float],
+                         magnitude_recent: Optional[float], jitter: float = 0.0,
+                         max_scale: float = 5.0) -> float:
+    """Host-side dynamic scaling (reference strong_voxel_perturber.py:214-254):
+    epoch_scale = 1 + 0.1 * epoch; weak-attack boost x1.5 / x2; small-
+    perturbation boost x1.8; capped at max_scale, then the multiplicative
+    jitter (at least x0.8)."""
+    epoch_scale = 1.0 + 0.1 * epoch
+    if effectiveness_recent is None:
+        eff = 1.0
+    elif effectiveness_recent < 0.1:
+        eff = 2.0
+    elif effectiveness_recent < 0.3:
+        eff = 1.5
+    else:
+        eff = 1.0
+    mag = 1.8 if (magnitude_recent is not None and magnitude_recent < 0.1) else 1.0
+    scale = min(epoch_scale * eff * mag, max_scale)
+    return scale * max(1.0 + jitter, 0.8)

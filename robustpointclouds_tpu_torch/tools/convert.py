@@ -15,7 +15,11 @@ inverse of the JAX package's zoo converter
     running_var (+ num_batches_tracked 0).
 The VoxelPerturber, which the zoo map lacks, maps `mlp_i`/`mlp_out`/
 `attn_0`/`attn_1` Dense kernels (in, out) to Linear weights (out, in) and
-`bn_i` as BatchNorm. `centerpoint_to_state_dict` does the same for the JAX
+`bn_i` as BatchNorm; the StrongVoxelPerturber's `enc_i`/`bottleneck`/
+`dec_i`/`out`/`attn_*` likewise, its `*_bn*` as BatchNorm
+(`perturber_to_state_dict` serves both), and `jax_to_state_dict` maps the
+whole JAX StrongAdversarialVoxelNet too (its SECOND body carries the same
+names, its adversary is the strong one). `centerpoint_to_state_dict` does the same for the JAX
 AdversarialCenterPoint: the residual encoder's `stage{i}_res{j}` blocks
 (conv1/bn1/conv2/bn2) and `stage{i}_down` convs, the backbone and neck
 under `pts_`, and the CenterHead (flax convs -> Conv2d, the DCN kernel ->
@@ -120,7 +124,8 @@ def _anchor_model_tail(sd: Dict[str, np.ndarray], params: Mapping,
 
 
 def jax_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """(params, batch_stats) of the JAX AdversarialVoxelNet -> port state_dict."""
+    """(params, batch_stats) of the JAX AdversarialVoxelNet or
+    StrongAdversarialVoxelNet -> port state_dict."""
     sd: Dict[str, np.ndarray] = {}
     me, mes = params["middle_encoder"], batch_stats["middle_encoder"]
     for prefix, name in _SPARSE_BLOCKS:
@@ -141,10 +146,12 @@ def pointpillars_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[st
 
 
 def perturber_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """A JAX VoxelPerturber's trees -> the port VoxelPerturber's state_dict."""
+    """A JAX VoxelPerturber's or StrongVoxelPerturber's trees -> the port
+    module's state_dict: a module with batch statistics is a BatchNorm, every
+    other a Dense."""
     sd: Dict[str, np.ndarray] = {}
     for name, p in params.items():
-        if name.startswith("bn_"):
+        if name in batch_stats:
             _bn(sd, name, p, batch_stats[name])
         else:
             sd[f"{name}.weight"] = _np(p["kernel"]).T

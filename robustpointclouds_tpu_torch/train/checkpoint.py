@@ -3,7 +3,8 @@
 A checkpoint holds what the JAX TrainState holds: the model's state_dict
 (parameters and BatchNorm running statistics) and the port's TrainState
 (step, the shared update count, both chains' Adam moments and the NaN
-ladder's tensors). Each epoch's checkpoint is one file,
+ladder's tensors; a StrongTrainState's momentum carry and dynamic scale
+too). Each epoch's checkpoint is one file,
 `<directory>/epoch_<N>.pt`, written to a temporary name and renamed, so a
 crash never leaves a torn file; the newest `max_to_keep` are kept. Files are
 read back with `torch.load(weights_only=True)`, which unpickles tensors and
@@ -11,6 +12,7 @@ plain containers only.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -28,10 +30,7 @@ def _payload(trainer: Trainer) -> Dict:
         raise RuntimeError("the trainer has no state to save: call init_state() first")
     st = trainer.state
     return {"model": trainer.model.state_dict(),
-            "train_state": {"step": st.step, "count": st.count, "mu": st.mu, "nu": st.nu,
-                            "nan_count": st.nan_count, "consecutive_nan": st.consecutive_nan,
-                            "lr_scale": st.lr_scale,
-                            "adversary_enabled": st.adversary_enabled}}
+            "train_state": {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}}
 
 
 def _write(path: str, payload: Dict) -> None:
@@ -46,7 +45,7 @@ def _read(path: str, device: torch.device) -> Dict:
 
 def _load_into(trainer: Trainer, payload: Dict) -> TrainState:
     trainer.model.load_state_dict(payload["model"])
-    trainer.state = TrainState(**payload["train_state"])
+    trainer.state = trainer.state_cls(**payload["train_state"])
     return trainer.state
 
 

@@ -232,26 +232,31 @@ class Trainer:
 
     Runs on the card unless `device` asks for another (core/device)."""
 
+    state_cls = TrainState  # what a checkpoint's train state is read back as
+
     def __init__(self, model_cfg: Union[VoxelNetConfig, PointPillarsConfig] = VoxelNetConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
                  device: Optional[Union[str, torch.device]] = None):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
-        if isinstance(model_cfg, PointPillarsConfig):
-            model = AdversarialPointPillars(model_cfg)
-        elif isinstance(model_cfg, VoxelNetConfig):
-            model = AdversarialVoxelNet(model_cfg)
-        else:
-            raise TypeError(f"Trainer takes a VoxelNetConfig or a PointPillarsConfig, not "
-                            f"{type(model_cfg).__name__}")
-        self.model = model.to(self.device)
-        anchors, anchor_cls = model_cfg.make_anchors()
+        self.model = self._make_model(model_cfg).to(self.device)
+        # a strong config wraps its detector's under .base
+        anchors, anchor_cls = getattr(model_cfg, "base", model_cfg).make_anchors()
         self.anchors = torch.as_tensor(anchors, device=self.device)
         self.anchor_cls = torch.as_tensor(anchor_cls, device=self.device)
         self.det_tx, self.adv_tx = make_optimizers(train_cfg)
         self.state: Optional[TrainState] = None
         self._pgd = None
+
+    @staticmethod
+    def _make_model(model_cfg) -> nn.Module:
+        if isinstance(model_cfg, PointPillarsConfig):
+            return AdversarialPointPillars(model_cfg)
+        if isinstance(model_cfg, VoxelNetConfig):
+            return AdversarialVoxelNet(model_cfg)
+        raise TypeError(f"Trainer takes a VoxelNetConfig or a PointPillarsConfig, not "
+                        f"{type(model_cfg).__name__}")
 
     # -- initialisation -----------------------------------------------------
     def init_state(self, seed: int = 0,

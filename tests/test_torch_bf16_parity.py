@@ -62,6 +62,7 @@ from robustpointclouds_tpu_torch.train.loop import TrainConfig as TTrainConfig, 
 
 from test_model import tiny_batch
 from test_torch_serving import _randomise_bn
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 OUT_TOL = 2.0 ** -6        # of the largest head output
 AUX_RTOL = 2e-2

@@ -45,6 +45,7 @@ from robustpointclouds_tpu_torch.nn.sparse_encoder import relation_index
 from robustpointclouds_tpu_torch.nn.vfe import HardSimpleVFE
 from robustpointclouds_tpu_torch.ops.sparse import SparseGrid
 from robustpointclouds_tpu_torch.tools.convert import centerpoint_to_state_dict
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 FWD_RTOL = 1e-5
 TRAIN_RTOL = 1e-4

@@ -53,6 +53,7 @@ from robustpointclouds_tpu_torch.nn.second import BatchNorm2d
 from robustpointclouds_tpu_torch.tools.convert import centerpoint_to_state_dict
 from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer as TTrainer
 from robustpointclouds_tpu_torch.train.loop import TrainConfig as TTrainConfig
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 TRAIN_KW = dict(learning_rate=5e-5, grad_clip_norm=1.0, adversary_lr_mult=1.0, warmup_iters=5,
                 max_epochs=2, steps_per_epoch=4)

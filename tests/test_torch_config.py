@@ -22,6 +22,7 @@ from robustpointclouds_tpu.core.config import Config as JConfig
 from robustpointclouds_tpu_torch.core import builders as tbuilders
 from robustpointclouds_tpu_torch.core import tensorboard as ttb
 from robustpointclouds_tpu_torch.core.config import Config as TConfig
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.py"), recursive=True))

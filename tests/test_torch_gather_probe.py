@@ -20,6 +20,7 @@ import torch
 
 from robustpointclouds_tpu_torch.kernels import gather as g
 from robustpointclouds_tpu_torch.tools import probe_gather
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 # (table rows, channels, indices, dtype, index N included): the probe's
 # small shape, and a small bf16 table of the sparse conv's width with misses

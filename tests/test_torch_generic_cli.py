@@ -29,6 +29,7 @@ from robustpointclouds_tpu_torch.core.config import Config
 from robustpointclouds_tpu_torch.models.pointpillars import PointPillarsConfig
 from robustpointclouds_tpu_torch.models.voxelnet import VoxelNetConfig
 from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import robustpointclouds_tpu_torch
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 PKG_DIR = os.path.dirname(robustpointclouds_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -59,6 +60,10 @@ _EXPECTED = {
     "robustpointclouds_tpu_torch.cli.evaluate_adversarial_checkpoint",
     # the PointPillars slice and the generic entry point
     "robustpointclouds_tpu_torch.models.pointpillars", "robustpointclouds_tpu_torch.cli.train",
+    # the strong family
+    "robustpointclouds_tpu_torch.core.registry", "robustpointclouds_tpu_torch.models.strong",
+    "robustpointclouds_tpu_torch.train.strong_loop",
+    "robustpointclouds_tpu_torch.cli.train_kitti_adversarial_strong",
 }
 
 

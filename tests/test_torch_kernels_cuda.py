@@ -6,6 +6,7 @@ torch only, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 import ctypes
+import os
 
 import pytest
 import torch
@@ -18,6 +19,7 @@ from robustpointclouds_tpu_torch.kernels.masked_stats import (
 from robustpointclouds_tpu_torch.kernels.sparse_conv import (
     backward_kernel, sparse_conv, sparse_conv_cuda_cores, sparse_conv_dgrad, sparse_conv_ref,
     sparse_conv_train, sparse_conv_wgrad, sparse_conv_wgrad_cuda_cores, sparse_conv_wgrad_ref)
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 pytestmark = pytest.mark.cuda
 
@@ -995,6 +997,95 @@ def test_masked_batch_norm_matches_plain_version(cuda_device, c, dtype, train, r
     assert torch.equal(y2, y) and all(torch.equal(p, q) for p, q in zip(again, (dx, dw, db)))
 
 
+# the strong adversary's 256-wide BatchNorms (enc_bn_2, dec_bn_1) at B = 1 and B = 6
+STRONG_ROWS = [16000, 96000]
+
+
+@pytest.mark.parametrize("n", STRONG_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_all_five_masked_kernels_at_c256(cuda_device, n, dtype):
+    """Statistics, fused forward (train, ReLU, no row mask: the perturber's
+    epilogue), bwd_reduce + dx, and the statistics' VJP at C = 256 against
+    the plain versions, each repeat bit-identical; each kernel counts its
+    launches at C = 256 in KERNEL_LAUNCHES."""
+    x, mask, w, b, rm, rv, gout = _bn_inputs(cuda_device, n, 256, dtype, seed=n)
+    counted = masked_stats_module.KERNEL_LAUNCHES
+    before = {k: counted[k, 256] for k in ("stats_kernel", "apply_kernel", "bwd_reduce_kernel",
+                                           "dx_kernel", "vjp_kernel")}
+    mean, var, cnt = masked_stats(x, mask)
+    rmean, rvar, rcnt = masked_stats_ref(x, mask)
+    assert cnt.item() == rcnt.item() and _close(mean, rmean, 1e-5) and _close(var, rvar, 1e-4)
+    rm_ref, rv_ref = rm.clone(), rv.clone()
+    y, bmean, bvar, bcnt = masked_stats_module._bn_forward(x, mask, w, b, rm, rv, True, 0.1,
+                                                           1e-3, True, False, dtype)
+    ref = masked_stats_module._bn_ref(x, mask, w, b, rm_ref, rv_ref, True, 0.1, 1e-3, True,
+                                      False, dtype)[0]
+    assert _close(y, ref, 1e-5 if dtype == torch.float32 else 1e-2)
+    assert _close(rm, rm_ref, 1e-5) and _close(rv, rv_ref, 1e-5)
+    dx, dw, db = masked_batch_norm_bwd(gout, x, mask, w, b, bmean, bvar, bcnt, 1e-3, True, True,
+                                       False)
+    rdx, rdw, rdb = masked_batch_norm_bwd_ref(gout, x, mask, w, b, bmean, bvar, bcnt, 1e-3, True,
+                                              True, False)
+    assert _close(dw, rdw, 1e-4) and _close(db, rdb, 1e-4)
+    assert _close(dx, rdx, 1e-4 if dtype == torch.float32 else 1e-2)
+    gm, gv = w - 1.0, b
+    vjp = masked_stats_bwd(x, mask, mean, cnt, gm, gv)
+    assert _close(vjp, masked_stats_bwd_ref(x, mask, mean, cnt, gm, gv),
+                  1e-5 if dtype == torch.float32 else 1e-2)
+    assert {k: counted[k, 256] - n for k, n in before.items()} == {
+        "stats_kernel": 2, "apply_kernel": 1, "bwd_reduce_kernel": 1, "dx_kernel": 1,
+        "vjp_kernel": 1}
+    again = (masked_stats(x, mask),
+             masked_stats_module._bn_forward(x, mask, w, b, rm.clone(), rv.clone(), True, 0.1,
+                                             1e-3, True, False, dtype)[0],
+             masked_batch_norm_bwd(gout, x, mask, w, b, bmean, bvar, bcnt, 1e-3, True, True,
+                                   False),
+             masked_stats_bwd(x, mask, mean, cnt, gm, gv))
+    first = ((mean, var, cnt), y, (dx, dw, db), vjp)
+    assert torch.equal(again[1], first[1]) and torch.equal(again[3], first[3])
+    for p, q in ((again[0], first[0]), (again[2], first[2])):
+        assert all(torch.equal(u, v) for u, v in zip(p, q))
+
+
+def test_masked_kernels_keep_widths_4_to_128_bit_for_bit(cuda_device, tmp_path, monkeypatch):
+    """csrc/masked_stats.cu built as it is and with kMaxC = 128 (the
+    128-wide kernels it grew from): at every width up to 128, both types,
+    each of the five kernels gives bit-identical results."""
+    import subprocess
+
+    from robustpointclouds_tpu_torch.kernels import _build
+
+    src = open(os.path.join(_build.CSRC_DIR, "masked_stats.cu")).read()
+    assert src.count("constexpr int kMaxC = 256;") == 1
+    cu = tmp_path / "masked_stats_128.cu"
+    cu.write_text(src.replace("constexpr int kMaxC = 256;", "constexpr int kMaxC = 128;"))
+    so = tmp_path / "libmasked_stats_128.so"
+    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(so), str(cu)], check=True)
+    narrow = masked_stats_module.bind(ctypes.CDLL(str(so)))
+    wide = masked_stats_module.bind(_build.load_library("masked_stats"))
+
+    def run(fns, x, mask, w, b, rm, rv, gout, relu, row_mask, train):
+        monkeypatch.setattr(masked_stats_module, "_FNS", fns)
+        rm, rv = rm.clone(), rv.clone()
+        mean, var, cnt = masked_stats(x, mask)
+        y, bm, bv, bc = masked_stats_module._bn_forward(x, mask, w, b, rm, rv, train, 0.1, 1e-3,
+                                                        relu, row_mask, x.dtype)
+        bwd = masked_batch_norm_bwd(gout, x, mask, w, b, bm, bv, bc, 1e-3, train, relu, row_mask)
+        vjp = masked_stats_bwd(x, mask, mean, cnt, w, b)
+        return [mean, var, cnt, y, rm, rv, *bwd, vjp]
+
+    for c in masked_stats_module.WIDTHS[:-1]:
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = _bn_inputs(cuda_device, 20011, c, dtype, seed=c)
+            for relu, row_mask in EPILOGUES:
+                for train in (True, False):
+                    got = run(wide, *inputs, relu, row_mask, train)
+                    ref = run(narrow, *inputs, relu, row_mask, train)
+                    for i, (u, v) in enumerate(zip(got, ref)):
+                        assert torch.equal(u, v), (c, dtype, relu, row_mask, train, i)
+
+
 @pytest.mark.parametrize("n,mask_kind", [(1, "random"), (1, "none"), (3000, "none")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_masked_batch_norm_one_row_and_empty_mask(cuda_device, n, mask_kind, dtype):
@@ -1064,8 +1155,8 @@ def test_masked_kernels_reject_what_they_cannot_take(cuda_device):
                           torch.ones(12, device=dev), True)
     with pytest.raises(ValueError):  # float16
         masked_stats(torch.zeros(10, 16, device=dev, dtype=torch.float16), mask)
-    with pytest.raises(ValueError):  # wider than the kernels' 128
-        masked_stats(torch.zeros(10, 256, device=dev), mask)
+    with pytest.raises(ValueError):  # wider than the kernels' 256
+        masked_stats(torch.zeros(10, 512, device=dev), mask)
     with pytest.raises(ValueError):  # the mask on another device
         masked_stats(torch.zeros(10, 16, device=dev), mask.cpu())
     with pytest.raises(ValueError):  # a base 4 bytes past a 16-byte boundary

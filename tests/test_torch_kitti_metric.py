@@ -24,6 +24,7 @@ from robustpointclouds_tpu_torch.eval import kitti_metric as tkm
 from robustpointclouds_tpu_torch.ops import boxes as tboxes
 
 from test_kitti_ap_golden import CALIB, GOLDEN, _THR, _oracle_eval, make_golden_scenes
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 
 @pytest.fixture

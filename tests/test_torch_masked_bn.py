@@ -15,6 +15,8 @@ is checked here too.
 import os
 import re
 
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -182,11 +184,13 @@ def test_cpu_calls_count_no_launch():
     x, mask, params, stats, _ = _data(16, "float32", False, seed=3)
     counters = (ks.masked_stats, ks.masked_stats_bwd, masked_batch_norm,
                 ks.masked_batch_norm_bwd)
-    before = [f.launches for f in counters] + [ks.masked_batch_norm_bwd.reduce_launches]
+    before = [f.launches for f in counters] + [ks.masked_batch_norm_bwd.reduce_launches,
+                                               dict(ks.KERNEL_LAUNCHES)]
     xt = torch.from_numpy(x).requires_grad_(True)
     _port_bn(params, stats, True)(xt, torch.from_numpy(mask), relu=True).sum().backward()
     ks.masked_stats(xt, torch.from_numpy(mask))[1].sum().backward()
-    assert [f.launches for f in counters] + [ks.masked_batch_norm_bwd.reduce_launches] == before
+    assert [f.launches for f in counters] + [ks.masked_batch_norm_bwd.reduce_launches,
+                                             dict(ks.KERNEL_LAUNCHES)] == before
 
 
 # ---- the card's launch plan (plain Python)
@@ -204,8 +208,12 @@ def test_row_plan_covers_every_width(c, dtype, n):
     for reduce in (True, False):
         p = row_plan(n, c, dtype, reduce)
         assert p.vec * p.lanes == c and p.lanes <= 32 and 32 % p.lanes == 0
-        # a thread's load: 16 bytes, or 8 for a 4-channel bf16 row
-        assert p.vec * dtype.itemsize == (8 if (dtype == torch.bfloat16 and c == 4) else 16)
+        # a thread's load: 16 bytes, or 8 for a 4-channel bf16 row, or two
+        # 16-byte loads for a 256-channel float32 row (which then fills a warp)
+        want = 8 if (dtype == torch.bfloat16 and c == 4) else 16
+        if dtype == torch.float32 and c == 256:
+            want = 32
+        assert p.vec * dtype.itemsize == want
         assert p.rows_per_block * p.lanes == ks._THREADS
         cap = ks._SMS * ks._BLOCKS_PER_SM  # one wave of resident blocks
         assert 1 <= p.blocks <= cap
@@ -225,7 +233,7 @@ def test_row_plan_fills_the_card_on_the_main_path(n, c):
         assert p.workspace_floats * 4 <= 300 * 1024  # the partials stay small, in L2
 
 
-@pytest.mark.parametrize("n,c,dtype", [(10, 3, torch.float32), (10, 256, torch.bfloat16),
+@pytest.mark.parametrize("n,c,dtype", [(10, 3, torch.float32), (10, 512, torch.bfloat16),
                                        (10, 12, torch.float32), (10, 16, torch.float16),
                                        (0, 16, torch.float32)])
 def test_row_plan_refuses(n, c, dtype):
@@ -239,5 +247,6 @@ def test_constants_match_the_cuda_source():
     assert int(re.search(r"kMaxC = (\d+);", src).group(1)) == max(ks.WIDTHS)
     assert int(re.search(r"kMinBlocks = (\d+);", src).group(1)) == ks._BLOCKS_PER_SM
     assert int(re.search(r"kStatsUnroll = (\d+);", src).group(1)) == ks._REDUCE_ROWS
+    assert int(re.search(r"kVec4MaxC = (\d+);", src).group(1)) == ks._VEC4_MAX_C
     for name in ("stats_kernel", "apply_kernel", "bwd_reduce_kernel", "dx_kernel", "vjp_kernel"):
         assert f"__global__ void __launch_bounds__(kThreads, kMinBlocks)\n{name}" in src

@@ -22,6 +22,7 @@ from robustpointclouds_tpu.nn import layers as jlayers
 from robustpointclouds_tpu_torch.kernels.masked_stats import (
     masked_stats, masked_stats_bwd, masked_stats_bwd_ref)
 from robustpointclouds_tpu_torch.nn import layers as tlayers
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 SHAPES = [(100, 8), (1024, 64), (3000, 16)]
 

@@ -25,6 +25,7 @@ from robustpointclouds_tpu.eval.nuscenes_metric import eval_nuscenes_map as jax_
 
 from robustpointclouds_tpu_torch.data import nuscenes as tnus
 from robustpointclouds_tpu_torch.eval.nuscenes_metric import eval_nuscenes_map
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "nuscenes_mini")
 TINY_PCR = (-12.8, -12.8, -5.0, 12.8, 12.8, 3.0)

@@ -17,6 +17,7 @@ from robustpointclouds_tpu_torch.nn import perturber as tprt
 from robustpointclouds_tpu_torch.ops import box_coder as tcoder, boxes as tboxes, nms as tnms
 from robustpointclouds_tpu_torch.ops.grad import grad_scale
 from robustpointclouds_tpu_torch.tools.convert import perturber_to_state_dict
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 
 def _bev(rng, n, spread=6.0):

@@ -14,6 +14,7 @@ import torch
 from robustpointclouds_tpu.nn import second as jsecond
 
 from robustpointclouds_tpu_torch.nn import second as tsecond
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 
 def _bn(sd, prefix, p, s):

@@ -17,6 +17,7 @@ from robustpointclouds_tpu.ops import subm_conv as sc
 
 from robustpointclouds_tpu_torch.kernels.sparse_conv import sparse_conv, sparse_conv_ref
 from robustpointclouds_tpu_torch.ops import sparse as tsparse
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 SUBM = ((1, 3, 3, 3), (1, 1, 1, 1), (0, 1, 1, 1))
 DOWN = ((1, 3, 3, 3), (1, 2, 2, 2), (0, 1, 1, 1))

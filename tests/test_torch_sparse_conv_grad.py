@@ -23,6 +23,7 @@ from robustpointclouds_tpu_torch.kernels.sparse_conv import (
     backward_kernel, sparse_conv_dgrad, sparse_conv_train, sparse_conv_wgrad,
     sparse_conv_wgrad_ref)
 from robustpointclouds_tpu_torch.ops import sparse as tsparse
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 SUBM = ((1, 3, 3, 3), (1, 1, 1, 1), (0, 1, 1, 1))
 DOWN = ((1, 3, 3, 3), (1, 2, 2, 2), (0, 1, 1, 1))

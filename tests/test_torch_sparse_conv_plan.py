@@ -17,6 +17,7 @@ import pytest
 from robustpointclouds_tpu_torch.kernels import sparse_conv as sc
 from robustpointclouds_tpu_torch.models.voxelnet import VoxelNetConfig
 from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d, SparseEncoder
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 TC_SOURCE = os.path.join(os.path.dirname(sc.__file__), os.pardir, "csrc", "sparse_conv_tc.cu")
 # rows of each level of a B=6 request: the 96000 voxel slots of level 0

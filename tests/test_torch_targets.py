@@ -28,6 +28,7 @@ from robustpointclouds_tpu_torch.ops import losses as tlosses
 from robustpointclouds_tpu_torch.ops.voxelize import VoxelizerConfig as TVoxelizerConfig
 from robustpointclouds_tpu_torch.train import hooks as thooks
 from robustpointclouds_tpu_torch.train.loop import TrainConfig as TTrainConfig, make_lr_schedule as t_sched
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 HEAD = jdet.AnchorHeadConfig()
 # float32 elementwise math on both sides (transcendentals may differ by an ulp)

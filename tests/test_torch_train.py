@@ -28,6 +28,7 @@ from robustpointclouds_tpu_torch.tools.convert import jax_to_state_dict
 from robustpointclouds_tpu_torch.train.loop import TrainConfig as TTrainConfig, Trainer as TTrainer
 
 from test_model import tiny_batch
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 TRAIN_KW = dict(warmup_iters=5, max_epochs=2, steps_per_epoch=4)
 # float32 on both sides; the losses and gradients differ by summation order

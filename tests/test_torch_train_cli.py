@@ -17,6 +17,7 @@ from robustpointclouds_tpu_torch.cli import train_kitti_3class_adversarial as cl
 from robustpointclouds_tpu_torch.cli.common import prefetch_iterator
 from robustpointclouds_tpu_torch.core.tensorboard import read_scalar_events
 from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 KITTI_MINI = os.path.join(os.path.dirname(__file__), "fixtures", "kitti_mini")
 
