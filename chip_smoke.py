@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars and strong-family paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family and inline (plan=None) paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -153,7 +153,28 @@ Phases (any failure exits non-zero and prints no result):
      val_history.json and the dashboard's verdict); (e) a small-grid float32
      strong train step at the adversary's full widths, card vs CPU, its
      sparse convs on the 3xTF32 kernels. (b) and (c) may reach no plain
-     version of K2 and no float32 sparse-conv kernel.
+     version of K2 and no float32 sparse-conv kernel;
+ 11. the inline (plan=None) path, the plan built on the card in torch ops
+     (run_inline): (a) each family's plan from the points on the card,
+     every array bit-equal to the native host plan of the same frames
+     (SECOND B=6 and PointPillars B=6 on 20000-point frames with the
+     anchor assignment on the card, CenterPoint B=4 on 30000-point frames
+     with its targets, and a B=6 batch of phase 7's 120000-point
+     KITTI-layout frames), timed in turns beside the host builds (median
+     of IN_TIMED, host clock and CUDA events) with the device operations
+     one build launches (torch.profiler); an assignment that differs is
+     reported anchor by anchor and accepted only as a rounding tie; (b)
+     SECOND served self-contained, serve(points, mask), 3 clean + 3 attack
+     B=6 requests, each bit-equal to the plan-fed request on the same
+     frames with the same kernel launches; (c) the inline
+     Trainer.train_step at B=6 and epoch 3: one step's losses equal to the
+     plan-fed step's from the same state and frames, then IN_TRAIN_STEPS
+     timed steps (launches, finite losses, positives, moved weights, ms,
+     frames/s, peak memory); (d) CenterPoint B=4, PointPillars B=6 and the
+     strong forward_eval B=6 inline, clean and attack, each bit-equal to
+     its plan-fed output with the same launches. No inline path may call
+     a host builder (HostPlanCalls), a plain version of K1 or K2, or a
+     float32 sparse-conv kernel.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -1175,8 +1196,9 @@ def run_centerpoint(dev, card: str, seed: int, zero_counts, read_counts, read_f3
     from robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial import tiny_centerpoint_cfg
     from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
     from robustpointclouds_tpu_torch.models.center_detection import centerpoint_decode
-    from robustpointclouds_tpu_torch.models.centerpoint import (
-        AdversarialCenterPoint, CenterPointConfig, build_centerpoint_plan)
+    from robustpointclouds_tpu_torch.data.native_plan import build_plan_native
+    from robustpointclouds_tpu_torch.models.centerpoint import (AdversarialCenterPoint,
+                                                                CenterPointConfig)
     from robustpointclouds_tpu_torch.models.voxelnet import init_weights, plan_to_device
     from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
     from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d
@@ -1264,15 +1286,15 @@ def run_centerpoint(dev, card: str, seed: int, zero_counts, read_counts, read_f3
     serve = export_serving(model, None, None, cfg.head)
     requests = [(frames()[0], attack) for attack in (False, True) for _ in range(3)]
     for rb, attack in requests[:1] + requests[3:4]:  # warm-up
-        serve(rb.points, rb.points_mask, build_centerpoint_plan(rb.points, rb.points_mask, cfg),
-              attack=attack)
+        serve(rb.points, rb.points_mask,
+              build_plan_native(rb.points, rb.points_mask, cfg.voxelizer, 5), attack=attack)
     torch.cuda.synchronize()
     zero_counts()
     served = []
     k_out = len(cfg.tasks) * min(cfg.head.max_per_task, cfg.head.nms_pre)
     for rb, attack in requests:
         t0 = time.perf_counter()
-        rplan = build_centerpoint_plan(rb.points, rb.points_mask, cfg)
+        rplan = build_plan_native(rb.points, rb.points_mask, cfg.voxelizer, 5)
         t1 = time.perf_counter()
         boxes, scores, labels, valid = serve(rb.points, rb.points_mask, rplan, attack=attack)
         torch.cuda.synchronize()
@@ -1308,7 +1330,7 @@ def run_centerpoint(dev, card: str, seed: int, zero_counts, read_counts, read_f3
     sb, _ = synthetic_nuscenes_batch(np.random.RandomState(seed + 1), batch_size=2,
                                      num_points=n_pts, max_gt=8, num_objects=4,
                                      point_range=small.voxelizer.point_cloud_range)
-    splan = build_centerpoint_plan(sb.points, sb.points_mask, small)
+    splan = build_plan_native(sb.points, sb.points_mask, small.voxelizer, 5)
     smodel = AdversarialCenterPoint(small)
     init_weights(smodel, torch.Generator().manual_seed(seed))
     smodel.eval()
@@ -1511,29 +1533,37 @@ def _launches(**per):
 
 class PlainVersionCalls:
     """Counts the calls of K2's plain versions (kernels/masked_stats.py's
-    *_ref), which a wrapper takes only for a tensor on the CPU; the main
-    path on the card must make none."""
+    *_ref) and, with `k1`, K1's (kernels/sparse_conv.py's), which a wrapper
+    takes only for a tensor on the CPU; the main path on the card must make
+    none."""
 
     NAMES = ("masked_stats_ref", "masked_stats_bwd_ref", "_bn_ref", "masked_batch_norm_bwd_ref")
+    K1_NAMES = ("sparse_conv_ref", "sparse_conv_wgrad_ref")
+
+    def __init__(self, k1: bool = False):
+        self.k1 = k1
 
     def __enter__(self):
         import robustpointclouds_tpu_torch.kernels.masked_stats as ms
+        import robustpointclouds_tpu_torch.kernels.sparse_conv as sc
 
-        self.module, self.calls = ms, 0
-        self.saved = {n: getattr(ms, n) for n in self.NAMES}
+        self.calls = 0
+        self.saved = [(ms, n, getattr(ms, n)) for n in self.NAMES]
+        if self.k1:
+            self.saved += [(sc, n, getattr(sc, n)) for n in self.K1_NAMES]
 
         def counted(fn):
             def call(*a, **kw):
                 self.calls += 1
                 return fn(*a, **kw)
             return call
-        for n in self.NAMES:
-            setattr(ms, n, counted(self.saved[n]))
+        for mod, n, fn in self.saved:
+            setattr(mod, n, counted(fn))
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(self.module, n, fn)
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
 
 
 def run_pointpillars(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_kernels,
@@ -1564,8 +1594,9 @@ def run_pointpillars(dev, card: str, seed: int, zero_counts, read_counts, expect
     from robustpointclouds_tpu_torch.cli.export import export_serving
     from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
     from robustpointclouds_tpu_torch.models.detection import anchor_head_predict
-    from robustpointclouds_tpu_torch.models.pointpillars import (
-        AdversarialPointPillars, PointPillarsConfig, build_pillar_plan)
+    from robustpointclouds_tpu_torch.data.native_plan import build_pillar_plan_native
+    from robustpointclouds_tpu_torch.models.pointpillars import (AdversarialPointPillars,
+                                                                 PointPillarsConfig)
     from robustpointclouds_tpu_torch.models.voxelnet import init_weights, plan_to_device
     from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
     from robustpointclouds_tpu_torch.nn.perturber import VoxelPerturber
@@ -1782,7 +1813,8 @@ def run_pointpillars(dev, card: str, seed: int, zero_counts, read_counts, expect
     serve = export_serving(model, None, anchors, cfg.head)
     requests = [(frames(), attack) for attack in (False, True) for _ in range(3)]
     for rb, attack in requests[:1] + requests[3:4]:  # warm-up
-        serve(rb.points, rb.points_mask, build_pillar_plan(rb.points, rb.points_mask, cfg),
+        serve(rb.points, rb.points_mask,
+              build_pillar_plan_native(rb.points, rb.points_mask, cfg.voxelizer, 4),
               attack=attack)
     torch.cuda.synchronize()
     zero_counts()
@@ -1790,7 +1822,7 @@ def run_pointpillars(dev, card: str, seed: int, zero_counts, read_counts, expect
     with PlainVersionCalls() as plain:
         for rb, attack in requests:
             t0 = time.perf_counter()
-            rplan = build_pillar_plan(rb.points, rb.points_mask, cfg)
+            rplan = build_pillar_plan_native(rb.points, rb.points_mask, cfg.voxelizer, 4)
             t1 = time.perf_counter()
             boxes, scores, labels, valid = serve(rb.points, rb.points_mask, rplan, attack=attack)
             torch.cuda.synchronize()
@@ -1825,7 +1857,7 @@ def run_pointpillars(dev, card: str, seed: int, zero_counts, read_counts, expect
     sb = synthetic_kitti_batch(np.random.RandomState(seed + 1), batch_size=2, num_points=600,
                                max_gt=4, num_objects=3,
                                point_range=small.voxelizer.point_cloud_range)
-    splan = build_pillar_plan(sb.points, sb.points_mask, small)
+    splan = build_pillar_plan_native(sb.points, sb.points_mask, small.voxelizer, 4)
     smodel = AdversarialPointPillars(small)
     init_weights(smodel, torch.Generator().manual_seed(seed))
     smodel.eval()
@@ -2393,6 +2425,468 @@ def run_strong(dev, card: str, seed: int, zero_counts, read_counts, read_f32_cou
     return out_rows
 
 
+# phase 11: the inline (plan=None) path -- the plan built on the card in
+# torch ops (models/voxelnet.build_plan, pointpillars.build_pillar_plan,
+# centerpoint.build_centerpoint_plan), held bit-equal to the native host
+# plan of the same frames
+IN_BATCH, IN_POINTS = 6, 20000  # SECOND / PointPillars / strong; CenterPoint: CP_BATCH, CP_POINTS
+IN_TIMED = 5  # builds timed per builder, card and host in turns (median)
+IN_TRAIN_STEPS = 5  # timed inline train steps after the equality step
+# one rounding-level difference of an anchor's IoU (card vs host) may flip
+# a tied assignment; a flip is accepted only where the two IoU rows differ
+# by no more than this
+ASSIGN_IOU_ATOL = 1e-6
+CP_TARGET_ATOL = 1e-6  # the targets' heatmaps / rows: exp, log, sin, cos of two libraries
+
+
+class HostPlanCalls:
+    """Counts the calls of the host plan builders (the native plans and the
+    host anchor assignment; CenterPoint's host targets come only with its
+    native plan) through the names the trainers' plan builders call them
+    by; a path whose points are on the card must make none."""
+
+    SITES = (("robustpointclouds_tpu_torch.data.native_plan",
+              ("build_plan_native", "build_pillar_plan_native")),
+             ("robustpointclouds_tpu_torch.train.loop",
+              ("build_plan_native", "build_pillar_plan_native", "anchor_assign_plan")),
+             ("robustpointclouds_tpu_torch.train.centerpoint_loop", ("build_plan_native",)))
+
+    def __enter__(self):
+        import importlib
+
+        self.calls, self.saved = 0, []
+
+        def counted(fn):
+            def call(*a, **kw):
+                self.calls += 1
+                return fn(*a, **kw)
+            return call
+        for mod_name, names in self.SITES:
+            mod = importlib.import_module(mod_name)
+            for n in names:
+                self.saved.append((mod, n, getattr(mod, n)))
+                setattr(mod, n, counted(getattr(mod, n)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+
+
+def plan_diff(dev_plan, host_plan, path=""):
+    """Where the card's plan differs from the host's: [(path, what)] over
+    every array (keys, dtypes, shapes and values)."""
+    import numpy as np
+    import torch
+
+    if isinstance(host_plan, dict):
+        if sorted(host_plan) != sorted(dev_plan):
+            return [(path, f"keys {sorted(dev_plan)} vs {sorted(host_plan)}")]
+        return [d for k in host_plan for d in plan_diff(dev_plan[k], host_plan[k], f"{path}/{k}")]
+    if isinstance(host_plan, (list, tuple)):
+        return [d for i, (a, b) in enumerate(zip(dev_plan, host_plan))
+                for d in plan_diff(a, b, f"{path}/{i}")]
+    h = torch.from_numpy(np.ascontiguousarray(host_plan))
+    d = dev_plan.detach().cpu()
+    if d.dtype != h.dtype or d.shape != h.shape:
+        return [(path, f"{d.dtype} {tuple(d.shape)} vs {h.dtype} {tuple(h.shape)}")]
+    if not torch.equal(d, h):
+        return [(path, f"{int((d != h).sum())} entries differ")]
+    return []
+
+
+def outputs_equal(a, b) -> bool:
+    """Bit-equality of two nested outputs (tensors, tuples, dicts)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(outputs_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(outputs_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _timed(fn, card: bool):
+    """(result, host-clock ms, CUDA-event ms or None) of one call, to a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return out, host_ms, (start.elapsed_time(end) if card else None)
+
+
+def profile_launches(fn):
+    """(device operations launched, their device ms) of one call under
+    torch.profiler: kernels, copies and memsets on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(e.count for e in ev)
+    return (n, sum(e.self_device_time_total for e in ev) / 1e3) if n else (None, None)
+
+
+def assign_flips(card_res, host_res, anchors, gt_boxes, gt_labels, gt_mask):
+    """The anchors whose assignment differs card vs host, each with the
+    largest difference of its IoU row (card vs host IoU of the same boxes).
+    A flip is a tie broken by rounding only when that difference is within
+    ASSIGN_IOU_ATOL."""
+    import torch
+
+    from robustpointclouds_tpu_torch.ops import boxes as box_ops
+
+    host = {k: torch.from_numpy(v) for k, v in host_res.items()}
+    card = {k: v.cpu() for k, v in card_res.items()}
+    diff = ((card["labels"] != host["labels"]) | (card["pos_mask"] != host["pos_mask"])
+            | (card["neg_mask"] != host["neg_mask"])
+            | (card["pos_mask"] & (card["matched_gt"] != host["matched_gt"])))
+    flips = []
+    for b, a in diff.nonzero().tolist():
+        box = anchors[a:a + 1]
+        gts = torch.as_tensor(gt_boxes[b], dtype=torch.float32)
+        iou_cpu = box_ops.nearest_bev_iou(box.cpu()[None], gts[None])[0, 0]
+        iou_card = box_ops.nearest_bev_iou(box[None], gts.to(box.device)[None])[0, 0].cpu()
+        flips.append(dict(batch=b, anchor=a, card=[int(card["labels"][b, a]),
+                                                   int(card["matched_gt"][b, a])],
+                          host=[int(host["labels"][b, a]), int(host["matched_gt"][b, a])],
+                          iou_row_max_diff=float((iou_card - iou_cpu).abs().max()),
+                          iou_top2=sorted(iou_cpu.tolist())[-2:]))
+    return flips
+
+
+def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_kernels,
+               kitti_root: str):
+    """Phase 11: the inline (plan=None) path (module docstring). Prints a
+    summary line; returns nothing (no kernel is new on this path)."""
+    import numpy as np
+    import torch
+
+    from robustpointclouds_tpu_torch.cli.export import export_serving
+    from robustpointclouds_tpu_torch.data.native_plan import (build_pillar_plan_native,
+                                                              build_plan_native)
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.data.synthetic import PointCloudBatch, synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.models import centerpoint as mcp
+    from robustpointclouds_tpu_torch.models import pointpillars as mpp
+    from robustpointclouds_tpu_torch.models import voxelnet as mvn
+    from robustpointclouds_tpu_torch.models.center_detection import centerpoint_targets
+    from robustpointclouds_tpu_torch.models.strong import StrongVoxelNetConfig
+    from robustpointclouds_tpu_torch.ops import assigner
+    from robustpointclouds_tpu_torch.train.loop import HostPlanBuilder, TrainConfig, Trainer
+    from robustpointclouds_tpu_torch.train.strong_loop import StrongTrainer
+
+    t_phase = time.time()
+    rng = np.random.RandomState(seed + 11)
+    second = mvn.VoxelNetConfig()
+    pillars = mpp.PointPillarsConfig()
+    cpcfg = mcp.CenterPointConfig()
+
+    def kitti_frames(cfg):
+        b = synthetic_kitti_batch(rng, batch_size=IN_BATCH, num_points=IN_POINTS, max_gt=20,
+                                  num_objects=8, point_range=cfg.voxelizer.point_cloud_range)
+        return PointCloudBatch(*(np.asarray(x) for x in b))
+
+    def on_card(*arrays):
+        return [torch.as_tensor(x, device=dev) for x in arrays]
+
+    def assign_fns(cfg, b):
+        a, c = cfg.make_anchors()
+        cpu_anchors = (torch.from_numpy(a), torch.from_numpy(c))
+        card_anchors = (cpu_anchors[0].to(dev), cpu_anchors[1].to(dev))
+        gt = on_card(b.gt_boxes.astype(np.float32), b.gt_labels.astype(np.int32),
+                     b.gt_mask.astype(bool))
+        head = cfg.head
+
+        def card_fn():
+            return assigner.assign(*card_anchors, *gt, head.pos_iou_thr, head.neg_iou_thr,
+                                   head.min_pos_iou)
+
+        def host_fn():
+            return mvn.anchor_assign_plan(b.gt_boxes, b.gt_labels, b.gt_mask, cfg,
+                                          anchors=cpu_anchors)
+        return card_fn, host_fn, card_anchors[0]
+
+    # (a) each family's plan on the card vs the native host plan of the same frames
+    sb, pb = kitti_frames(second), kitti_frames(pillars)
+    cb, cvel = synthetic_nuscenes_batch(rng, batch_size=CP_BATCH, num_points=CP_POINTS,
+                                        max_gt=cpcfg.head.max_objs,
+                                        point_range=cpcfg.voxelizer.point_cloud_range)
+    cb = PointCloudBatch(*(np.asarray(x) for x in cb))
+    # one B=6 batch of phase 7's KITTI-layout frames, as the velodyne files hold them
+    velo = os.path.join(kitti_root, "training", "velodyne")
+    raw = [np.fromfile(os.path.join(velo, f), np.float32).reshape(-1, 4)
+           for f in sorted(os.listdir(velo))[:IN_BATCH]]
+    kp = np.zeros((IN_BATCH, max(len(r) for r in raw), 4), np.float32)
+    km = np.zeros(kp.shape[:2], bool)
+    for i, r in enumerate(raw):
+        kp[i, :len(r)], km[i, :len(r)] = r, True
+
+    def second_build(p, m):
+        return mvn.build_plan(p, m, second)
+
+    def second_native(p, m):
+        return build_plan_native(p, m, second.voxelizer, 4)
+
+    # name: (the card's builder, the native host builder, points, mask)
+    families = {
+        "second": (second_build, second_native, sb.points, sb.points_mask),
+        "centerpoint": (lambda p, m: mcp.build_centerpoint_plan(p, m, cpcfg),
+                        lambda p, m: build_plan_native(p, m, cpcfg.voxelizer, 5), cb.points,
+                        cb.points_mask),
+        "pointpillars": (lambda p, m: mpp.build_pillar_plan(p, m, pillars),
+                         lambda p, m: build_pillar_plan_native(p, m, pillars.voxelizer, 4),
+                         pb.points, pb.points_mask),
+        "kitti_layout": (second_build, second_native, kp, km),
+    }
+    flips_all, summary = {}, {}
+    for name, (build, build_host, pts, msk) in families.items():
+        pts_t, msk_t = on_card(pts, msk)
+        fns = {"card_plan": (lambda: build(pts_t, msk_t), True),
+               "host_plan": (lambda: build_host(pts, msk), False)}
+        if name in ("second", "pointpillars"):
+            cfg, b = (second, sb) if name == "second" else (pillars, pb)
+            card_assign, host_assign, card_anchor_t = assign_fns(cfg, b)
+            fns["card_assign"] = (card_assign, True)
+            fns["host_assign"] = (host_assign, False)
+        if name == "centerpoint":
+            gt = on_card(cb.gt_boxes, cb.gt_labels, cb.gt_mask, cvel)
+            fns["card_targets"] = (lambda: centerpoint_targets(
+                *gt, cpcfg.bev_feature_size, cpcfg.head), True)
+            fns["host_targets"] = (lambda: centerpoint_targets(
+                cb.gt_boxes, cb.gt_labels, cb.gt_mask, cvel, cpcfg.bev_feature_size,
+                cpcfg.head), False)
+        for fn, _ in fns.values():  # warm-up (the card's first calls, the native library)
+            fn()
+        times = {k: [] for k in fns}
+        outs = {}
+        with HostPlanCalls() as hp:
+            for _ in range(IN_TIMED):
+                for k, (fn, is_card) in fns.items():
+                    if is_card:
+                        outs[k], host_ms, ev_ms = _timed(fn, True)
+                        times[k].append((host_ms, ev_ms))
+                    else:
+                        hp_before = hp.calls
+                        outs[k], host_ms, _ = _timed(fn, False)
+                        hp.calls = hp_before  # the host builds are the yardstick
+                        times[k].append((host_ms, None))
+            card_host_calls = hp.calls
+        if card_host_calls:
+            raise RuntimeError(f"phase 11 {name}: the card build called a host builder "
+                               f"{card_host_calls} times")
+        n_launch, launch_dev_ms = profile_launches(fns["card_plan"][0])
+        bad = plan_diff(outs["card_plan"], outs["host_plan"])
+        if bad:
+            raise RuntimeError(f"phase 11 {name}: the card's plan differs from the native "
+                               f"host plan: {bad[:8]}")
+        row = {"frames": int(pts.shape[0]), "points": int(pts.shape[1]),
+               "voxels": int(outs["host_plan"]["voxel_mask"].sum()), "launches": n_launch,
+               "launches_device_ms": launch_dev_ms}
+        for k, vals in times.items():
+            row[f"{k}_host_ms"] = statistics.median(v[0] for v in vals)
+            if fns[k][1]:
+                row[f"{k}_event_ms"] = statistics.median(v[1] for v in vals)
+            row[f"{k}_host_ms_all"] = [round(v[0], 3) for v in vals]
+        if "card_assign" in outs:
+            cres = outs["card_assign"]
+            card_a = {"labels": cres.labels, "matched_gt": cres.matched_gt,
+                      "pos_mask": cres.pos_mask, "neg_mask": cres.neg_mask}
+            flips = assign_flips(card_a, outs["host_assign"], card_anchor_t, b.gt_boxes,
+                                 b.gt_labels, b.gt_mask)
+            if any(f["iou_row_max_diff"] > ASSIGN_IOU_ATOL for f in flips):
+                raise RuntimeError(f"phase 11 {name}: the card's assignment differs beyond a "
+                                   f"rounding tie: {flips[:8]}")
+            flips_all[name] = flips
+            row["num_pos"] = int(card_a["pos_mask"].sum())
+            row["assign_flips"] = len(flips)
+        if "card_targets" in outs:
+            worst = 0.0
+            for ct, ht in zip(outs["card_targets"], outs["host_targets"]):
+                for k in ("pos", "mask"):
+                    if not torch.equal(ct[k].cpu(), ht[k]):
+                        raise RuntimeError(f"phase 11 centerpoint: card targets' {k} differ")
+                for k in ("heatmap", "anno"):
+                    worst = max(worst, float((ct[k].cpu() - ht[k]).abs().max()))
+            if worst > CP_TARGET_ATOL:
+                raise RuntimeError(f"phase 11 centerpoint: card targets off by {worst}")
+            row["targets_max_abs_diff"] = worst
+        summary[name] = row
+        print(f"phase 11 (a) plan {name}: bit-equal to the native host plan; "
+              + json.dumps(row) + f" [{card}]", flush=True)
+        del outs
+    for name, flips in flips_all.items():
+        print(f"phase 11 (a) assignment {name}: {len(flips)} anchors differ card vs host"
+              + (": " + json.dumps(flips[:8]) if flips else "") + f" [{card}]", flush=True)
+
+    # (b) SECOND served self-contained: serve(points, mask), no plan
+    model = mvn.AdversarialVoxelNet(second)
+    mvn.init_weights(model, torch.Generator().manual_seed(seed))
+    serve = export_serving(model, None, second.make_anchors()[0], second.head)
+    requests = [(kitti_frames(second), attack) for attack in (False, True) for _ in range(3)]
+    for b, attack in requests[:1] + requests[3:4]:  # warm-up
+        serve(b.points, b.points_mask, attack=attack)
+    serving = []
+    with HostPlanCalls() as hp, PlainVersionCalls(k1=True) as plain:
+        for b, attack in requests:
+            zero_counts()
+            out_in, in_ms, _ = _timed(lambda: serve(b.points, b.points_mask, attack=attack),
+                                      False)
+            n_in = read_counts()
+            calls = (hp.calls, plain.calls)
+            t0 = time.perf_counter()
+            rplan = build_plan_native(b.points, b.points_mask, second.voxelizer, 4)
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            zero_counts()
+            out_fed, fed_ms, _ = _timed(lambda: serve(b.points, b.points_mask, rplan,
+                                                      attack=attack), False)
+            n_fed = read_counts()
+            hp.calls = calls[0]  # the host plan above is the plan-fed side's
+            if calls != (0, 0):
+                raise RuntimeError(f"phase 11 serving: the inline request called {calls[0]} "
+                                   f"host builders and {calls[1]} plain versions")
+            if not outputs_equal(tuple(out_in), tuple(out_fed)):
+                raise RuntimeError("phase 11 serving: inline outputs differ from the plan-fed "
+                                   "ones")
+            if n_in != n_fed or n_in["sparse_conv"] != 12 or n_in["masked_batch_norm"] != (
+                    BN_ATTACK if attack else BN_CLEAN):
+                raise RuntimeError(f"phase 11 serving launches: inline {n_in}, plan-fed {n_fed}")
+            serving.append(dict(attack=attack, inline_serve_ms=in_ms, fed_serve_ms=fed_ms,
+                                host_plan_ms=plan_ms, valid=int(out_in[3].sum())))
+    expect_bf16_kernels("inline serving")
+    for r in serving:
+        print("phase 11 (b) request " + json.dumps(r) + f" [{card}]", flush=True)
+    del model, serve
+
+    # (c) the inline SECOND train step, B=6, epoch 3
+    trainers = [Trainer(second, TrainConfig(), device=dev) for _ in range(2)]
+    for tr in trainers:
+        tr.init_state(seed)
+    fed_plan = HostPlanBuilder(second)(sb.points, sb.points_mask, sb.gt_boxes, sb.gt_labels,
+                                       sb.gt_mask)
+    logs_fed = {k: float(v) for k, v in trainers[0].train_step(sb, 3, fed_plan).items()}
+    zero_counts()
+    logs_in = {k: float(v) for k, v in trainers[1].train_step(sb, 3, None).items()}
+    if read_counts() != TRAIN_LAUNCHES:
+        raise RuntimeError(f"phase 11 inline step launches {read_counts()}")
+    if logs_in != logs_fed and not flips_all.get("second"):
+        raise RuntimeError(f"phase 11: the inline step's losses {logs_in} differ from the "
+                           f"plan-fed step's {logs_fed} with no assignment flip")
+    print(f"phase 11 (c) inline vs plan-fed step on the same state and frames: losses "
+          f"{'equal' if logs_in == logs_fed else 'differ (assignment flip)'}: "
+          + json.dumps({k: [logs_in[k], logs_fed[k]] for k in ("loss", "loss_cls", "loss_bbox",
+                                                              "num_pos")}) + f" [{card}]",
+          flush=True)
+    trainer = trainers[1]
+    del trainers, fed_plan
+    names = ("middle_encoder.conv_input.0.weight", "adversary.mlp_out.weight")
+    params = dict(trainer.model.named_parameters())
+    before = {k: params[k].detach().clone() for k in names}
+    batches = [kitti_frames(second) for _ in range(IN_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with HostPlanCalls() as hp, PlainVersionCalls(k1=True) as plain:
+        t_all = time.perf_counter()
+        for b in batches:
+            zero_counts()
+            logs, step_ms, _ = _timed(lambda: {k: float(v) for k, v in trainer.train_step(
+                b, 3, None).items()}, False)
+            n = read_counts()
+            if n != TRAIN_LAUNCHES:
+                raise RuntimeError(f"phase 11 inline step launches {n}")
+            if not all(np.isfinite(v) for v in logs.values()) or logs["num_pos"] <= 0:
+                raise RuntimeError(f"phase 11 inline step logs {logs}")
+            steps.append(dict(step_ms=step_ms, loss=logs["loss"], num_pos=logs["num_pos"]))
+        train_s = time.perf_counter() - t_all
+    if hp.calls or plain.calls:
+        raise RuntimeError(f"phase 11 inline training called {hp.calls} host builders and "
+                           f"{plain.calls} plain versions")
+    expect_bf16_kernels("inline training")
+    for k in names:
+        if torch.equal(before[k], params[k].detach()):
+            raise RuntimeError(f"phase 11: {k} did not move in inline training")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(s["step_ms"] for s in steps)
+    print(f"phase 11 (c) inline train steps B={IN_BATCH} epoch 3: " + json.dumps(steps)
+          + f"; median step_ms {med:.3f}, {IN_BATCH * len(steps) / train_s:.3f} frames/s, peak "
+          f"{peak:.2f} GiB; per step: " + ", ".join(f"{k} {v}" for k, v in TRAIN_LAUNCHES.items())
+          + f" [{card}]", flush=True)
+    summary["train"] = dict(median_step_ms=med, frames_per_s=IN_BATCH * len(steps) / train_s,
+                            peak_gib=peak)
+    del trainer, params, before
+    torch.cuda.empty_cache()
+
+    # (d) CenterPoint, PointPillars and the strong forward_eval inline, clean and attack
+    def serve_pair(tag, model, anchors, head, b, host_build):
+        mvn.init_weights(model, torch.Generator().manual_seed(seed))
+        srv = export_serving(model, None, anchors, head)
+        for attack in (False, True):
+            srv(b.points, b.points_mask, attack=attack)  # warm-up
+            zero_counts()
+            with HostPlanCalls() as hp, PlainVersionCalls(k1=True) as plain:
+                out_in = srv(b.points, b.points_mask, attack=attack)
+                torch.cuda.synchronize()
+            n_in = read_counts()
+            if hp.calls or plain.calls:
+                raise RuntimeError(f"phase 11 {tag}: {hp.calls} host builds, {plain.calls} "
+                                   f"plain versions")
+            zero_counts()
+            out_fed = srv(b.points, b.points_mask, host_build(b), attack=attack)
+            if n_in != read_counts() or not outputs_equal(tuple(out_in), tuple(out_fed)):
+                raise RuntimeError(f"phase 11 {tag} attack={attack}: inline {n_in} vs plan-fed "
+                                   f"{read_counts()}, outputs equal "
+                                   f"{outputs_equal(tuple(out_in), tuple(out_fed))}")
+            print(f"phase 11 (d) {tag} attack={attack}: inline serve bit-equal to plan-fed, "
+                  f"launches {json.dumps(n_in)} [{card}]", flush=True)
+
+    serve_pair("centerpoint B=4", mcp.AdversarialCenterPoint(cpcfg), None, cpcfg.head, cb,
+               lambda b: build_plan_native(b.points, b.points_mask, cpcfg.voxelizer, 5))
+    serve_pair("pointpillars B=6", mpp.AdversarialPointPillars(pillars),
+               pillars.make_anchors()[0], pillars.head, pb,
+               lambda b: build_pillar_plan_native(b.points, b.points_mask, pillars.voxelizer,
+                                                  4))
+    expect_bf16_kernels("inline CenterPoint / PointPillars serving")
+    torch.cuda.empty_cache()
+    st = StrongTrainer(StrongVoxelNetConfig(base=mvn.VoxelNetConfig(adversary=None)),
+                       TrainConfig(), device=dev)
+    st.init_state(seed, batch_size=IN_BATCH)
+    splan = HostPlanBuilder(st.model_cfg.base)(sb.points, sb.points_mask)
+    for attack in (False, True):
+        st.forward_eval(None, attack, batch=sb)  # warm-up
+        zero_counts()
+        with HostPlanCalls() as hp, PlainVersionCalls(k1=True) as plain:
+            out_in = st.forward_eval(None, attack, batch=sb)
+            torch.cuda.synchronize()
+        n_in = read_counts()
+        zero_counts()
+        out_fed = st.forward_eval(splan, attack)
+        if hp.calls or plain.calls or n_in != read_counts() or not outputs_equal(
+                tuple(out_in), tuple(out_fed)):
+            raise RuntimeError(f"phase 11 strong forward_eval attack={attack}: inline {n_in} "
+                               f"vs plan-fed {read_counts()}, {hp.calls} host builds")
+        print(f"phase 11 (d) strong forward_eval B=6 attack={attack}: inline bit-equal to "
+              f"plan-fed, launches {json.dumps(n_in)} [{card}]", flush=True)
+    expect_bf16_kernels("inline strong forward_eval")
+    del st
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.time() - t_phase
+    print(f"phase 11: {summary['seconds']:.1f} s [{card}]", flush=True)
+    print("phase 11 summary " + json.dumps(summary), flush=True)
+
+
 def bn_step_total(rows, kernel):
     """One train step's sum over its 17 MaskedBatchNorms (count x each
     shape); a device time that one shape did not measure leaves the sum not
@@ -2953,6 +3447,10 @@ def main() -> int:
     # ---- phase 10: the strong family at full width, and its training entry point
     st_rows = run_strong(dev, card, args.seed, zero_counts, read_counts, read_f32_counts,
                          expect_bf16_kernels, os.path.join(KITTI_ROOT, "data"), KITTI_ROOT)
+
+    # ---- phase 11: the inline (plan=None) path, the plan built on the card
+    run_inline(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels,
+               os.path.join(KITTI_ROOT, "data"))
     shutil.rmtree(KITTI_ROOT, ignore_errors=True)
 
     k2 = stats_rows[0]

@@ -1,8 +1,11 @@
 """The serving forward (counterpart of `serve` in robustpointclouds_tpu/cli/export.export_serving).
 
 `export_serving(model, state_dict, anchors, head)` returns
-`serve(points, mask, plan, attack=False) -> (boxes, scores, labels,
-valid)`: the plan-fed model forward with the weights loaded, then
+`serve(points, mask, plan=None, attack=False) -> (boxes, scores, labels,
+valid)`: the model forward with the weights loaded — on a host plan, or
+self-contained with no plan, the plan built on the device inside the
+request (the counterpart of JAX's default export variant, which voxelises
+on device) — then
   * SECOND (AdversarialVoxelNet) and PointPillars (AdversarialPointPillars,
     on the native pillar plan): anchor decode + rotated NMS, boxes [B, K, 7];
   * CenterPoint (AdversarialCenterPoint, `anchors` None): per-task heatmap
@@ -47,9 +50,13 @@ def export_serving(model: Union[AdversarialVoxelNet, AdversarialPointPillars,
         anchors_t = torch.as_tensor(np.asarray(anchors, np.float32), device=dev)
 
     @torch.no_grad()
-    def serve(points, mask, plan, attack: bool = False):
-        """`plan`: the native host plan's dict (numpy or on the device)."""
-        plan_t = plan_to_device(plan, dev)
+    def serve(points, mask, plan=None, attack: bool = False):
+        """`plan`: the native host plan's dict (numpy or on the device), or
+        None: the plan is built from `points` / `mask` on the device."""
+        if plan is None:
+            points = torch.as_tensor(points, device=dev)
+            mask = torch.as_tensor(mask, device=dev)
+        plan_t = None if plan is None else plan_to_device(plan, dev)
         outs = model(points, mask, False, 100, attack, -1.0, plan_t)
         if centerpoint:
             return centerpoint_decode(outs.task_preds, head)

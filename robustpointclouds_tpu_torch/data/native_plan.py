@@ -22,7 +22,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -34,6 +34,13 @@ _SO = os.path.join(_BUILD_DIR, "libplan.so")
 # default SparseEncoder layout constants the C++ traversal is fixed to
 _STAGE_FACTORS = (1.0, 1.0, 0.75, 0.5)
 _OUT_FACTOR = 0.5
+
+
+def level_caps(n: int) -> Tuple[int, int, int, int]:
+    """Row caps of down1, down2, down3 and conv_out's grid over `n` = B *
+    max_voxels merged rows (the torch builder of nn/sparse_encoder.py reads
+    them too, so the two plans truncate alike)."""
+    return tuple(max(int(n * f), 1) for f in _STAGE_FACTORS[1:] + (_OUT_FACTOR,))
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -131,10 +138,7 @@ def build_plan_native(points: np.ndarray, points_mask: np.ndarray, voxelizer,
                          "exceeds int32")
     V, T = voxelizer.max_voxels, voxelizer.max_points_per_voxel
     N = B * V
-    n1 = max(int(N * _STAGE_FACTORS[1]), 1)
-    n2 = max(int(N * _STAGE_FACTORS[2]), 1)
-    n3 = max(int(N * _STAGE_FACTORS[3]), 1)
-    n4 = max(int(N * _OUT_FACTOR), 1)
+    n1, n2, n3, n4 = level_caps(N)
 
     pts = np.ascontiguousarray(points[..., :F], np.float32)
     msk = np.ascontiguousarray(points_mask, np.uint8)

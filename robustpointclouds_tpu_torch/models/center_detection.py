@@ -6,8 +6,9 @@ target rows with a validity mask, and decoding is a per-task dense top-k
 followed by circle NMS (the reference checkpoint's `circlenms` variant).
 
 The targets are a pure function of the GTs, so they are built on the host
-in CPU torch beside the sparse plan (models/centerpoint.build_centerpoint_plan,
-in the input pipeline's prefetch thread); each gaussian is drawn only
+in CPU torch beside the sparse plan (train/centerpoint_loop.CenterPointPlanBuilder,
+in the input pipeline's prefetch thread), or on the card inside the inline
+train step; each gaussian is drawn only
 inside its 3-sigma window, which holds every cell the JAX package's
 full-grid field leaves non-zero. The loss and the decode run on the
 device. Sorts are stable, so ties resolve to the lower index as `lax.top_k`
@@ -51,10 +52,17 @@ class CenterHeadConfig(NamedTuple):
         return [(t, j) for t, names in enumerate(self.tasks) for j in range(len(names))]
 
 
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b with b as a tensor on a's device: CUDA turns a division by a host
+    scalar into a multiply by its reciprocal, which can round differently
+    from the CPU's division."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
 def gaussian_radius(dx: torch.Tensor, dy: torch.Tensor, min_overlap: float) -> torch.Tensor:
     """CornerNet radius rule on BEV extents (in feature cells)."""
     b1 = dy + dx
-    c1 = dx * dy * (1 - min_overlap) / (1 + min_overlap)
+    c1 = _div(dx * dy * (1 - min_overlap), 1 + min_overlap)
     r1 = (b1 + torch.sqrt(torch.clamp(b1 ** 2 - 4 * 1.0 * c1, min=0.0))) / 2
     b2 = 2 * (dy + dx)
     c2 = (1 - min_overlap) * dx * dy
@@ -72,13 +80,13 @@ def _splat_heatmap(h: int, w: int, c: int, cx: torch.Tensor, cy: torch.Tensor,
     adds exp(-d^2 / (2 sigma^2)), sigma = max(r, 1) / 3, cut below exp(-4.5)
     (3 sigma: d <= max(r, 1)), in its class's channel; each is evaluated
     only on a window of half-width max(r, 1) + 1 cells around its centre."""
-    hm = torch.zeros(h * w * c, dtype=torch.float32)
+    hm = torch.zeros(h * w * c, dtype=torch.float32, device=cx.device)
     if not bool(valid.any()):
         return hm.reshape(h, w, c)
     cx, cy, radius, cls = cx[valid], cy[valid], radius[valid], cls[valid].long()
-    sigma = torch.clamp(radius, min=1.0) / 3.0
+    sigma = _div(torch.clamp(radius, min=1.0), 3.0)
     half = int(torch.clamp(radius, min=1.0).max().item()) + 1
-    off = torch.arange(-half, half + 1, dtype=torch.float32)
+    off = torch.arange(-half, half + 1, dtype=torch.float32, device=cx.device)
     # the cells of each window: the integer cells around the truncated centre
     xs = (torch.floor(cx)[:, None] + off[None, :])[:, None, :]     # [n, 1, win]
     ys = (torch.floor(cy)[:, None] + off[None, :])[:, :, None]     # [n, win, 1]
@@ -94,26 +102,33 @@ def _splat_heatmap(h: int, w: int, c: int, cx: torch.Tensor, cy: torch.Tensor,
 def centerpoint_targets_single(gt_boxes, gt_labels, gt_mask, gt_vel,
                                feat_size: Tuple[int, int], cfg: CenterHeadConfig
                                ) -> List[Dict[str, torch.Tensor]]:
-    """Targets of one sample (CPU tensors): per task a heatmap [H, W, C_t] and
-    up to max_objs regression rows (`anno` [M, 10]: dxy, z, log-dims, sin,
-    cos, vel), their flat cells `pos` [M] and validity `mask` [M]."""
-    gt_boxes = torch.as_tensor(np.asarray(gt_boxes, np.float32))
-    gt_labels = torch.as_tensor(np.asarray(gt_labels, np.int64))
-    gt_mask = torch.as_tensor(np.asarray(gt_mask, bool))
-    gt_vel = torch.as_tensor(np.asarray(gt_vel, np.float32))
+    """Targets of one sample: per task a heatmap [H, W, C_t] and up to
+    max_objs regression rows (`anno` [M, 10]: dxy, z, log-dims, sin, cos,
+    vel), their flat cells `pos` [M] and validity `mask` [M]. Tensors are
+    taken on their device, arrays on the CPU."""
+    dev = gt_boxes.device if isinstance(gt_boxes, torch.Tensor) else torch.device("cpu")
+
+    def as_t(x, dtype):
+        return (x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))).to(
+            device=dev, dtype=dtype)
+
+    gt_boxes = as_t(gt_boxes, torch.float32)
+    gt_labels = as_t(gt_labels, torch.int64)
+    gt_mask = as_t(gt_mask, torch.bool)
+    gt_vel = as_t(gt_vel, torch.float32)
     h, w = feat_size
     pcr = cfg.point_cloud_range
     vx, vy = cfg.voxel_size
     stride = cfg.out_factor
     mapping = cfg.class_to_task()
-    task_of_class = torch.tensor([m[0] for m in mapping])
-    idx_in_task = torch.tensor([m[1] for m in mapping])
+    task_of_class = torch.tensor([m[0] for m in mapping], device=dev)
+    idx_in_task = torch.tensor([m[1] for m in mapping], device=dev)
 
-    cx = (gt_boxes[:, 0] - pcr[0]) / (vx * stride)
-    cy = (gt_boxes[:, 1] - pcr[1]) / (vy * stride)
+    cx = _div(gt_boxes[:, 0] - pcr[0], vx * stride)
+    cy = _div(gt_boxes[:, 1] - pcr[1], vy * stride)
     in_grid = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h) & gt_mask
-    dxf = gt_boxes[:, 3] / (vx * stride)
-    dyf = gt_boxes[:, 4] / (vy * stride)
+    dxf = _div(gt_boxes[:, 3], vx * stride)
+    dyf = _div(gt_boxes[:, 4], vy * stride)
     radius = torch.clamp(torch.floor(gaussian_radius(dxf, dyf, cfg.gaussian_overlap)),
                          min=float(cfg.min_radius))
     safe = torch.clamp(gt_labels, 0, cfg.num_classes - 1)
@@ -141,12 +156,13 @@ def centerpoint_targets_single(gt_boxes, gt_labels, gt_mask, gt_vel,
 
 
 def centerpoint_targets(gt_boxes, gt_labels, gt_mask, gt_vel, feat_size: Tuple[int, int],
-                        cfg: CenterHeadConfig) -> List[Dict[str, np.ndarray]]:
+                        cfg: CenterHeadConfig) -> List[Dict[str, torch.Tensor]]:
     """Batched targets as a plan group: per task {heatmap [B, H, W, C_t],
-    anno [B, M, 10], pos [B, M] int32, mask [B, M]}, numpy arrays."""
+    anno [B, M, 10], pos [B, M] int32, mask [B, M]}, tensors on the GTs'
+    device (the CPU for arrays)."""
     per = [centerpoint_targets_single(gt_boxes[b], gt_labels[b], gt_mask[b], gt_vel[b],
                                       feat_size, cfg) for b in range(len(gt_boxes))]
-    return [{k: torch.stack([p[t][k] for p in per]).numpy() for k in per[0][t]}
+    return [{k: torch.stack([p[t][k] for p in per]) for k in per[0][t]}
             for t in range(len(cfg.tasks))]
 
 

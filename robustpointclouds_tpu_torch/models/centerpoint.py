@@ -1,8 +1,10 @@
 """AdversarialCenterPoint — the CenterPoint-on-NuScenes detector (counterpart of robustpointclouds_tpu/models/centerpoint.py).
 
-Plan-fed forward: host plan (5-feature voxels: x, y, z, intensity, sweep
-lag, + every sparse index) -> (learned VoxelPerturber on the 5 features
-behind the gradient-reversal `grad_scale`; the lag channel's bound is 0)
+Forward: plan (5-feature voxels: x, y, z, intensity, sweep lag, + every
+sparse index; the native host plan, or with `plan=None` the torch plan
+built on the points' device by `build_centerpoint_plan`) -> (learned
+VoxelPerturber on the 5 features behind the gradient-reversal
+`grad_scale`; the lag channel's bound is 0)
 -> HardSimpleVFE -> the residual (basicblock) SparseEncoder -> SECONDBackbone
 -> SECONDFPN -> CenterHead. The architecture is the reference's
 centerpoint_voxel01_second_secfpn_head-dcn-circlenms base: voxels 0.1 x 0.1
@@ -23,7 +25,6 @@ import torch
 from torch import nn
 
 from ..core.registry import MODELS
-from ..data.native_plan import build_plan_native
 from ..nn.center_head import NUSCENES_TASKS, CenterHead
 from ..nn.perturber import VoxelPerturber
 from ..nn.second import SECONDFPN, SECONDBackbone
@@ -32,7 +33,7 @@ from ..nn.vfe import HardSimpleVFE
 from ..ops.sparse import SparseGrid
 from ..ops.voxelize import VoxelizerConfig
 from .center_detection import CenterHeadConfig, centerpoint_targets
-from .voxelnet import _ADV_AUX_KEYS, apply_voxel_adversary
+from .voxelnet import _ADV_AUX_KEYS, apply_voxel_adversary, inline_inputs, sparse_plan_core
 
 NUSCENES_CLASSES = tuple(c for task in NUSCENES_TASKS for c in task)
 
@@ -104,13 +105,17 @@ class AdversarialCenterPoint(nn.Module):
     def forward(self, points: Optional[torch.Tensor], points_mask: Optional[torch.Tensor],
                 train: bool, epoch: float = 0, attack: bool = False,
                 adv_grad_scale: float = -1.0, plan: Dict[str, Any] = None) -> CenterPointOutputs:
-        """Plan-fed forward, as AdversarialVoxelNet's: `plan` from
-        build_centerpoint_plan on the device (`plan_to_device`); points and
-        points_mask are not read and may be None. `train` sets the module's
-        mode; `attack=True` applies the adversary with its evaluation-attack
-        bounds; `adv_grad_scale` scales the perturbation delta's gradient."""
+        """Forward, as AdversarialVoxelNet's: `plan` the host plan
+        (train/centerpoint_loop.CenterPointPlanBuilder) on the device
+        (`plan_to_device`; points and points_mask are then not read and may
+        be None), or None: built inline from points [B, P, 5] on their
+        device by `build_centerpoint_plan`. `train` sets the
+        module's mode; `attack=True` applies the adversary with its
+        evaluation-attack bounds; `adv_grad_scale` scales the perturbation
+        delta's gradient."""
         if plan is None:
-            raise NotImplementedError("the inline (plan=None) path is not ported yet")
+            points, points_mask = inline_inputs(points, points_mask, self)
+            plan = build_centerpoint_plan(points, points_mask, self.cfg)
         if train != self.training:
             self.train(train)
         voxels = plan["voxels"]
@@ -131,17 +136,22 @@ class AdversarialCenterPoint(nn.Module):
         return CenterPointOutputs(self.pts_bbox_head(fused), adv_aux)
 
 
-def build_centerpoint_plan(points, points_mask, cfg: CenterPointConfig, gt_boxes=None,
-                           gt_labels=None, gt_mask=None, gt_vel=None) -> Dict[str, Any]:
-    """The host plan of AdversarialCenterPoint: the native sparse plan over
-    5-feature points (data/native_plan.py) and, given GTs, the CenterHead's
-    targets under "targets" (models/center_detection.centerpoint_targets).
-    numpy arrays."""
-    f = cfg.num_point_features
-    plan = build_plan_native(points, points_mask, cfg.voxelizer, f)
+def build_centerpoint_plan(points: torch.Tensor, points_mask: torch.Tensor,
+                           cfg: CenterPointConfig, gt_boxes=None, gt_labels=None, gt_mask=None,
+                           gt_vel=None) -> Dict[str, Any]:
+    """The plan of AdversarialCenterPoint, built in torch ops on the points'
+    device: `sparse_plan_core` over the 5-feature points and, given GTs,
+    the CenterHead's targets under "targets" (center_detection.centerpoint_targets)
+    on that device. Bit-equal to the host plan
+    (train/centerpoint_loop.CenterPointPlanBuilder); JAX's jitted builder
+    keeps down2's forward relation dense where both keep it in x-window
+    form (the same index, tests/test_torch_inline_plan.py)."""
+    plan = sparse_plan_core(points, points_mask, cfg.voxelizer, cfg.num_point_features)
     if gt_boxes is not None:
-        plan["targets"] = centerpoint_targets(gt_boxes, gt_labels, gt_mask, gt_vel,
-                                              cfg.bev_feature_size, cfg.head)
+        plan["targets"] = centerpoint_targets(
+            *(torch.as_tensor(x, device=points.device)
+              for x in (gt_boxes, gt_labels, gt_mask, gt_vel)),
+            cfg.bev_feature_size, cfg.head)
     return plan
 
 

@@ -1,8 +1,9 @@
 """AdversarialPointPillars — the all-dense pillar family (counterpart of robustpointclouds_tpu/models/pointpillars.py).
 
-Plan-fed forward: host pillar plan (data/native_plan.build_pillar_plan_native:
-voxels on a single-z grid, the merged (batch, y, x) BEV grid) -> (learned
-VoxelPerturber on the raw pillar points behind the gradient-reversal
+Forward: pillar plan (data/native_plan.build_pillar_plan_native on the
+host, or `build_pillar_plan` in torch ops on the points' device when
+`plan=None`: voxels on a single-z grid, the merged (batch, y, x) BEV grid)
+-> (learned VoxelPerturber on the raw pillar points behind the gradient-reversal
 `grad_scale`) -> PillarFeatureNet (9 decorated features -> Linear ->
 MaskedBatchNorm + ReLU -> masked max over the pillar) -> BEV scatter
 (ops/sparse.scatter_to_dense, as SECOND's encoder output) -> SECONDBackbone
@@ -28,16 +29,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.registry import MODELS
-from ..data.native_plan import build_pillar_plan_native
 from ..nn.anchor_head import Anchor3DHead
 from ..nn.layers import MaskedBatchNorm
 from ..nn.perturber import VoxelPerturber
 from ..nn.second import SECONDFPN, SECONDBackbone
 from ..ops import anchors as anchor_ops
-from ..ops.sparse import SparseGrid, scatter_to_dense
-from ..ops.voxelize import VoxelizerConfig
+from ..ops import sparse
+from ..ops.sparse import SparseGrid, scatter_to_dense, with_batch_axis
+from ..ops.voxelize import VoxelizerConfig, voxelize_batch
 from .detection import AnchorHeadConfig
-from .voxelnet import _ADV_AUX_KEYS, ModelOutputs, apply_voxel_adversary
+from .voxelnet import _ADV_AUX_KEYS, ModelOutputs, apply_voxel_adversary, inline_inputs
 
 
 class PointPillarsConfig(NamedTuple):
@@ -150,10 +151,28 @@ class PillarFeatureNet(nn.Module):
                                                                          device=x.device))
 
 
-def build_pillar_plan(points, points_mask, cfg: PointPillarsConfig) -> Dict[str, Any]:
-    """The host plan of AdversarialPointPillars (numpy arrays): the native
-    pillar plan over the 4 point features."""
-    return build_pillar_plan_native(np.asarray(points), np.asarray(points_mask), cfg.voxelizer, 4)
+def build_pillar_plan(points: torch.Tensor, points_mask: torch.Tensor,
+                      cfg: PointPillarsConfig) -> Dict[str, Any]:
+    """The plan of AdversarialPointPillars over the 4 point features, built
+    in torch ops on the points' device: the voxels, the merged (batch, y, x)
+    BEV grid with its `order`, and `dense`, the grid row of each of the
+    B * ny * nx BEV cells (B * V when empty), bit for bit as JAX's
+    `build_pillar_plan` and the native host plan
+    (data/native_plan.build_pillar_plan_native) hold them."""
+    vz = cfg.voxelizer
+    res = voxelize_batch(points[..., :4].float(), points_mask.bool(), vz)
+    nx, ny, _ = vz.grid_size
+    grid, order = with_batch_axis(res.coords[..., 1:], res.voxel_mask, (ny, nx))
+    n = grid.flat_ids.shape[0]
+    size = res.voxels.shape[0] * ny * nx
+    cell = torch.where(grid.mask, torch.clamp(grid.flat_ids, max=size),
+                       torch.full_like(grid.flat_ids, size))
+    dense = sparse.scatter_set(size, cell, torch.arange(n, dtype=torch.int32, device=cell.device), n)
+    return {"voxels": res.voxels, "vox_coords": res.coords, "num_points": res.num_points,
+            "voxel_mask": res.voxel_mask, "point_mask": res.point_mask,
+            "slot_point": res.slot_point, "point_slot": res.point_slot, "order": order,
+            "grid_ids": grid.flat_ids, "grid_coords": grid.coords, "grid_mask": grid.mask,
+            "dense": dense}
 
 
 @MODELS.register_module()
@@ -187,10 +206,13 @@ class AdversarialPointPillars(nn.Module):
     def forward(self, points: Optional[torch.Tensor], points_mask: Optional[torch.Tensor],
                 train: bool, epoch: float = 0, attack: bool = False,
                 adv_grad_scale: float = -1.0, plan: Dict[str, Any] = None) -> ModelOutputs:
-        """AdversarialVoxelNet's contract on a pillar plan (build_pillar_plan,
-        on the device); points and points_mask are not read and may be None."""
+        """AdversarialVoxelNet's contract on a pillar plan (the host's,
+        data/native_plan.build_pillar_plan_native, on the device; points and
+        points_mask are then not read and may be None), or with plan=None on
+        the plan `build_pillar_plan` builds from the points on their device."""
         if plan is None:
-            raise NotImplementedError("the inline (plan=None) path is not ported yet")
+            points, points_mask = inline_inputs(points, points_mask, self)
+            plan = build_pillar_plan(points, points_mask, self.cfg)
         if train != self.training:
             self.train(train)
         voxels = plan["voxels"]

@@ -12,9 +12,10 @@ differs from AdversarialVoxelNet in four ways, all kept here:
   * anti-adaptation: with probability `anti_adaptation_prob` the detector's
     losses are scaled x0.1 for the step (train/strong_loop.py).
 
-The model is plan-fed on the SECOND plan of `cfg.base` (the strong variant
+The model runs on the SECOND plan of `cfg.base` (the strong variant
 perturbs post-VFE features, so the sparse structure does not depend on the
-perturbation); `plan=None`, the inline path, is not ported yet. The
+perturbation): the host's, or with `plan=None` the one AdversarialVoxelNet
+builds inline on the points' device. The
 reference's `class_attack_weights` / `post_encoding_noise_scales` fields are
 configured but never applied; they are accepted here for config parity and
 likewise unused.
@@ -80,14 +81,16 @@ class StrongAdversarialVoxelNet(AdversarialVoxelNet):
                 adv_grad_scale: Union[float, torch.Tensor] = -1.0,
                 apply_perturbations: bool = True, plan: Optional[Dict[str, Any]] = None,
                 generator: Optional[torch.Generator] = None) -> StrongOutputs:
-        """Plan-fed forward (models/voxelnet.plan_to_device of a SECOND host
-        plan); points/points_mask are not read on this path and may be None.
+        """Forward on a SECOND host plan (models/voxelnet.plan_to_device;
+        points/points_mask are then not read and may be None), or with
+        plan=None on the plan built inline from the points on their device.
 
         `train` sets the module's mode (BatchNorm batch statistics, the
         adversary's training bound profile and dropout, whose masks come
         from `generator`). The perturbation deltas reach the encoder through
         `grad_scale(., adv_grad_scale)`; `apply_perturbations=False` is the
         clean forward."""
+        plan = self._plan(points, points_mask, plan)
         grid = self._grid(plan, train)
         feats = self._vfe(plan["voxels"], plan)
         zero = feats.new_zeros(())

@@ -1,10 +1,14 @@
 """AdversarialVoxelNet — the SECOND-on-KITTI detector (counterpart of robustpointclouds_tpu/models/voxelnet.py).
 
-Plan-fed forward: host plan (voxels + every sparse index) -> (learned
-VoxelPerturber behind the gradient-reversal `grad_scale`) -> HardSimpleVFE ->
-SparseEncoder -> SECONDBackbone -> SECONDFPN -> Anchor3DHead. The adversary
-runs in training from `adversary_start_epoch` on, and always with
-`attack=True` (the evaluation-under-attack mode).
+Forward: plan (voxels + every sparse index) -> (learned VoxelPerturber
+behind the gradient-reversal `grad_scale`) -> HardSimpleVFE ->
+SparseEncoder -> SECONDBackbone -> SECONDFPN -> Anchor3DHead. The plan is
+the host's (data/native_plan.build_plan_native, moved to the device) or,
+with `plan=None`, built inline by `build_plan` in torch ops on the points'
+device (ops/voxelize.py, ops/sparse.py, nn/sparse_encoder.encoder_plan);
+the two are bit-equal, so the forwards are too. The adversary runs in
+training from `adversary_start_epoch` on, and always with `attack=True`
+(the evaluation-under-attack mode).
 
 Training helpers: `anchor_assign_plan` (the host plan's anchor assignment,
 CPU torch in the prefetch thread) and `adversary_direct_terms` (the
@@ -24,12 +28,12 @@ from ..nn.anchor_head import Anchor3DHead
 from ..nn.deform_conv import DeformConv2d
 from ..nn.perturber import VoxelPerturber
 from ..nn.second import SECONDFPN, SECONDBackbone
-from ..nn.sparse_encoder import SparseConv3d, SparseEncoder
+from ..nn.sparse_encoder import SparseConv3d, SparseEncoder, encoder_plan
 from ..nn.vfe import HardSimpleVFE
 from ..ops import anchors as anchor_ops
 from ..ops.grad import grad_scale
-from ..ops.sparse import SparseGrid
-from ..ops.voxelize import VoxelizerConfig
+from ..ops.sparse import SparseGrid, with_batch_axis
+from ..ops.voxelize import VoxelizerConfig, voxelize_batch
 from ..ops import assigner
 from .detection import AnchorHeadConfig
 
@@ -127,6 +131,7 @@ class AdversarialVoxelNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.sparse_shape = tuple(cfg.voxelizer.sparse_shape)
+        self.voxelizer = cfg.voxelizer
         dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.middle_encoder = SparseEncoder(cfg.voxelizer.sparse_shape, dtype=dt)
         self.backbone = SECONDBackbone(self.middle_encoder.bev_channels, dtype=dt)
@@ -146,9 +151,11 @@ class AdversarialVoxelNet(nn.Module):
     def forward(self, points: Optional[torch.Tensor], points_mask: Optional[torch.Tensor],
                 train: bool, epoch: float = 0, attack: bool = False,
                 adv_grad_scale: float = -1.0, plan: Dict[str, Any] = None) -> ModelOutputs:
-        """Plan-fed forward. `plan` comes from data/native_plan.build_plan_native,
-        on the device (`plan_to_device`); points/points_mask are not read on
-        this path (the plan holds the voxelised points) and may be None.
+        """Forward on `plan`: the host plan of data/native_plan.build_plan_native
+        on the device (`plan_to_device`), whose voxels stand for the points
+        (points/points_mask are not read and may be None), or None: the
+        inline path builds it from points [B, P, >=4] / points_mask [B, P]
+        on the points' device (`build_plan`).
 
         `train` sets the module's mode (BatchNorm batch statistics and the
         adversary's epoch gate), as the JAX forward's argument does.
@@ -156,6 +163,7 @@ class AdversarialVoxelNet(nn.Module):
         profile regardless of `train`; `adv_grad_scale` is the gradient
         reversal factor on the perturbation delta.
         """
+        plan = self._plan(points, points_mask, plan)
         grid = self._grid(plan, train)
         voxels = plan["voxels"]
         zero = voxels.new_zeros(())
@@ -168,11 +176,15 @@ class AdversarialVoxelNet(nn.Module):
         feats = self._vfe(voxels, plan)
         return ModelOutputs(*self._detect(feats, grid, plan), adv_aux)
 
-    def _grid(self, plan: Optional[Dict[str, Any]], train: bool) -> SparseGrid:
-        """Refuses the inline path, sets the module's mode, and returns the
-        plan's sparse grid."""
-        if plan is None:
-            raise NotImplementedError("the inline (plan=None) path is not ported yet")
+    def _plan(self, points, points_mask, plan: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+        """`plan`, or the inline plan of the points, built on their device."""
+        if plan is not None:
+            return plan
+        points, points_mask = inline_inputs(points, points_mask, self)
+        return build_plan(points, points_mask, self.voxelizer)
+
+    def _grid(self, plan: Dict[str, Any], train: bool) -> SparseGrid:
+        """Sets the module's mode and returns the plan's sparse grid."""
         if train != self.training:
             self.train(train)
         return SparseGrid(plan["grid_ids"], plan["grid_coords"], plan["grid_mask"],
@@ -187,6 +199,65 @@ class AdversarialVoxelNet(nn.Module):
         """SparseEncoder -> backbone -> FPN -> Anchor3DHead: (cls, bbox, dir)."""
         bev = self.middle_encoder(feats, grid, plan["enc"])
         return self.bbox_head(self.neck(self.backbone(bev)))
+
+
+def inline_inputs(points, points_mask, module: nn.Module):
+    """Points and mask as tensors for the inline path: tensors stay on their
+    device, arrays go to the module's."""
+    if points is None or points_mask is None:
+        raise ValueError("plan=None (the inline path) needs points and points_mask")
+    dev = next(module.parameters()).device
+    if not isinstance(points, torch.Tensor):
+        points = torch.as_tensor(np.asarray(points, np.float32), device=dev)
+    if not isinstance(points_mask, torch.Tensor):
+        points_mask = torch.as_tensor(np.asarray(points_mask, bool), device=points.device)
+    return points, points_mask.bool()
+
+
+def sparse_plan_core(points: torch.Tensor, points_mask: torch.Tensor, vz: VoxelizerConfig,
+                     num_features: int) -> Dict[str, Any]:
+    """Voxelise + batch merge + the encoder's index plan, in torch ops on the
+    points' device: the dict of build_plan_native, key for key and bit for
+    bit (int32 ids and indices, bool masks, float32 voxels). The model
+    families add their own groups on top."""
+    res = voxelize_batch(points[..., :num_features].float(), points_mask.bool(), vz)
+    grid, order = with_batch_axis(res.coords, res.voxel_mask, vz.sparse_shape)
+    b, v = res.voxels.shape[:2]
+    return {"voxels": res.voxels, "vox_coords": res.coords, "num_points": res.num_points,
+            "voxel_mask": res.voxel_mask, "point_mask": res.point_mask,
+            "slot_point": res.slot_point, "point_slot": res.point_slot, "order": order,
+            "grid_ids": grid.flat_ids, "grid_coords": grid.coords, "grid_mask": grid.mask,
+            "enc": encoder_plan(grid, b * v)}
+
+
+def build_plan(points: torch.Tensor, points_mask: torch.Tensor, cfg, gt_boxes=None,
+               gt_labels=None, gt_mask=None,
+               anchors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Dict[str, Any]:
+    """The SECOND plan of a batch, built in torch ops on the points' device
+    (`sparse_plan_core` on 4 features): the inline path's counterpart of
+    the host plan (data/native_plan.build_plan_native + anchor_assign_plan)
+    and of JAX's `build_plan`, bit for bit. With GTs, the anchor assignment
+    "assign" on that device (ops/assigner.assign); `cfg` a VoxelNetConfig,
+    or a VoxelizerConfig when no GTs are given. `anchors`: (anchors,
+    classes) from cfg.make_anchors() on the points' device, to skip
+    rebuilding them per call.
+    """
+    vz = cfg if isinstance(cfg, VoxelizerConfig) else cfg.voxelizer
+    plan = sparse_plan_core(points, points_mask, vz, 4)
+    if gt_boxes is not None:
+        dev = points.device
+        if anchors is None:
+            a, c = cfg.make_anchors()
+            anchors = (torch.as_tensor(a, device=dev), torch.as_tensor(c, device=dev))
+        head = cfg.head
+        res = assigner.assign(anchors[0], anchors[1],
+                              torch.as_tensor(gt_boxes, dtype=torch.float32, device=dev),
+                              torch.as_tensor(gt_labels, device=dev).to(torch.int32),
+                              torch.as_tensor(gt_mask, device=dev).bool(),
+                              head.pos_iou_thr, head.neg_iou_thr, head.min_pos_iou)
+        plan["assign"] = {"labels": res.labels, "matched_gt": res.matched_gt,
+                          "pos_mask": res.pos_mask, "neg_mask": res.neg_mask}
+    return plan
 
 
 def plan_to_device(plan: Any, device: torch.device) -> Any:

@@ -26,7 +26,8 @@ pair; a basic block's `conv1`/`bn1`/`conv2`/`bn2`) and the sparse weights
 keep spconv2's (out, kz, ky, kx, in) layout, so tools/convert.py is the
 inverse of the JAX package's zoo converter.
 
-The inline index build (plan=None) is not ported.
+`encoder_plan` builds the "enc" group of the plan in torch ops on the
+grid's device: the inline (plan=None) path's index build.
 """
 from __future__ import annotations
 
@@ -35,12 +36,18 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..data.native_plan import level_caps
 from ..kernels.sparse_conv import sparse_conv_train
 from ..ops import sparse
 from .layers import MaskedBatchNorm
 
 _SUBM_KX = 3
 _OUT_GEOM = ((1, 3, 1, 1), (1, 2, 1, 1), (0, 0, 0, 0))  # conv_out (mmdet3d)
+_SUBM_KERNEL = (1, 3, 3, 3)  # batch axis has extent 1
+_N_STAGES = 4  # the plan's grid levels 0-3 (rel0-3, down1-3), then out
+# the relations the native plan keeps in x-window form; the others as the
+# dense index (its layout is fixed, whatever the encoder's widths)
+_XWIN_LEVELS = ("rel0", "rel1", "down1", "down2")
 
 
 def _down_geom(num_stages: int, stage_i: int):
@@ -54,6 +61,56 @@ def _down_shape(in_shape, kernel, stride, padding):
         (dim + 2 * p - k) // s + 1
         for dim, k, s, p in zip(in_shape, kernel, stride, padding)
     )
+
+
+def encoder_plan(grid: sparse.SparseGrid, n_cap: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Every neighbour and downsample index of the encoder, on the grid's
+    device: the "enc" group of the plan, key for key and bit for bit the
+    native host plan's (data/native_plan.py).
+
+    rel0..rel3 are the submanifold relations of the four grid levels,
+    down1..down3 the strided downsamples' output grids ({ids, coords, mask}),
+    inverse index `inv` and forward relation, `out` conv_out's grid with
+    `idx` and `inv`. The relations of _XWIN_LEVELS are kept in x-window
+    form ({rows, xvalid}), the others as the dense `idx`. `n_cap` = B *
+    max_voxels sets the levels' row caps (native_plan.level_caps).
+    """
+    def subm_rel(name: str, g: sparse.SparseGrid):
+        if name in _XWIN_LEVELS:
+            xw = sparse.neighbor_xwin_info(g, g.coords, g.mask, _SUBM_KERNEL, (1, 1, 1, 1),
+                                           (0, 1, 1, 1))
+            return {"rows": xw.rows, "xvalid": xw.xvalid}
+        return {"idx": sparse.neighbor_index(g, g.coords, g.mask, _SUBM_KERNEL, (1, 1, 1, 1),
+                                             (0, 1, 1, 1))}
+
+    caps = level_caps(n_cap)
+    g = grid
+    plan = {"rel0": subm_rel("rel0", g)}
+    for i in range(1, _N_STAGES):
+        k4, s4, p4 = _down_geom(_N_STAGES, i)
+        name = f"down{i}"
+        xwin = name in _XWIN_LEVELS
+        new_g, down_idx, down_inv = sparse.downsample_with_index(g, k4, s4, p4, caps[i - 1],
+                                                                 forward=not xwin)
+        st = {"ids": new_g.flat_ids, "coords": new_g.coords, "mask": new_g.mask,
+              "inv": down_inv}
+        if xwin:
+            dense_idx = sparse.inverse_from_forward(down_inv, new_g.flat_ids.shape[0])
+            xw = sparse.xwin_from_index(dense_idx, new_g.coords, new_g.mask, k4[-1],
+                                        g.flat_ids.shape[0], s4[-1], p4[-1],
+                                        g.spatial_shape[-1])
+            st["rows"], st["xvalid"] = xw.rows, xw.xvalid
+        else:
+            st["idx"] = down_idx
+        plan[name] = st
+        g = new_g
+        plan[f"rel{i}"] = subm_rel(f"rel{i}", g)
+
+    k4, s4, p4 = _OUT_GEOM
+    out_g, out_idx, out_inv = sparse.downsample_with_index(g, k4, s4, p4, caps[-1])
+    plan["out"] = {"ids": out_g.flat_ids, "coords": out_g.coords, "mask": out_g.mask,
+                   "idx": out_idx, "inv": out_inv}
+    return plan
 
 
 class SparseConv3d(nn.Module):

@@ -7,8 +7,10 @@ regression L1 (models/center_detection.centerpoint_loss) on the targets the
 host plan carries, plus the adversary's L2 regulariser; the adversary's
 objective -min(w * epoch / 10, w) * det total rides on the gradient-reversal
 scale of its perturbation delta (the reference's epoch-ramped adaptive
-weight). The reference recipe: AdamW lr 5e-5, clip 1.0, the adversary's lr
-multiplier 1.
+weight). With `plan=None` the step is inline, as JAX's: the model builds
+the plan from the batch's points on the device and the targets are drawn
+there from the batch's GTs and velocities. The reference recipe: AdamW lr
+5e-5, clip 1.0, the adversary's lr multiplier 1.
 
 PGD adversarial training (`pgd_steps`) raises, as the JAX trainer does:
 training clean while the config asks for PGD-AT would make a fake robust
@@ -52,8 +54,9 @@ class CenterPointPlanBuilder:
                                  cfg.num_point_features)
         t1 = time.perf_counter()
         if gt_boxes is not None:
-            plan["targets"] = centerpoint_targets(gt_boxes, gt_labels, gt_mask, gt_vel,
-                                                  cfg.bev_feature_size, cfg.head)
+            plan["targets"] = [{k: v.numpy() for k, v in task.items()} for task in
+                               centerpoint_targets(gt_boxes, gt_labels, gt_mask, gt_vel,
+                                                   cfg.bev_feature_size, cfg.head)]
         t2 = time.perf_counter()
         self.timings.append({"native_ms": (t1 - t0) * 1e3, "targets_ms": (t2 - t1) * 1e3,
                              "plan_ms": (t2 - t0) * 1e3})
@@ -82,14 +85,16 @@ class CenterPointTrainer(Trainer):
         self.state = None
         self._pgd = None
 
-    def _loss_fn(self, gt, epoch: float, plan: Dict[str, Any]):
-        """Forward + losses -> (total scalar, logs, is_nan); the GTs come in
-        through the plan's "targets" (`gt` is unused)."""
+    def _loss_fn(self, gt, epoch: float, plan: Optional[Dict[str, Any]], points=(None, None)):
+        """Forward + losses -> (total scalar, logs, is_nan). The GTs come in
+        as the plan's "targets", or as `gt` itself, the targets of the
+        inline step, whose forward builds the plan from `points`."""
         cfg = self.model_cfg
         adv_enabled = self.state.adversary_enabled
         ramp = min(cfg.adversarial_loss_weight * epoch / 10.0, cfg.adversarial_loss_weight)
-        outs = self.model(None, None, True, epoch, False, -ramp * adv_enabled, plan)
-        det = centerpoint_loss(outs.task_preds, plan["targets"], cfg.head)
+        outs = self.model(*points, True, epoch, False, -ramp * adv_enabled, plan)
+        targets = gt if plan is None else plan["targets"]
+        det = centerpoint_loss(outs.task_preds, targets, cfg.head)
         det_total = det["loss_heatmap"] + det["loss_bbox"]
         adv_direct, _, adv_logs = centerpoint_adversary_terms(
             det, outs.adv_aux, epoch, cfg.adversarial_loss_weight, cfg.regularization_weight)
@@ -101,15 +106,26 @@ class CenterPointTrainer(Trainer):
                 **{k: v.detach() for k, v in adv_logs.items()}}
         return total, logs, is_nan
 
-    def train_step(self, batch, epoch: float, plan: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def train_step(self, batch, epoch: float, plan: Optional[Dict[str, Any]] = None,
+                   gt_vel=None) -> Dict[str, torch.Tensor]:
         """One step on a host plan with "targets" (CenterPointPlanBuilder
-        given the GTs); `batch` is not read, the plan carries its GTs.
-        Returns the logs as device scalars."""
+        given the GTs; `batch` is then not read), or inline with plan=None:
+        the plan from the batch's points and the targets from its GTs and
+        `gt_vel` [B, G, 2], both on the device. Returns the logs as device
+        scalars."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
-        plan_t = plan_to_device(plan, self.device)
+        targets = None
+        if plan is None:
+            if gt_vel is None:
+                raise ValueError("the inline CenterPoint step (plan=None) needs gt_vel")
+            gt, _ = self._to_device(batch, None)
+            targets = centerpoint_targets(*gt, self._tensor(gt_vel).float(),
+                                          self.model_cfg.bev_feature_size, self.model_cfg.head)
+        plan_t = None if plan is None else plan_to_device(plan, self.device)
         old_stats = [b.clone() for b in self._bn_buffers()]
-        grads, logs, is_nan = self._grads(None, float(epoch), plan_t)
+        grads, logs, is_nan = self._grads(targets, float(epoch), plan_t,
+                                          self._points(batch, plan_t))
         self._apply(grads, is_nan, old_stats)
         return logs
 

@@ -33,8 +33,11 @@ running statistics still move in train mode. PGD adversarial training
 K-step white-box attack at the current weights (eval/attacks.PlanAttack)
 before the gradient half of the step; the attack is a constant of the
 step's backward. The host plan comes from HostPlanBuilder (SECOND) or
-PillarPlanBuilder (the pillar family), as `make_plan_builder` picks. The
-sharded DDP step (`compile_sharded`) is not ported yet (ROADMAP.md, M10).
+PillarPlanBuilder (the pillar family), as `make_plan_builder` picks. With
+`plan=None` the step is inline, as JAX's: the model builds the plan from
+the batch's points on the device and the loss assigns the anchors there
+(anchor_head_loss with no "assign"). The sharded DDP step
+(`compile_sharded`) is not ported yet (ROADMAP.md, M10).
 """
 from __future__ import annotations
 
@@ -49,9 +52,9 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..data.native_plan import build_plan_native
+from ..data.native_plan import build_pillar_plan_native, build_plan_native
 from ..models.detection import anchor_head_loss
-from ..models.pointpillars import AdversarialPointPillars, PointPillarsConfig, build_pillar_plan
+from ..models.pointpillars import AdversarialPointPillars, PointPillarsConfig
 from ..models.voxelnet import (AdversarialVoxelNet, VoxelNetConfig, adversary_direct_terms,
                                anchor_assign_plan, init_weights, plan_to_device)
 from .hooks import device_nan_ladder
@@ -222,7 +225,7 @@ class PillarPlanBuilder(HostPlanBuilder):
     anchor assignment, with HostPlanBuilder's `timings` split."""
 
     def _native(self, points: np.ndarray, points_mask: np.ndarray) -> Dict[str, Any]:
-        return build_pillar_plan(points, points_mask, self._cfg)
+        return build_pillar_plan_native(points, points_mask, self._cfg.voxelizer, 4)
 
 
 class Trainer:
@@ -288,24 +291,37 @@ class Trainer:
         return [b for m in self.model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)
                 for b in (m.running_mean, m.running_var)]
 
-    def _to_device(self, batch, plan):
-        def t(x):
-            return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                                   device=self.device)
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                               device=self.device)
 
+    def _to_device(self, batch, plan):
+        t = self._tensor
         gt = (t(batch.gt_boxes).float(), t(batch.gt_labels).to(torch.int32), t(batch.gt_mask).bool())
-        return gt, plan_to_device(plan, self.device)
+        return gt, None if plan is None else plan_to_device(plan, self.device)
+
+    def _points(self, batch, plan) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """The batch's points and mask on the device for the inline path
+        (plan None); (None, None) for a plan-fed call, which reads only the plan."""
+        if plan is not None:
+            return None, None
+        if batch is None:
+            raise ValueError("plan=None (the inline path) needs the batch's points")
+        return self._tensor(batch.points).float(), self._tensor(batch.points_mask).bool()
 
     # -- the step -------------------------------------------------------------
-    def _loss_fn(self, gt, epoch: float, plan: Dict[str, Any]):
-        """Forward + losses -> (total scalar, logs, is_nan), as the JAX _loss_fn."""
+    def _loss_fn(self, gt, epoch: float, plan: Optional[Dict[str, Any]], points=(None, None)):
+        """Forward + losses -> (total scalar, logs, is_nan), as the JAX _loss_fn;
+        with no plan the forward builds it from `points` (points, mask) and
+        the loss assigns the anchors."""
         adv_enabled = self.state.adversary_enabled
-        outs = self.model(None, None, True, epoch, False,
+        outs = self.model(*points, True, epoch, False,
                           -self.train_cfg.adversarial_loss_weight * adv_enabled, plan)
         gt_boxes, gt_labels, gt_mask = gt
         det = anchor_head_loss(outs.cls_scores, outs.bbox_preds, outs.dir_preds,
                                self.anchors, self.anchor_cls, gt_boxes, gt_labels, gt_mask,
-                               self.model_cfg.head, assign=plan.get("assign"))
+                               self.model_cfg.head,
+                               assign=None if plan is None else plan.get("assign"))
         det_total = det["loss_cls"] + det["loss_bbox"] + det["loss_dir"]
         adv_total, adv_logs = adversary_direct_terms(det, outs.adv_aux, epoch,
                                                      self.train_cfg.regularization_weight)
@@ -318,14 +334,14 @@ class Trainer:
                 **{k: v.detach() for k, v in adv_logs.items()}}
         return total, logs, is_nan
 
-    def _grads(self, gt, epoch: float, plan: Dict[str, Any]):
+    def _grads(self, gt, epoch: float, plan: Optional[Dict[str, Any]], points=(None, None)):
         """Backward + NaN sanitation -> (grads by parameter name, logs, is_nan).
         A non-finite gradient element anywhere is replaced by 0 and makes the
         step a NaN step."""
         self.model.train()
         for p in self.model.parameters():
             p.grad = None
-        total, logs, is_nan = self._loss_fn(gt, epoch, plan)
+        total, logs, is_nan = self._loss_fn(gt, epoch, plan, points)
         total.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in self.model.named_parameters()}
@@ -366,16 +382,19 @@ class Trainer:
         st.step += 1
         st.count += 1
 
-    def train_step(self, batch, epoch: float, plan: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def train_step(self, batch, epoch: float,
+                   plan: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
         """One step on `batch` (a PointCloudBatch; its GTs are read) with its
-        host plan (HostPlanBuilder, with "assign"). Returns the logs as device
-        scalars; reading them waits for the step."""
+        host plan (HostPlanBuilder, with "assign"), or inline with plan=None
+        (the plan and the assignment built on the device from the batch's
+        points). Returns the logs as device scalars; reading them waits for
+        the step."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
         gt, plan_t = self._to_device(batch, plan)
         plan_t = self._maybe_pgd(batch, plan_t)
         old_stats = [b.clone() for b in self._bn_buffers()]
-        grads, logs, is_nan = self._grads(gt, float(epoch), plan_t)
+        grads, logs, is_nan = self._grads(gt, float(epoch), plan_t, self._points(batch, plan_t))
         self._apply(grads, is_nan, old_stats)
         return logs
 
@@ -386,8 +405,10 @@ class Trainer:
         if not self.train_cfg.pgd_steps:
             return plan
         if plan is None:
-            raise ValueError("pgd_steps > 0 needs the plan-fed path (the attack perturbs the "
-                             "plan's raw voxels): feed train_step a host plan")
+            raise ValueError("pgd_steps > 0 needs the plan-fed path: PGD-AT perturbs the "
+                             "plan's raw voxels, as the JAX package's does, so the inline "
+                             "step (plan=None) has nothing to attack; feed train_step a "
+                             "host plan")
         if self._pgd is None:
             from ..eval.attacks import make_plan_attack
 
@@ -403,9 +424,12 @@ class Trainer:
 
     # -- eval ---------------------------------------------------------------
     @torch.no_grad()
-    def forward_eval(self, plan: Dict[str, Any], attack: bool = False):
-        """Inference forward on a host plan (eval-mode BN; `attack` applies
-        the learned adversary with the evaluation-attack bounds)."""
+    def forward_eval(self, plan: Optional[Dict[str, Any]] = None, attack: bool = False,
+                     batch=None):
+        """Inference forward on a host plan, or inline (plan=None) on the
+        points of `batch`, the plan built on the device (eval-mode BN;
+        `attack` applies the learned adversary with the evaluation-attack
+        bounds)."""
         self.model.eval()
-        return self.model(None, None, False, 100, attack, -1.0,
-                          plan_to_device(plan, self.device))
+        plan_t = None if plan is None else plan_to_device(plan, self.device)
+        return self.model(*self._points(batch, plan_t), False, 100, attack, -1.0, plan_t)

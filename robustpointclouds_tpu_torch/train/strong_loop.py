@@ -94,22 +94,23 @@ class StrongTrainer(Trainer):
         return HostPlanBuilder(self.model_cfg.base)
 
     # -- the step -------------------------------------------------------------
-    def _loss_fn(self, gt, epoch: float, plan: Dict[str, Any]):
+    def _loss_fn(self, gt, epoch: float, plan: Optional[Dict[str, Any]], points=(None, None)):
         """Forward + losses -> (total scalar, logs, is_nan), as the JAX
-        _loss_fn; the step's perturbations are kept for the carry."""
+        _loss_fn; the step's perturbations are kept for the carry. With no
+        plan the forward builds it from `points` and the loss assigns."""
         cfg, st = self.model_cfg, self.state
         # the curriculum in float32, as the JAX step computes it from its int32 step
         curriculum = float(np.minimum(np.float32(1.0) + np.float32(st.step) / np.float32(1e4),
                                       np.float32(2.0)))
         scale = torch.clamp(st.scale_factor * curriculum, max=cfg.max_scaling)
         enabled = st.adversary_enabled
-        outs = self.model(None, None, True, scale, st.momentum,
+        outs = self.model(*points, True, scale, st.momentum,
                           -cfg.adversarial_loss_weight * enabled * scale, True, plan,
                           generator=self.generator)
         gt_boxes, gt_labels, gt_mask = gt
         det = anchor_head_loss(outs.cls_scores, outs.bbox_preds, outs.dir_preds, self.anchors,
                                self.anchor_cls, gt_boxes, gt_labels, gt_mask, cfg.base.head,
-                               assign=plan.get("assign"))
+                               assign=None if plan is None else plan.get("assign"))
         det_total = det["loss_cls"] + det["loss_bbox"] + det["loss_dir"]
         # anti-adaptation: now and then starve the detector (x0.1)
         anti = self._anti_draw()
@@ -131,16 +132,23 @@ class StrongTrainer(Trainer):
         u = torch.rand((), generator=self.generator, device=self.generator.device)
         return u.to(self.device) < self.model_cfg.anti_adaptation_prob
 
-    def train_step(self, batch, epoch: float = 0, plan: Dict[str, Any] = None
+    def _rows(self, batch, plan) -> int:
+        """Voxel rows of a batch: the plan's, or B * max_voxels inline."""
+        if plan is not None:
+            return len(plan["order"])
+        return len(batch.points) * self.model_cfg.base.voxelizer.max_voxels
+
+    def train_step(self, batch, epoch: float = 0, plan: Optional[Dict[str, Any]] = None
                    ) -> Dict[str, torch.Tensor]:
         """One step on `batch` with its host plan (HostPlanBuilder on
-        cfg.base, with "assign"); `epoch` is not read (the dynamic scale
-        carries it). The momentum carry is re-zeroed when the batch's voxel
-        rows differ from it (another batch size)."""
+        cfg.base, with "assign"), or inline with plan=None (plan and
+        assignment built on the device); `epoch` is not read (the dynamic
+        scale carries it). The momentum carry is re-zeroed when the batch's
+        voxel rows differ from it (another batch size)."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
-        rows = len(plan["order"]) if plan is not None else None
-        if rows is not None and self.state.momentum.shape[0] != rows:
+        rows = self._rows(batch, plan)
+        if self.state.momentum.shape[0] != rows:
             self.state.momentum = torch.zeros((rows, 4), dtype=torch.float32,
                                               device=self.device)
         logs = super().train_step(batch, epoch, plan)
@@ -149,19 +157,23 @@ class StrongTrainer(Trainer):
 
     # -- eval -----------------------------------------------------------------
     @torch.no_grad()
-    def forward_eval(self, plan: Dict[str, Any], attack: bool = False):
+    def forward_eval(self, plan: Optional[Dict[str, Any]] = None, attack: bool = False,
+                     batch=None):
         """Clean eval (no perturbation) or attack eval (the perturbation
         forced at the current dynamic scale with the carried momentum, the
         strong variant's analogue of the reference's forced-perturbation
-        attack eval) on a host plan. A plan of another row count than the
-        carry (another batch size) runs without the momentum term."""
+        attack eval) on a host plan, or inline (plan=None) on the points of
+        `batch`, voxelised on the device as JAX's forward_eval does. A batch
+        of another row count than the carry (another batch size) runs
+        without the momentum term."""
         self.model.eval()
-        plan = plan_to_device(plan, self.device)
+        plan = None if plan is None else plan_to_device(plan, self.device)
+        points = self._points(batch, plan)
         if not attack:
-            return self.model(None, None, False, 1.0, None, 0.0, False, plan)
+            return self.model(*points, False, 1.0, None, 0.0, False, plan)
         st = self.state
-        last = st.momentum if st.momentum.shape[0] == plan["order"].shape[0] else None
-        return self.model(None, None, False, st.scale_factor, last, 0.0, True, plan)
+        last = st.momentum if st.momentum.shape[0] == self._rows(batch, plan) else None
+        return self.model(*points, False, st.scale_factor, last, 0.0, True, plan)
 
     # -- host-side dynamic scaling (the reference's update_dynamic_scaling) ---
     def update_dynamic_scaling(self, state: StrongTrainState, epoch: int,

@@ -45,6 +45,7 @@ from robustpointclouds_tpu_torch.nn.sparse_encoder import relation_index
 from robustpointclouds_tpu_torch.nn.vfe import HardSimpleVFE
 from robustpointclouds_tpu_torch.ops.sparse import SparseGrid
 from robustpointclouds_tpu_torch.tools.convert import centerpoint_to_state_dict
+from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointPlanBuilder
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
 
 FWD_RTOL = 1e-5
@@ -71,8 +72,8 @@ def cp():
     batch, vel = synthetic_nuscenes_batch(np.random.RandomState(0), batch_size=2,
                                           num_points=num_points, max_gt=jcfg.head.max_objs,
                                           num_objects=6, point_range=pcr)
-    plan = tcp.build_centerpoint_plan(batch.points, batch.points_mask, tcfg, batch.gt_boxes,
-                                      batch.gt_labels, batch.gt_mask, vel)
+    plan = CenterPointPlanBuilder(tcfg)(batch.points, batch.points_mask, batch.gt_boxes,
+                                        batch.gt_labels, batch.gt_mask, vel)
     jplan = jax.tree_util.tree_map(jnp.asarray, plan)
     model = jcp.AdversarialCenterPoint(cfg=jcfg)
     pts, msk = jnp.asarray(batch.points), jnp.asarray(batch.points_mask)

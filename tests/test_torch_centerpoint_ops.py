@@ -301,15 +301,15 @@ def _narrow_conv_inputs(seed=8, cout=16):
     [N, 27] (symmetric: idx[i, k] = j <=> idx[j, 26 - k] = i)."""
     from robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial import tiny_centerpoint_cfg
     from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
-    from robustpointclouds_tpu_torch.models.centerpoint import (CenterPointConfig,
-                                                                build_centerpoint_plan)
+    from robustpointclouds_tpu_torch.data.native_plan import build_plan_native
+    from robustpointclouds_tpu_torch.models.centerpoint import CenterPointConfig
     from robustpointclouds_tpu_torch.nn.sparse_encoder import relation_index
 
     cfg, n_pts = tiny_centerpoint_cfg(CenterPointConfig())
     rng = np.random.RandomState(seed)
     b, _ = synthetic_nuscenes_batch(rng, batch_size=2, num_points=n_pts, max_gt=8,
                                     num_objects=4, point_range=cfg.voxelizer.point_cloud_range)
-    plan = build_centerpoint_plan(b.points, b.points_mask, cfg)
+    plan = build_plan_native(b.points, b.points_mask, cfg.voxelizer, 5)
     idx = relation_index({k: torch.from_numpy(v) for k, v in plan["enc"]["rel0"].items()},
                          torch.from_numpy(plan["grid_ids"])).numpy()
     n = idx.shape[0]

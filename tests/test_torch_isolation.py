@@ -64,6 +64,10 @@ _EXPECTED = {
     "robustpointclouds_tpu_torch.core.registry", "robustpointclouds_tpu_torch.models.strong",
     "robustpointclouds_tpu_torch.train.strong_loop",
     "robustpointclouds_tpu_torch.cli.train_kitti_adversarial_strong",
+    # the inline (plan=None) path: the device plan builders and their callers
+    "robustpointclouds_tpu_torch.ops.voxelize", "robustpointclouds_tpu_torch.ops.sparse",
+    "robustpointclouds_tpu_torch.nn.sparse_encoder", "robustpointclouds_tpu_torch.models.voxelnet",
+    "robustpointclouds_tpu_torch.cli.export",
 }
 
 
@@ -143,3 +147,39 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             main(["--tiny", "--synthetic"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_nuscenes_adversarial.run(tiny=True, synthetic=True)
+
+
+def test_the_inline_path_never_calls_the_host_builder(monkeypatch):
+    """plan=None builds on the points' device: with the native builders made
+    to raise, every family's inline forward still runs (on CPU tensors)."""
+    from robustpointclouds_tpu_torch.cli.common import tiny_pointpillars_cfg, tiny_voxelnet_cfg
+    from robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial import tiny_centerpoint_cfg
+    from robustpointclouds_tpu_torch.data import native_plan
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.models import centerpoint, pointpillars, strong, voxelnet
+
+    def refuse(*a, **k):
+        raise AssertionError("the host plan builder was called")
+
+    for name in ("build_plan_native", "build_pillar_plan_native"):
+        monkeypatch.setattr(native_plan, name, refuse)
+        for mod in (voxelnet, centerpoint, pointpillars, strong):
+            assert not hasattr(mod, name), (mod.__name__, name)  # no model holds a host builder
+    b = synthetic_kitti_batch(np.random.RandomState(0), batch_size=2, num_points=512, max_gt=8,
+                              num_objects=3, point_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0))
+    pts, msk = torch.from_numpy(np.asarray(b.points)), torch.from_numpy(np.asarray(b.points_mask))
+    cp_cfg, _ = tiny_centerpoint_cfg(centerpoint.CenterPointConfig(compute_dtype="float32"))
+    models = [voxelnet.AdversarialVoxelNet(tiny_voxelnet_cfg()._replace(compute_dtype="float32")),
+              pointpillars.AdversarialPointPillars(
+                  tiny_pointpillars_cfg()._replace(compute_dtype="float32")),
+              strong.StrongAdversarialVoxelNet(strong.StrongVoxelNetConfig(
+                  base=tiny_voxelnet_cfg()._replace(adversary=None, compute_dtype="float32")))]
+    models.append(centerpoint.AdversarialCenterPoint(cp_cfg))
+    for m in models:
+        voxelnet.init_weights(m, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in models[:3]:
+            assert torch.isfinite(m(pts, msk, False).cls_scores).all()
+        cp_pts = torch.cat([pts, torch.zeros_like(pts[..., :1])], -1)
+        out = models[3](cp_pts, msk, False)
+        assert torch.isfinite(out.task_preds[0]["heatmap"]).all()

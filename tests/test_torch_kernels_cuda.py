@@ -1441,3 +1441,50 @@ def test_pillar_train_step_on_card_matches_cpu(cuda_device, monkeypatch):
     if flips:
         gc, _ = grads(cpu_tr, flips)
     _assert_grads_close(gc, gg)
+
+
+def _plan_mismatches(card, host, path=""):
+    """Paths where the card's plan (tensors) differs from the host's (numpy)."""
+    if isinstance(host, dict):
+        assert sorted(card) == sorted(host), path
+        return [p for k in host for p in _plan_mismatches(card[k], host[k], f"{path}/{k}")]
+    h = torch.from_numpy(host)
+    c = card.cpu()
+    if c.dtype != h.dtype or c.shape != h.shape or not torch.equal(c, h):
+        return [path]
+    return []
+
+
+@pytest.mark.parametrize("family,seed", [("second", 0), ("second_truncating", 5),
+                                         ("pillars", 1)])
+def test_inline_plan_on_the_card_equals_the_native_plan(cuda_device, family, seed):
+    """The inline path's plan built on the card (torch sorts, scans, scatters
+    and searches there) holds every array of the native host plan of the
+    same points, dtypes included, at the smoke grids (the truncating case
+    caps voxels, slots and downsample sites)."""
+    import numpy as np
+
+    from robustpointclouds_tpu_torch.cli.common import tiny_pointpillars_cfg, tiny_voxelnet_cfg
+    from robustpointclouds_tpu_torch.data.native_plan import (build_pillar_plan_native,
+                                                              build_plan_native)
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.models import pointpillars, voxelnet
+    from robustpointclouds_tpu_torch.ops.voxelize import VoxelizerConfig
+
+    if family == "pillars":
+        cfg = tiny_pointpillars_cfg()
+        build, build_host = pointpillars.build_pillar_plan, build_pillar_plan_native
+    else:
+        cfg = tiny_voxelnet_cfg()
+        if family == "second_truncating":
+            cfg = cfg._replace(voxelizer=VoxelizerConfig(
+                (0.0, -8.0, -3.0, 16.0, 8.0, 1.0), (0.25, 0.25, 0.125), 2, 128))
+        build, build_host = voxelnet.build_plan, build_plan_native
+    b = synthetic_kitti_batch(np.random.RandomState(seed), batch_size=3, num_points=4000,
+                              max_gt=8, num_objects=3, point_range=cfg.voxelizer.point_cloud_range)
+    pts, msk = np.asarray(b.points), np.asarray(b.points_mask)
+    host = build_host(pts, msk, cfg.voxelizer, 4)
+    card = build(torch.from_numpy(pts).to(cuda_device), torch.from_numpy(msk).to(cuda_device),
+                 cfg)
+    assert card["voxels"].is_cuda
+    assert _plan_mismatches(card, host) == []

@@ -375,8 +375,14 @@ def test_trainer_serving_and_evaluation_run_the_pillar_family(setup):
     plan = builder(raw.points, raw.points_mask)
     assert "assign" not in plan and "dense" in plan and "enc" not in plan
     assert set(builder.timings[-1]) == {"native_ms", "assign_ms", "plan_ms"}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the inline path (plan=None) builds the plan from the points, which it needs
+    with pytest.raises(ValueError, match="needs points"):
         tr.model(None, None, False, 100, False, -1.0, None)
+    with torch.no_grad():
+        inline = tr.model(torch.from_numpy(np.asarray(raw.points)),
+                          torch.from_numpy(np.asarray(raw.points_mask)), False, 100)
+        fed = tr.model(None, None, False, 100, False, -1.0, plan_to_device(plan, "cpu"))
+    assert torch.equal(inline.cls_scores, fed.cls_scores)
     # serving: anchor decode + rotated NMS on the pillar plan
     cfg = tr.model_cfg
     serve = export_serving(tpp.AdversarialPointPillars(cfg), s["sd"], cfg.make_anchors()[0],
