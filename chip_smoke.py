@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family and inline (plan=None) paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None) and serving-export paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -174,7 +174,29 @@ Phases (any failure exits non-zero and prints no result):
      strong forward_eval B=6 inline, clean and attack, each bit-equal to
      its plan-fed output with the same launches. No inline path may call
      a host builder (HostPlanCalls), a plain version of K1 or K2, or a
-     float32 sparse-conv kernel.
+     float32 sparse-conv kernel;
+ 12. the serving export (run_export, cli/export.py): K1's forward and K2's
+     apply are the operators rpc::sparse_conv_fwd / rpc::masked_bn_apply,
+     so torch.export records them and the loaded program launches the
+     kernels. (a) SECOND (VoxelNetConfig, bf16) at B=6 on 20000-point
+     frames: a trainer's seeded weights saved by CheckpointManager and
+     exported by the CLI's main from that work dir, one request bit-equal
+     to the eager serve; then through export_program with the head's
+     score_thr at 0, as every artifact below, so that random weights leave
+     detections to compare (a request with none fails); (b) its plan-fed
+     artifact on the native host plan; (c) PointPillars B=6 and CenterPoint
+     B=4 on 30000-point frames, seeded random weights. Each export launches
+     no kernel; each artifact is saved into a temporary directory, loaded
+     back and answers EX_REQUESTS seeded requests (EX_FED_REQUESTS
+     plan-fed), each bit-equal to the eager serve on the same frames with
+     the same K1 and apply launches (EX_LAUNCHES), timed in turns with it;
+     one request each way under torch.profiler gives the device operations
+     and the host events where the two differ; a fresh interpreter that
+     imports torch and cli/export only loads the SECOND artifact and
+     answers a request bit-equal to this process; the host microseconds a
+     call of each operator takes against its direct launch (one encoder
+     conv, one encoder BN, gradients off, in turns); export / save / load
+     seconds, the artifact's MB and the peak memory.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -1537,7 +1559,8 @@ class PlainVersionCalls:
     takes only for a tensor on the CPU; the main path on the card must make
     none."""
 
-    NAMES = ("masked_stats_ref", "masked_stats_bwd_ref", "_bn_ref", "masked_batch_norm_bwd_ref")
+    NAMES = ("masked_stats_ref", "masked_stats_bwd_ref", "_bn_ref", "_bn_stats_ref",
+             "bn_apply_ref", "masked_batch_norm_bwd_ref")
     K1_NAMES = ("sparse_conv_ref", "sparse_conv_wgrad_ref")
 
     def __init__(self, k1: bool = False):
@@ -2539,6 +2562,53 @@ def profile_launches(fn):
     return (n, sum(e.self_device_time_total for e in ev) / 1e3) if n else (None, None)
 
 
+def profile_host(fn):
+    """One call under torch.profiler: (device operations, their device ms,
+    {host event: [count, self host ms]}); host events are the operators
+    (aten::, rpc::) and the CUDA runtime calls (cudaLaunchKernel, ...)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_ev, host = [], {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_ev.append(e)
+        else:
+            host[e.key] = [e.count, e.self_cpu_time_total / 1e3]
+    n = sum(e.count for e in dev_ev)
+    return n, sum(e.self_device_time_total for e in dev_ev) / 1e3, host
+
+
+def host_difference(eager, artifact, top: int):
+    """The host events of two profiled calls: totals (all, the aten
+    operators, the CUDA runtime), the runtime's calls, and the `top` events
+    whose self host ms differ most."""
+    keys = set(eager) | set(artifact)
+
+    def get(d, k):
+        return d.get(k, [0, 0.0])
+
+    def total(d, pick):
+        return [sum(v[0] for k, v in d.items() if pick(k)),
+                sum(v[1] for k, v in d.items() if pick(k))]
+
+    diff = sorted(keys, key=lambda k: -abs(get(artifact, k)[1] - get(eager, k)[1]))[:top]
+    runtime = sorted(k for k in keys if k.startswith("cuda"))
+    groups = {"all": lambda k: True, "aten": lambda k: k.startswith("aten::"),
+              "runtime": lambda k: k.startswith("cuda")}
+    return {
+        "events": {g: {"eager": total(eager, pick), "artifact": total(artifact, pick)}
+                   for g, pick in groups.items()},
+        "runtime": {k: {"eager": get(eager, k), "artifact": get(artifact, k)} for k in runtime},
+        "largest_differences": {k: {"eager": get(eager, k), "artifact": get(artifact, k)}
+                                for k in diff},
+    }
+
+
 def assign_flips(card_res, host_res, anchors, gt_boxes, gt_labels, gt_mask):
     """The anchors whose assignment differs card vs host, each with the
     largest difference of its IoU row (card vs host IoU of the same boxes).
@@ -2885,6 +2955,346 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
     summary["seconds"] = time.time() - t_phase
     print(f"phase 11: {summary['seconds']:.1f} s [{card}]", flush=True)
     print("phase 11 summary " + json.dumps(summary), flush=True)
+
+
+# phase 12: the serving export (cli/export.py), each family at full width
+EX_REQUESTS = 15  # seeded requests per artifact, each also through the eager serve
+EX_FED_REQUESTS = 6  # SECOND's plan-fed artifact
+EX_TOP_HOST = 12  # host operations listed where the artifact's and the eager serve's differ
+EX_HOST_CALLS = 200  # calls per turn when the operators' host cost is timed
+# (K1 forward, apply kernel) launches of one clean request, derived from the
+# models: every sparse conv, and every MaskedBatchNorm outside the adversary
+EX_LAUNCHES = {"second": (12, 12), "pointpillars": (0, 1), "centerpoint": (21, 21)}
+
+# a fresh interpreter that imports torch and the port's cli/export only,
+# loads an artifact and answers one request saved by the parent
+_EX_CHILD = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from robustpointclouds_tpu_torch.cli.export import load_exported
+call, meta = load_exported(sys.argv[2])
+req = torch.load(sys.argv[3])
+out = call(req["points"].to(sys.argv[5]), req["mask"].to(sys.argv[5]))
+torch.save([t.cpu() for t in out], sys.argv[4])
+from robustpointclouds_tpu_torch.kernels.masked_stats import masked_batch_norm
+from robustpointclouds_tpu_torch.kernels.sparse_conv import sparse_conv
+print(json.dumps({"sparse_conv": sparse_conv.launches,
+                  "masked_batch_norm": masked_batch_norm.launches,
+                  "foreign": sorted(k for k in sys.modules if k.split(".")[0] in
+                                    ("jax", "robustpointclouds_tpu"))}))
+"""
+
+
+def _host_us(fn, calls: int) -> float:
+    """Host-clock microseconds a call of `fn` takes to return (the enqueue:
+    checks, allocation and the launch), over `calls` calls, then a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def run_export(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_kernels):
+    """Phase 12: the serving export at full width (module docstring). Prints
+    a summary line; returns nothing (no kernel is new on this path)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from robustpointclouds_tpu_torch.cli import export
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.kernels import masked_stats as ms
+    from robustpointclouds_tpu_torch.kernels import sparse_conv as sc
+    from robustpointclouds_tpu_torch.models import centerpoint as mcp
+    from robustpointclouds_tpu_torch.models import pointpillars as mpp
+    from robustpointclouds_tpu_torch.models import voxelnet as mvn
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+    from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d
+    from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    t_phase = time.time()
+    rng = np.random.RandomState(seed + 12)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    summary = {}
+
+    def k1_apply():
+        n = read_counts()
+        return n["sparse_conv"], n["masked_batch_norm"]
+
+    def frames(name, cfg, batch):
+        if name == "centerpoint":
+            b, _ = synthetic_nuscenes_batch(rng, batch_size=batch, num_points=CP_POINTS,
+                                            max_gt=cfg.head.max_objs,
+                                            point_range=cfg.voxelizer.point_cloud_range)
+        else:
+            b = synthetic_kitti_batch(rng, batch_size=batch, num_points=IN_POINTS, max_gt=20,
+                                      num_objects=8, point_range=cfg.voxelizer.point_cloud_range)
+        return (torch.from_numpy(np.asarray(b.points)).to(dev),
+                torch.from_numpy(np.asarray(b.points_mask)).to(dev))
+
+    def counted(fn):
+        """(output, (K1, apply) launches, host ms, CUDA-event ms) of one request."""
+        torch.cuda.synchronize()
+        zero_counts()
+        out, host_ms, ev_ms = _timed(fn, True)
+        return out, k1_apply(), host_ms, ev_ms
+
+    def check_family(name, eager, call, req_frames, expect, fed=None):
+        """Each request through the eager serve and the artifact in turns:
+        bit-equal outputs, equal launches, (K1, apply) as `expect`, and
+        detections in every request (the heads' score_thr is 0)."""
+        rows = []
+        for i, (pts, msk) in enumerate(req_frames):
+            extra = () if fed is None else (fed(pts, msk),)
+            order = ("eager", "artifact") if i % 2 == 0 else ("artifact", "eager")
+            res = {}
+            for which in order:
+                fn = (lambda: eager(pts, msk, *extra)) if which == "eager" else (
+                    lambda: call(pts, msk, *extra))
+                res[which] = counted(fn)
+            (out_e, n_e, ms_e, ev_e), (out_a, n_a, ms_a, ev_a) = res["eager"], res["artifact"]
+            if not outputs_equal(tuple(out_a), tuple(out_e)):
+                raise RuntimeError(f"phase 12 {name} request {i}: the artifact's outputs differ "
+                                   f"from the eager serve's")
+            if n_a != n_e or n_e != expect:
+                raise RuntimeError(f"phase 12 {name} request {i}: (K1, apply) launches artifact "
+                                   f"{n_a}, eager {n_e}, expected {expect}")
+            rows.append(dict(eager_ms=ms_e, artifact_ms=ms_a, eager_event_ms=ev_e,
+                             artifact_event_ms=ev_a, valid=int(out_a[3].sum())))
+            if rows[-1]["valid"] == 0:
+                raise RuntimeError(f"phase 12 {name} request {i}: no detection to compare")
+        # device operations, their device ms and the host events of one
+        # request each way
+        pts, msk = req_frames[0]
+        extra = () if fed is None else (fed(pts, msk),)
+        prof = {"eager": profile_host(lambda: eager(pts, msk, *extra)),
+                "artifact": profile_host(lambda: call(pts, msk, *extra))}
+        ops = {k: v[:2] for k, v in prof.items()}
+        print(f"phase 12 {name} request 0 under torch.profiler, (device operations, device "
+              f"ms): " + json.dumps(ops) + f" [{card}]", flush=True)
+        print(f"phase 12 {name} request 0 host events ([count, self host ms], under "
+              f"torch.profiler): " + json.dumps(host_difference(
+                  prof["eager"][2], prof["artifact"][2], EX_TOP_HOST)) + f" [{card}]",
+              flush=True)
+        return rows
+
+    def report(name, rows, times, mb, peak_gib):
+        med = {k: statistics.median(r[k] for r in rows)
+               for k in ("eager_ms", "artifact_ms", "eager_event_ms", "artifact_event_ms")}
+        summary[name] = dict(times, artifact_mb=mb, peak_gib=peak_gib, **med, requests=len(rows))
+        slower = sum(r["artifact_ms"] > r["eager_ms"] for r in rows)
+        summary[name]["artifact_slower_requests"] = slower
+        if "aten_calls" in times:  # what the overload dispatch adds to a request
+            d = summary["dispatch_us"]
+            summary[name]["overload_dispatch_ms"] = (
+                times["aten_calls"] * (d["overload"] - d["binding"]) / 1e3)
+        print(f"phase 12 {name}: {json.dumps(times)}, artifact {mb:.1f} MB; {len(rows)} "
+              f"requests bit-equal to the eager serve, (K1, apply) launches each "
+              f"{EX_LAUNCHES.get(name.split()[0], '')}; median request ms artifact "
+              f"{med['artifact_ms']:.3f} vs eager {med['eager_ms']:.3f} (host clock; CUDA events "
+              f"{med['artifact_event_ms']:.3f} vs {med['eager_event_ms']:.3f}), in turns, the "
+              f"artifact slower in {slower} of {len(rows)}; peak memory {peak_gib:.2f} GiB "
+              f"[{card}]", flush=True)
+        if "overload_dispatch_ms" in summary[name]:
+            print(f"phase 12 {name}: {times['aten_calls']} aten calls in the graph x (overload - "
+                  f"binding) us = {summary[name]['overload_dispatch_ms']:.3f} ms of host time a "
+                  f"request [{card}]", flush=True)
+        print(f"phase 12 {name} requests [eager ms, artifact ms, valid]: " + json.dumps(
+            [[round(r["eager_ms"], 3), round(r["artifact_ms"], 3), r["valid"]] for r in rows]),
+            flush=True)
+
+    def roundtrip(name, write):
+        """(loaded callable, timings, MB, path): `write(path)` exports and
+        saves, with no kernel launch counted; then the artifact is loaded."""
+        torch.cuda.synchronize()
+        zero_counts()
+        path = os.path.join(tmp, f"{name.replace(' ', '_')}.pt2")
+        times = write(path)
+        if any(read_counts().values()):
+            raise RuntimeError(f"phase 12 {name}: kernels launched while exporting: "
+                               f"{read_counts()}")
+        t0 = time.perf_counter()
+        call, meta = export.load_exported(path)
+        times["load_s"] = time.perf_counter() - t0
+        if meta["platforms"] != [dev.type]:
+            raise RuntimeError(f"phase 12 {name}: meta {meta}")
+        return call, times, os.path.getsize(path) / 1e6, path
+
+    def program(*args, **kw):
+        """The writer of export_program's artifact: export and save timed apart."""
+        def write(path):
+            t0 = time.perf_counter()
+            ep, meta = export.export_program(*args, **kw)
+            t1 = time.perf_counter()
+            export.save_exported(ep, meta, path)
+            return dict(export_s=t1 - t0, save_s=time.perf_counter() - t1,
+                        aten_calls=sum(n.op == "call_function" and str(n.target).startswith("aten.")
+                                       for n in ep.graph.nodes))
+        return write
+
+    # (a) SECOND B=6: a trainer's seeded weights saved as a checkpoint, then
+    # exported by the CLI's main from the work dir (the user's flow), at the
+    # head's own score threshold: one request bit-equal to the eager serve
+    second = mvn.VoxelNetConfig()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(second, TrainConfig(), device=dev)
+    trainer.init_state(seed)
+    work = os.path.join(tmp, "second_run")
+    CheckpointManager(work).save(0, trainer)
+    eager = export.export_serving(trainer.model, None, trainer.anchors, second.head)
+
+    def write_main(path):
+        t0 = time.perf_counter()
+        export.main([path, "--work-dir", work, "--batch-size", str(IN_BATCH),
+                     "--num-points", str(IN_POINTS)])
+        return dict(main_s=time.perf_counter() - t0)  # restore + export + save
+
+    call, main_times, _, _ = roundtrip("second main", write_main)
+    req = [frames("second", second, IN_BATCH) for _ in range(EX_REQUESTS)]
+    out_e, n_e, _, _ = counted(lambda: eager(*req[0]))
+    out_a, n_a, _, _ = counted(lambda: call(*req[0]))
+    if not outputs_equal(tuple(out_a), tuple(out_e)) or not n_a == n_e == EX_LAUNCHES["second"]:
+        raise RuntimeError(f"phase 12 second main: the artifact differs from the eager serve "
+                           f"(launches {n_a} vs {n_e})")
+    summary["second main"] = dict(main_times, valid=int(out_a[3].sum()))
+    print(f"phase 12 second main (restore + export + save from a CheckpointManager work dir, "
+          f"the head's score_thr {second.head.score_thr}): " + json.dumps(main_times)
+          + f", request 0 bit-equal to the eager serve, {int(out_a[3].sum())} detections "
+          f"[{card}]", flush=True)
+    del call
+
+    # the requests compared from here on keep every candidate (score_thr 0),
+    # so that random weights leave detections to compare
+    head0 = second.head._replace(score_thr=0.0)
+    eager = export.export_serving(trainer.model, None, trainer.anchors, head0)
+    call, times, mb, path_second = roundtrip("second", program(
+        trainer.model, trainer.anchors, head0, IN_BATCH, IN_POINTS))
+    eager(*req[0])
+    call(*req[0])  # warm-up
+    rows = check_family("second", eager, call, req, EX_LAUNCHES["second"])
+    expect_bf16_kernels("exported SECOND serving")
+
+    # the operators' host cost per call against their direct launches, on
+    # the inputs of one encoder conv and one encoder BN of this request
+    grabbed = {}
+    convs = [m for m in trainer.model.modules() if isinstance(m, SparseConv3d)]
+    bns = [m for n, m in trainer.model.named_modules()
+           if isinstance(m, MaskedBatchNorm) and not n.startswith("adversary.")]
+
+    def grab_conv(mod, a):  # a pre-hook that returns nothing keeps the inputs
+        grabbed["conv"] = (a[0].contiguous(), mod.img2col_kernel(a[0].dtype), a[1])
+
+    def grab_bn(mod, a):  # SparseConvBlock's BN: ReLU and row mask, in the module's dtype
+        grabbed["bn"] = (a[0], a[1], mod.running_mean, mod.running_var, mod.weight, mod.bias,
+                         mod.eps, True, True, mod.dtype)
+
+    hooks = [convs[5].register_forward_pre_hook(grab_conv),
+             bns[5].register_forward_pre_hook(grab_bn)]
+    eager(*req[0])
+    for h in hooks:
+        h.remove()
+    host = {}
+    for key, op, direct in (("sparse_conv_fwd", sc.sparse_conv_fwd, sc._sparse_conv_fwd_cuda),
+                            ("masked_bn_apply", ms.masked_bn_apply, ms._masked_bn_apply_cuda)):
+        args = grabbed["conv" if key == "sparse_conv_fwd" else "bn"]
+        turns = [("op", op), ("direct", direct), ("direct", direct), ("op", op)]
+        got = {"op": [], "direct": []}
+        with torch.no_grad():  # as the model calls them (serving, an autograd Function)
+            if not torch.equal(op(*args), direct(*args)):
+                raise RuntimeError(f"phase 12: {key} differs from its direct launch")
+            for which, fn in turns:
+                got[which].append(_host_us(lambda: fn(*args), EX_HOST_CALLS))
+        host[key] = {k: sum(v) / len(v) for k, v in got.items()}
+        host[key]["shape"] = list(args[0].shape)
+    summary["host_us"] = host
+    # the artifact's generated code calls each aten operator through its
+    # OpOverload (torch.ops.aten.add.Tensor), eager code through the Python
+    # binding (torch.add): the host us of a call each way, in turns
+    xa, xb = (torch.ones(4, device=dev) for _ in range(2))
+    overload = torch.ops.aten.add.Tensor
+    ways = {"overload": lambda: overload(xa, xb), "binding": lambda: torch.add(xa, xb)}
+    got = {"overload": [], "binding": []}
+    with torch.no_grad():
+        for which in ("overload", "binding", "binding", "overload"):
+            got[which].append(_host_us(ways[which], EX_HOST_CALLS * 10))
+    summary["dispatch_us"] = {k: sum(v) / len(v) for k, v in got.items()}
+    print(f"phase 12 host us per call (conv 5 and BN 5 of the SECOND encoder, gradients off, "
+          f"{EX_HOST_CALLS} calls a turn, op/direct/direct/op): " + json.dumps(host) + f"; "
+          f"aten add of two 4-element tensors through its OpOverload vs the Python binding "
+          f"({EX_HOST_CALLS * 10} calls a turn, in turns): " + json.dumps(summary["dispatch_us"])
+          + f" [{card}]", flush=True)
+    report("second", rows, times, mb, torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # a fresh process loads the SECOND artifact and answers request 0
+    req_file, out_file = os.path.join(tmp, "request.pt"), os.path.join(tmp, "child_out.pt")
+    torch.save({"points": req[0][0].cpu(), "mask": req[0][1].cpu()}, req_file)
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", _EX_CHILD, REPO, path_second, req_file,
+                            out_file, dev.type], capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 12 fresh-process load failed:\n{child.stderr[-4000:]}")
+    child_counts = json.loads(child.stdout.strip().splitlines()[-1])
+    mine = [t.cpu() for t in call(*req[0])]
+    k1, apply = EX_LAUNCHES["second"]
+    if not outputs_equal(tuple(torch.load(out_file)), tuple(mine)) or child_counts != {
+            "sparse_conv": k1, "masked_batch_norm": apply, "foreign": []}:
+        raise RuntimeError(f"phase 12 fresh process: outputs equal "
+                           f"{outputs_equal(tuple(torch.load(out_file)), tuple(mine))}, "
+                           f"{child_counts}")
+    summary["fresh_process_s"] = child_s
+    print(f"phase 12 fresh process (torch + cli/export only): loaded the SECOND artifact and "
+          f"answered request 0 bit-equal to this process in {child_s:.1f} s (process start "
+          f"included), launches {json.dumps(child_counts)} [{card}]", flush=True)
+
+    # (b) SECOND's plan-fed artifact on the native host plan
+    call_fed, fed_times, fed_mb, _ = roundtrip("second plan-fed", program(
+        trainer.model, trainer.anchors, head0, IN_BATCH, IN_POINTS, use_plan=True))
+
+    def host_plan(pts, msk):
+        return mvn.plan_to_device(export.native_plan(trainer.model, pts.cpu().numpy(),
+                                                     msk.cpu().numpy()), dev)
+
+    rows = check_family("second plan-fed", eager, call_fed, req[:EX_FED_REQUESTS],
+                        EX_LAUNCHES["second"], fed=host_plan)
+    report("second plan-fed", rows, fed_times, fed_mb,
+           torch.cuda.max_memory_allocated() / 2 ** 30)
+    del trainer, eager, call, call_fed
+    torch.cuda.empty_cache()
+
+    # (c) PointPillars B=6 and CenterPoint B=4, seeded random weights
+    for name, cfg, cls, batch in (
+            ("pointpillars", mpp.PointPillarsConfig(), mpp.AdversarialPointPillars, IN_BATCH),
+            ("centerpoint", mcp.CenterPointConfig(), mcp.AdversarialCenterPoint, CP_BATCH)):
+        torch.cuda.reset_peak_memory_stats()
+        model = cls(cfg)
+        mvn.init_weights(model, torch.Generator().manual_seed(seed))
+        anchors = None if name == "centerpoint" else cfg.make_anchors()[0]
+        head0 = cfg.head._replace(score_thr=0.0)
+        eager = export.export_serving(model, None, anchors, head0)
+        npts = CP_POINTS if name == "centerpoint" else IN_POINTS
+        call, times, mb, _ = roundtrip(name, program(model, anchors, head0, batch, npts))
+        req = [frames(name, cfg, batch) for _ in range(EX_REQUESTS)]
+        eager(*req[0])
+        call(*req[0])  # warm-up
+        rows = check_family(name, eager, call, req, EX_LAUNCHES[name])
+        expect_bf16_kernels(f"exported {name} serving")
+        report(name, rows, times, mb, torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, eager, call
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.time() - t_phase
+    print(f"phase 12: {summary['seconds']:.1f} s [{card}]", flush=True)
+    print("phase 12 summary " + json.dumps(summary), flush=True)
 
 
 def bn_step_total(rows, kernel):
@@ -3452,6 +3862,9 @@ def main() -> int:
     run_inline(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels,
                os.path.join(KITTI_ROOT, "data"))
     shutil.rmtree(KITTI_ROOT, ignore_errors=True)
+
+    # ---- phase 12: the serving export, each family's artifact on the card
+    run_export(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels)
 
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"

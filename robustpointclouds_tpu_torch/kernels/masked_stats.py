@@ -38,6 +38,15 @@ launches (`.launches`); `masked_batch_norm_bwd.reduce_launches` counts the
 backward calls that ran `bwd_reduce`; `KERNEL_LAUNCHES` counts every launch
 of the five kernels by (kernel, C), C the width the kernel ran at. The launch plan (`row_plan`) is plain
 Python, checked on the CPU.
+
+The apply kernel is the operator `rpc::masked_bn_apply` (torch.library),
+whose CPU version is `bn_apply_ref`: torch.export records it as one node
+and an exported program launches it (cli/export.py). `_bn_forward` reaches
+it in train and eval mode, and nothing else launches it; the apply's
+launch counts tick inside its CUDA version. The statistics kernel (which
+updates the running statistics in place in training), the VJP,
+`bwd_reduce` and `dx` stay direct calls: no exported path runs them (an
+eval-mode BN reads the running statistics).
 """
 from __future__ import annotations
 
@@ -116,24 +125,37 @@ def masked_stats_bwd_ref(x: torch.Tensor, mask: torch.Tensor, mean: torch.Tensor
     return (m * d / torch.clamp(cnt, min=1.0)).to(x.dtype)
 
 
-def _bn_ref(x, mask, weight, bias, running_mean, running_var, training, momentum, eps, relu,
-            row_mask, out_dtype):
-    """masked_batch_norm_ref and the statistics it normalised with."""
-    cnt = None
-    if training:
-        mu, var, cnt = masked_stats_ref(x, mask)
-        with torch.no_grad():
-            running_mean.mul_(1.0 - momentum).add_(momentum * mu)
-            running_var.mul_(1.0 - momentum).add_(momentum * var)
-    else:
-        mu, var = running_mean, running_var
-    y = (x.float() - mu) * torch.rsqrt(var + eps)
+def _bn_stats_ref(x, mask, running_mean, running_var, training, momentum):
+    """(mean, var, count or None) a BN normalises with: the batch's, with the
+    running statistics updated in place, in training; the running ones in eval."""
+    if not training:
+        return running_mean, running_var, None
+    mu, var, cnt = masked_stats_ref(x, mask)
+    with torch.no_grad():
+        running_mean.mul_(1.0 - momentum).add_(momentum * mu)
+        running_var.mul_(1.0 - momentum).add_(momentum * var)
+    return mu, var, cnt
+
+
+def bn_apply_ref(x: torch.Tensor, mask: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                 weight: torch.Tensor, bias: torch.Tensor, eps: float, relu: bool,
+                 row_mask: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of the apply kernel: normalise with the given
+    statistics, affine, cast, ReLU, row mask (differentiable by autograd)."""
+    y = (x.float() - mean) * torch.rsqrt(var + eps)
     y = (y * weight + bias).to(out_dtype)
     if relu:
         y = torch.relu(y)
     if row_mask:
         y = torch.where(mask[:, None], y, torch.zeros_like(y))
-    return y, mu, var, cnt
+    return y
+
+
+def _bn_ref(x, mask, weight, bias, running_mean, running_var, training, momentum, eps, relu,
+            row_mask, out_dtype):
+    """masked_batch_norm_ref and the statistics it normalised with."""
+    mu, var, cnt = _bn_stats_ref(x, mask, running_mean, running_var, training, momentum)
+    return bn_apply_ref(x, mask, mu, var, weight, bias, eps, relu, row_mask, out_dtype), mu, var, cnt
 
 
 def masked_batch_norm_ref(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
@@ -375,33 +397,69 @@ def masked_stats(x: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, tor
     return _stats(x, mask)
 
 
+# Registered through torch.library's low-level API, as rpc::sparse_conv_fwd
+# is (kernels/sparse_conv.py says why): it runs only with gradients off
+# (MaskedBatchNormFunction.forward, or a call that needs none).
+torch.library.define("rpc::masked_bn_apply",
+                     "(Tensor x, Tensor mask, Tensor mean, Tensor var, Tensor weight, Tensor bias, "
+                     "float eps, bool relu, bool row_mask, ScalarType out_dtype) -> Tensor")
+
+
+def _masked_bn_apply_cpu(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype):
+    # looked up per call: a wrapper of it counts
+    return bn_apply_ref(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype)
+
+
+def _masked_bn_apply_cuda(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype):
+    # checks, the stream and the counts live here: a traced call reaches only
+    # the fake below, so it launches and counts nothing
+    name = "masked_batch_norm"
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: output dtype {out_dtype} is not float32/bfloat16")
+    _check_rows(name, x, mask)
+    n, c = x.shape
+    _check_channels(name, c, x.device, mean, var, weight, bias)
+    plan = row_plan(n, c, x.dtype, reduce=False)
+    y = torch.empty((n, c), dtype=out_dtype, device=x.device)
+    _rc(name, _fn("rpc_masked_bn_apply")(
+        x.data_ptr(), mask.data_ptr(), mean.data_ptr(), var.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), n, c, eps, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
+        plan.vec, int(relu), int(row_mask), plan.blocks, _stream(x.device)))
+    KERNEL_LAUNCHES["apply_kernel", c] += 1
+    masked_batch_norm.launches += 1
+    return y
+
+
+def _masked_bn_apply_fake(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype):
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+torch.library.impl("rpc::masked_bn_apply", "cpu", _masked_bn_apply_cpu)
+torch.library.impl("rpc::masked_bn_apply", "cuda", _masked_bn_apply_cuda)
+torch.library.register_fake("rpc::masked_bn_apply", _masked_bn_apply_fake)
+
+
+# The apply kernel as an operator that torch.export records as one node:
+# `bn_apply_ref` on the CPU, the kernel on the card, an empty [N, C] of
+# out_dtype while tracing.
+masked_bn_apply = torch.ops.rpc.masked_bn_apply.default
+
+
 def _bn_forward(x, mask, weight, bias, running_mean, running_var, training, momentum, eps, relu,
                 row_mask, out_dtype):
     """(y, mean, var, count or None): the train mode's batch statistics or the
-    eval mode's running ones, as the backward needs them."""
+    eval mode's running ones, as the backward needs them. Eval mode touches
+    no data pointer outside the apply operator, so it traces."""
     if x.device.type == "cpu":
-        return _bn_ref(x, mask, weight, bias, running_mean, running_var, training, momentum,
-                       eps, relu, row_mask, out_dtype)
-    n, c = x.shape
-    if out_dtype not in _DTYPE_CODES:
-        raise ValueError(f"masked_batch_norm: output dtype {out_dtype} is not float32/bfloat16")
-    _check_rows("masked_batch_norm", x, mask)
-    _check_channels("masked_batch_norm", c, x.device, weight, bias, running_mean, running_var)
-    stream = _stream(x.device)
-    cnt = None
-    if training:
-        mean, var, cnt = _launch_stats("masked_batch_norm", x, mask, stream, running_mean,
-                                       running_var, momentum)
+        mean, var, cnt = _bn_stats_ref(x, mask, running_mean, running_var, training, momentum)
+    elif training:
+        _check_rows("masked_batch_norm", x, mask)
+        _check_channels("masked_batch_norm", x.shape[1], x.device, running_mean, running_var)
+        mean, var, cnt = _launch_stats("masked_batch_norm", x, mask, _stream(x.device),
+                                       running_mean, running_var, momentum)
     else:
-        mean, var = running_mean, running_var
-    plan = row_plan(n, c, x.dtype, reduce=False)
-    y = torch.empty((n, c), dtype=out_dtype, device=x.device)
-    _rc("masked_batch_norm", _fn("rpc_masked_bn_apply")(
-        x.data_ptr(), mask.data_ptr(), mean.data_ptr(), var.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), n, c, eps, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
-        plan.vec, int(relu), int(row_mask), plan.blocks, stream))
-    KERNEL_LAUNCHES["apply_kernel", c] += 1
-    masked_batch_norm.launches += 1
+        mean, var, cnt = running_mean, running_var, None
+    y = masked_bn_apply(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype)
     return y, mean, var, cnt
 
 

@@ -58,6 +58,12 @@ tests hold against the JAX ops; a CUDA tensor never does. `split_tf32` and
 PyTorch, for the CPU tests. Each public wrapper counts its launches
 (`.launches`) and, of those, the ones that took the float32 kernels
 (`.tf32_launches`).
+
+The forward is the operator `rpc::sparse_conv_fwd` (torch.library), so that
+torch.export records it as one node with a fake (shape-only) version and an
+exported program launches the kernel (cli/export.py); `sparse_conv` and
+SparseConvFunction's forward call it and nothing else launches the forward.
+The dgrad and the wgrad stay direct calls: no exported path runs them.
 """
 from __future__ import annotations
 
@@ -447,11 +453,49 @@ def _gather_gemm(wrapper, name, feats, kernel, idx):
     return out
 
 
-def sparse_conv(feats: torch.Tensor, kernel: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """feats [N, Cin], kernel [K*Cin, Cout], idx [M, K] int32 -> [M, Cout]."""
-    if feats.device.type == "cpu":
-        return sparse_conv_ref(feats, kernel, idx)
+# The operator is registered through torch.library's low-level API and not
+# torch.library.custom_op, which runs every call through two layers of
+# Python (an autograd kernel and a backend wrapper with an aliasing check)
+# before the launch; here the dispatcher calls the implementation directly.
+# The forward runs only with gradients off (SparseConvFunction.forward, or
+# a call that needs none), so the operator needs no autograd kernel.
+torch.library.define("rpc::sparse_conv_fwd",
+                     "(Tensor feats, Tensor kernel, Tensor idx) -> Tensor")
+
+
+def _sparse_conv_fwd_cpu(feats, kernel, idx):
+    return sparse_conv_ref(feats, kernel, idx)  # looked up per call: a wrapper of it counts
+
+
+def _sparse_conv_fwd_cuda(feats, kernel, idx):
+    # checks, alignment, the stream and the count live here: a traced call
+    # reaches only the fake below, so it launches and counts nothing
     return _gather_gemm(sparse_conv, "sparse_conv", feats, kernel, idx)
+
+
+def _sparse_conv_fwd_fake(feats, kernel, idx):
+    return feats.new_empty((idx.shape[0], kernel.shape[1]))
+
+
+# (torch.library.impl used as a decorator returns None: registered by call)
+torch.library.impl("rpc::sparse_conv_fwd", "cpu", _sparse_conv_fwd_cpu)
+torch.library.impl("rpc::sparse_conv_fwd", "cuda", _sparse_conv_fwd_cuda)
+torch.library.register_fake("rpc::sparse_conv_fwd", _sparse_conv_fwd_fake)
+
+
+# The forward gather-GEMM as an operator that torch.export records as one
+# node: the plain version on the CPU, the tensor-core kernels on the card,
+# an empty [M, Cout] while tracing.
+sparse_conv_fwd = torch.ops.rpc.sparse_conv_fwd.default
+
+
+def sparse_conv(feats: torch.Tensor, kernel: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """feats [N, Cin], kernel [K*Cin, Cout], idx [M, K] int32 -> [M, Cout]
+    in feats' dtype, through the operator rpc::sparse_conv_fwd."""
+    if feats.device.type not in ("cpu", "cuda"):  # a meta tensor would get the fake's empty rows
+        raise ValueError(f"sparse_conv: inputs on {feats.device}: neither the plain version "
+                         "nor the kernel takes them")
+    return sparse_conv_fwd(feats, kernel, idx)
 
 
 def sparse_conv_dgrad(g: torch.Tensor, kernel_bwd: torch.Tensor, bwd_idx: torch.Tensor) -> torch.Tensor:

@@ -1488,3 +1488,94 @@ def test_inline_plan_on_the_card_equals_the_native_plan(cuda_device, family, see
                  cfg)
     assert card["voxels"].is_cuda
     assert _plan_mismatches(card, host) == []
+
+
+# ---- the serving export: K1's forward and K2's apply as torch.library
+# operators (rpc::sparse_conv_fwd, rpc::masked_bn_apply), and an exported
+# program that launches them
+
+@pytest.mark.parametrize("dtype,cin,cout,k", [(torch.bfloat16, 16, 32, 27),
+                                              (torch.bfloat16, 5, 16, 27),
+                                              (torch.float32, 64, 128, 3),
+                                              (torch.float32, 5, 16, 27)])
+def test_sparse_conv_operator_is_the_direct_launch(cuda_device, dtype, cin, cout, k):
+    """The operator's output is bit-equal to its CUDA version called
+    directly (the kernel launch behind it), and opcheck passes on the card."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    n, m = 3000, 2500
+    feats = torch.randn(n, cin, device=cuda_device, generator=g).to(dtype)
+    kernel = (torch.randn(k * cin, cout, device=cuda_device, generator=g) * 0.2).to(dtype)
+    idx = _tc_index(cuda_device, g, n, m, k)
+    direct = sparse_conv_module._sparse_conv_fwd_cuda(feats, kernel, idx)
+    before = (sparse_conv.launches, sparse_conv.tf32_launches)
+    got = sparse_conv_module.sparse_conv_fwd(feats, kernel, idx)
+    assert (sparse_conv.launches - before[0], sparse_conv.tf32_launches - before[1]) == (
+        1, int(dtype == torch.float32))
+    assert got.dtype == dtype and torch.equal(got, direct)
+    torch.library.opcheck(sparse_conv_module.sparse_conv_fwd, (feats, kernel, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [True, False])
+def test_masked_bn_apply_operator_is_the_direct_launch(cuda_device, dtype, train):
+    """The apply operator, on a train-mode BN's batch statistics or on
+    running statistics, is bit-equal to its CUDA version called directly;
+    opcheck passes on the card."""
+    x, mask, w, b, rm, rv, _ = _bn_inputs(cuda_device, 4097, 64, dtype, seed=31)
+    if train:
+        mean, var, _ = masked_stats(x, mask)
+    else:
+        mean, var = rm, rv
+    for relu, row_mask in EPILOGUES:
+        args = (x, mask, mean, var, w, b, 1e-3, relu, row_mask, dtype)
+        direct = masked_stats_module._masked_bn_apply_cuda(*args)
+        before = masked_batch_norm.launches
+        got = masked_stats_module.masked_bn_apply(*args)
+        assert masked_batch_norm.launches == before + 1
+        assert got.dtype == dtype and torch.equal(got, direct)
+        torch.library.opcheck(masked_stats_module.masked_bn_apply, args)
+
+
+def test_exported_serving_on_the_card_launches_the_kernels(cuda_device, tmp_path):
+    """The tiny SECOND (bf16) exported on the card, saved and loaded: bit-equal
+    to the eager serve on the same frames, with the same K1 and apply
+    launches a request (12 / 12), and none while exporting."""
+    import numpy as np
+
+    from robustpointclouds_tpu_torch.cli import export
+    from robustpointclouds_tpu_torch.cli.common import tiny_voxelnet_cfg
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.models.voxelnet import AdversarialVoxelNet, init_weights
+
+    cfg = tiny_voxelnet_cfg()
+    model = AdversarialVoxelNet(cfg)
+    init_weights(model, torch.Generator().manual_seed(0))
+    anchors, _ = cfg.make_anchors()
+    head = cfg.head._replace(score_thr=0.0)
+
+    def launches():
+        return sparse_conv.launches, masked_batch_norm.launches
+
+    before = launches()
+    ep, meta = export.export_program(model, anchors, head, 2, 4000, device=cuda_device)
+    assert launches() == before and meta["platforms"] == ["cuda"]
+    path = str(tmp_path / "second.pt2")
+    export.save_exported(ep, meta, path)
+    call, _ = export.load_exported(path)
+    serve = export.export_serving(model, None, anchors, head)
+    for seed in (0, 1):
+        b = synthetic_kitti_batch(np.random.RandomState(seed), batch_size=2, num_points=4000,
+                                  max_gt=8, num_objects=3,
+                                  point_range=cfg.voxelizer.point_cloud_range)
+        pts = torch.from_numpy(np.asarray(b.points)).to(cuda_device)
+        msk = torch.from_numpy(np.asarray(b.points_mask)).to(cuda_device)
+        before = launches()
+        want = serve(pts, msk)
+        eager = tuple(a - b for a, b in zip(launches(), before))
+        before = launches()
+        got = call(pts, msk)
+        loaded = tuple(a - b for a, b in zip(launches(), before))
+        assert eager == loaded == (12, 12)
+        assert int(want[3].sum()) > 0
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
