@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None) and serving-export paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None), serving-export and zoo warm-start paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -113,7 +113,11 @@ Phases (any failure exits non-zero and prints no result):
      (clean and adversarial on synthetic frames, clean on
      tests/fixtures/nuscenes_mini's multi-sweep frames) and
      evaluate_adversarial_checkpoint, each batch's plan, device and metric
-     ms printed and the launches per batch checked;
+     ms printed and the launches per batch checked; (f) the generic entry
+     point cli/train.main on the CenterPoint config file (its dispatch to
+     train_nuscenes_adversarial.run(cfg=...)), --synthetic, CP_GENERIC_STEPS
+     steps at B=4 with the adversary on from epoch 0, every step's launches
+     checked (CP_TRAIN_LAUNCHES) and timed;
   9. PointPillars at full width (PointPillarsConfig: 0.16 m pillars, grid
      432 x 496, 16000 pillars x 32 points, BEV 248 x 216, 321408 anchors,
      B=6 synthetic frames of 20000 points, bf16, adversary (64, 128, 64),
@@ -196,7 +200,34 @@ Phases (any failure exits non-zero and prints no result):
      answers a request bit-equal to this process; the host microseconds a
      call of each operator takes against its direct launch (one encoder
      conv, one encoder BN, gradients off, in turns); export / save / load
-     seconds, the artifact's MB and the peak memory.
+     seconds, the artifact's MB and the peak memory;
+ 13. zoo warm starts (run_zoo, tools/convert_torch_checkpoint and
+     train/checkpoint.load_pretrained), for SECOND (the 3-class KITTI
+     config), PointPillars (its config) and CenterPoint with the DCN head
+     (its config, model.use_dcn_head=True) at full width: (a) an
+     mmdet3d-keyed state dict of the model's shapes from the seed
+     (tests/zoo_checkpoint.py; SECOND's conv_input in spconv1's layout)
+     saved as a .pth, its MB printed; (b) load_pretrained on a trainer on
+     the card, timed: every loaded tensor bit-equal to the host
+     conversion, float32 to float32, every other tensor (the backbone
+     convs past each stage's first, the adversary, num_batches_tracked)
+     unchanged, and the loaded / skipped counts equal to the same
+     conversion on the CPU (SECOND: 86 and 0); (c) one request (B=6 of
+     20000-point frames, CenterPoint B=4 of 30000) served self-contained on
+     the warm-started model with its K1 / apply launches checked
+     (EX_LAUNCHES), then its eval forward with K1's forward and K2's apply
+     routed to their plain versions on the card (PlainRoute), the head
+     outputs within ZOO_RTOL in norm of the kernels' forward; (d) the
+     CLIs on the .pth: train_kitti_3class_adversarial --load-from through
+     epoch 3 (the adversary on), cli/train.main on the pillar config,
+     train_nuscenes_adversarial --pretrained (the plain head: the 12 DCN
+     adaptations skipped), evaluate_kitti_3class --load-from with an empty
+     work dir and export --load-from, whose artifact answers a request
+     bit-equal to the eager serve of the same warm start; each prints its
+     [load-from] line, finite losses or scores, and launches K1 and K2;
+     (e) tools/convert_torch_checkpoint's main writes a port checkpoint
+     from the SECOND .pth, and a warm start from it equals one from the
+     .pth.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -1094,6 +1125,8 @@ CP_TRAIN_LAUNCHES = {"sparse_conv": CP_CONVS, "sparse_conv_dgrad": CP_CONVS,
                      "masked_batch_norm": 26, "masked_batch_norm_bwd": 26, "bwd_reduce": 26}
 CP_BN_CLEAN, CP_BN_ATTACK = 21, 26
 CP_EPOCHS, CP_STEPS_PER_EPOCH = 4, 2  # epoch 3 trains the adversary
+CP_GENERIC_STEPS = 2  # (f): cli/train.main on the config file, the adversary from epoch 0
+CP_CONFIG = os.path.join(REPO, "configs", "adversarial", "adversarial-centerpoint_nuscenes.py")
 CP_EVAL_FRAMES = 8
 
 
@@ -1206,7 +1239,10 @@ def run_centerpoint(dev, card: str, seed: int, zero_counts, read_counts, read_f3
         small-grid float32 step's gradients card vs CPU;
     (e) evaluation of (d)'s checkpoint through evaluate_nuscenes_adversarial
         (clean and adversarial on synthetic frames, clean on
-        tests/fixtures/nuscenes_mini) and evaluate_adversarial_checkpoint.
+        tests/fixtures/nuscenes_mini) and evaluate_adversarial_checkpoint;
+    (f) cli/train.main on the CenterPoint config file (its dispatch to
+        run(cfg=...)), --synthetic, CP_GENERIC_STEPS steps at B=4 with the
+        adversary on from epoch 0, every step's launches checked.
     Returns the kernels JSON rows; prints a summary line."""
     import numpy as np
     import torch
@@ -1498,6 +1534,35 @@ def run_centerpoint(dev, card: str, seed: int, zero_counts, read_counts, read_f3
         print(f"phase 8 eval {name} (B={CP_BATCH}, {nb} batches): mean per batch "
               + ", ".join(f"{k} {v:.3f}" for k, v in eval_summary[name].items())
               + f"; launches {json.dumps(got)} [{card}]", flush=True)
+
+    # (f) the generic entry point on the config file: cli/train dispatches to run(cfg=...)
+    from robustpointclouds_tpu_torch.cli import train as generic_cli
+
+    steps.clear()
+    seen.clear()
+    generic_dir = os.path.join(REPO, "work_dirs", "chip_smoke_centerpoint_generic")
+    shutil.rmtree(generic_dir, ignore_errors=True)
+    CenterPointTrainer.train_step = timed_step
+    try:
+        res = generic_cli.main([CP_CONFIG, "--synthetic", "--steps-per-epoch",
+                                str(CP_GENERIC_STEPS), "--work-dir", generic_dir, "--cfg-options",
+                                f"batch_size={CP_BATCH}", "max_epochs=1",
+                                "model.adversary_start_epoch=0"])
+    finally:
+        CenterPointTrainer.train_step = orig_step
+    if len(steps) != CP_GENERIC_STEPS or not all(s["l2"] > 0 for s in steps):
+        raise RuntimeError(f"phase 8 (f): cli/train ran {steps}")
+    if type(seen.pop("_trainer").model_cfg).__name__ != "CenterPointConfig":
+        raise RuntimeError("phase 8 (f): cli/train did not dispatch to the CenterPoint trainer")
+    if not os.path.isfile(os.path.join(generic_dir, "epoch_0.pt")):
+        raise RuntimeError("phase 8 (f): no checkpoint written")
+    generic = dict(step_ms=[round(s["step_ms"], 3) for s in steps],
+                   loss=[round(s["loss"], 4) for s in steps],
+                   frames_per_s=[round(e["frames_per_s"], 3) for e in res["epochs"]])
+    print(f"phase 8 (f) cli/train.main on {os.path.relpath(CP_CONFIG, REPO)} --synthetic, "
+          f"B={CP_BATCH}, {CP_GENERIC_STEPS} steps with the adversary on: "
+          + json.dumps(generic) + "; per step " + json.dumps(CP_TRAIN_LAUNCHES)
+          + f" [{card}]", flush=True)
     print(f"phase 8: {time.time() - t_phase:.1f} s [{card}]", flush=True)
 
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
@@ -1522,7 +1587,7 @@ def run_centerpoint(dev, card: str, seed: int, zero_counts, read_counts, read_f3
                  **{k: stats_c5[k] for k in ("max_abs_err", "ms", "prev_ms", "device_ms",
                                              "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print("phase 8 summary " + json.dumps(dict(
-        serving=serve_summary, training=train_summary, evaluation=eval_summary,
+        serving=serve_summary, training=train_summary, evaluation=eval_summary, generic=generic,
         small_grid_grad_worst=worst, aligned_gates=aligned)) + f" [{card}]", flush=True)
     return rows
 
@@ -3297,6 +3362,349 @@ def run_export(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
     print("phase 12 summary " + json.dumps(summary), flush=True)
 
 
+# phase 13: zoo warm starts (tools/convert_torch_checkpoint, train/checkpoint.load_pretrained)
+# kernels vs plain versions through a whole bf16 forward: ||kernels - plain|| /
+# ||plain|| per head output. Both round each conv's and BN's output to bf16 at
+# the same points and differ only where a summation order flips a rounding;
+# after 12-21 layers such flips move single elements by 1.0-1.6% of the
+# output's scale (full width on an H100), so the gate is on the norm and the
+# largest element is printed beside it
+ZOO_RTOL = SPARSE_CONV_RTOL
+ZOO_SEED = 13  # the fake zoo files' weights: seed + ZOO_SEED
+ZOO_CONFIGS = {
+    "second": os.path.join(REPO, "configs", "adversarial", "adversarial-second_kitti-3d-3class.py"),
+    "pointpillars": os.path.join(REPO, "configs", "adversarial",
+                                 "adversarial-pointpillars_kitti-3d-3class.py"),
+    "centerpoint": CP_CONFIG,
+}
+ZOO_SECOND_LOADED = 86  # 60 encoder, 10 backbone, 10 neck, 6 head (JAX's units)
+ZOO_CLI_STEPS = 4  # train_kitti_3class_adversarial: epochs 0-3 of one step, the adversary on at 3
+
+
+class PlainRoute(PlainVersionCalls):
+    """PlainVersionCalls(k1=True) that also routes the serving path's two
+    operators on card tensors to their plain versions: K1's forward to
+    sparse_conv_ref and K2's apply to bn_apply_ref, each call counted; no
+    kernel launches inside."""
+
+    def __init__(self):
+        super().__init__(k1=True)
+
+    def __enter__(self):
+        import robustpointclouds_tpu_torch.kernels.masked_stats as ms
+        import robustpointclouds_tpu_torch.kernels.sparse_conv as sc
+
+        super().__enter__()
+        self.ops = [(sc, "sparse_conv_fwd", sc.sparse_conv_fwd),
+                    (ms, "masked_bn_apply", ms.masked_bn_apply)]
+        sc.sparse_conv_fwd = lambda feats, kernel, idx: sc.sparse_conv_ref(feats, kernel, idx)
+        ms.masked_bn_apply = lambda *a: ms.bn_apply_ref(*a)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.ops:
+            setattr(mod, n, fn)
+        super().__exit__(*exc)
+
+
+class Tee:
+    """Standard output copied into a buffer while it still prints."""
+
+    def __enter__(self):
+        import io
+
+        self.buf, self.out = io.StringIO(), sys.stdout
+        sys.stdout = self
+        return self
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+
+    def text(self):
+        return self.buf.getvalue()
+
+
+def _load_line(text: str, path: str):
+    """(layout, loaded, skipped) of load_pretrained's line for `path`."""
+    import re
+
+    m = re.search(re.escape(f"[load-from] {path} (") + r"(\w+)\): loaded (\d+) tensors, "
+                  r"skipped (\d+)", text)
+    if m is None:
+        raise RuntimeError(f"phase 13: no [load-from] line for {path}")
+    return m.group(1), int(m.group(2)), int(m.group(3))
+
+
+def _finite_losses(work_dir: str, n_rows: int):
+    """The losses of run_training's train_log.jsonl, checked finite."""
+    import math
+
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != n_rows or not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise RuntimeError(f"phase 13: {work_dir} logged {rows}")
+    return rows
+
+
+def run_zoo(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_kernels):
+    """Phase 13: zoo warm starts at full width (module docstring). Prints a
+    summary line and returns it (no kernel is new on this path)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from zoo_checkpoint import fake_zoo_state_dict, save_pth
+
+    from robustpointclouds_tpu_torch.cli import evaluate_kitti_3class, export
+    from robustpointclouds_tpu_torch.cli import train as generic_cli
+    from robustpointclouds_tpu_torch.cli import train_kitti_3class_adversarial as kitti_cli
+    from robustpointclouds_tpu_torch.cli import train_nuscenes_adversarial as nus_cli
+    from robustpointclouds_tpu_torch.core.builders import build_model_config
+    from robustpointclouds_tpu_torch.core.config import Config
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.models.voxelnet import VoxelNetConfig
+    from robustpointclouds_tpu_torch.tools import convert_torch_checkpoint as cvt
+    from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer
+    from robustpointclouds_tpu_torch.train.checkpoint import load_pretrained
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    rng = np.random.RandomState(seed + ZOO_SEED)
+    summary, pth = {}, {}
+
+    def trainer_of(name):
+        cfg = Config.fromfile(ZOO_CONFIGS[name])
+        if name == "centerpoint":
+            cfg.merge_from_cli(["model.use_dcn_head=True"])
+            return CenterPointTrainer(build_model_config(cfg), device=dev)
+        return Trainer(build_model_config(cfg), TrainConfig(), device=dev)
+
+    def head_outputs(outs):
+        if hasattr(outs, "task_preds"):
+            return [v for t in outs.task_preds for _, v in sorted(t.items())]
+        return [outs.cls_scores, outs.bbox_preds, outs.dir_preds]
+
+    for name in ("second", "pointpillars", "centerpoint"):
+        # (a) the family's zoo file from the seed
+        tr = trainer_of(name)
+        tr.init_state(seed)
+        spconv1 = ["middle_encoder.conv_input.0.weight"] if name == "second" else []
+        zoo = fake_zoo_state_dict(tr.model.state_dict(), seed + ZOO_SEED, spconv1=spconv1)
+        pth[name] = save_pth(zoo, os.path.join(tmp, f"{name}.pth"))
+        mb = os.path.getsize(pth[name]) / 1e6
+        n_det = sum(p.numel() for k, p in tr.model.named_parameters()
+                    if not k.startswith("adversary."))
+
+        # (b) the warm start on the card against the host conversion
+        layout = cvt.detect_state_dict_layout(zoo)
+        convert = {"second": cvt.convert_second_state_dict,
+                   "pointpillars": cvt.convert_pointpillars_state_dict,
+                   "centerpoint": lambda sd: cvt.convert_centerpoint_state_dict(sd, True)}[name]
+        host = convert(cvt.load_torch_checkpoint(pth[name]))
+        cpu_model = type(tr.model)(tr.model_cfg)
+        want_loaded, want_skipped = cvt.merge_into_state_dict(cpu_model, host)
+        before = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+        torch.cuda.synchronize()
+        with Tee() as tee:
+            t0 = time.perf_counter()
+            load_pretrained(tr, pth[name])
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        counts = _load_line(tee.text(), pth[name])
+        if counts != (layout, len(want_loaded), len(want_skipped)):
+            raise RuntimeError(f"phase 13 {name}: counts {counts}, the CPU conversion gives "
+                               f"{len(want_loaded)} / {len(want_skipped)}")
+        if name == "second" and counts[1:] != (ZOO_SECOND_LOADED, 0):
+            raise RuntimeError(f"phase 13 second: {counts}, expected {ZOO_SECOND_LOADED} / 0")
+        after = tr.model.state_dict()
+        loaded = set(want_loaded)
+        for k, v in after.items():
+            if k in loaded:
+                want = torch.from_numpy(host[k])
+                if not (host[k].dtype == np.float32 and v.dtype == torch.float32
+                        and v.device.type == "cuda" and torch.equal(v.cpu(), want)):
+                    raise RuntimeError(f"phase 13 {name}: {k} differs from the host conversion")
+            elif not torch.equal(v, before[k]):
+                raise RuntimeError(f"phase 13 {name}: {k}, which the file does not map, moved")
+        unmapped = len(after) - len(loaded)
+        print(f"phase 13 {name} (a)+(b): {mb:.2f} MB .pth ({n_det} detector parameters); "
+              f"load_pretrained {load_s:.3f} s on the card; loaded {counts[1]} skipped "
+              f"{counts[2]}, each bit-equal to the host conversion (float32); {unmapped} "
+              f"other tensors unchanged [{card}]", flush=True)
+
+        # (c) one request served on the warm start, then its forward with K1 / K2 plain
+        if name == "centerpoint":
+            b, _ = synthetic_nuscenes_batch(rng, batch_size=CP_BATCH, num_points=CP_POINTS,
+                                            max_gt=tr.model_cfg.head.max_objs,
+                                            point_range=tr.model_cfg.voxelizer.point_cloud_range)
+        else:
+            b = synthetic_kitti_batch(rng, batch_size=IN_BATCH, num_points=IN_POINTS, max_gt=20,
+                                      num_objects=8,
+                                      point_range=tr.model_cfg.voxelizer.point_cloud_range)
+        pts = torch.from_numpy(np.asarray(b.points)).to(dev)
+        msk = torch.from_numpy(np.asarray(b.points_mask)).to(dev)
+        serve = export.export_serving(tr.model, None, getattr(tr, "anchors", None),
+                                      tr.model_cfg.head)
+        serve(pts, msk)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        out, host_ms, ev_ms = _timed(lambda: serve(pts, msk), True)
+        n_serve = read_counts()
+        expect_bf16_kernels(f"phase 13 {name} serving")
+        k1, apply = EX_LAUNCHES[name]
+        want = dict({k: 0 for k in n_serve}, sparse_conv=k1, masked_batch_norm=apply)
+        if n_serve != want or not all(bool(torch.isfinite(t.float()).all()) for t in out):
+            raise RuntimeError(f"phase 13 {name} serving: launches {n_serve}, expected {want}, "
+                               "or non-finite detections")
+        model = tr.model.eval()
+        with torch.no_grad():
+            kern = head_outputs(model(pts, msk, False, 100, False, -1.0, None))
+            zero_counts()
+            with PlainRoute() as plain:
+                ref = head_outputs(model(pts, msk, False, 100, False, -1.0, None))
+            torch.cuda.synchronize()
+        n_plain = read_counts()
+        if any(n_plain.values()) or plain.calls != k1 + apply:
+            raise RuntimeError(f"phase 13 {name}: the plain forward launched {n_plain} and made "
+                               f"{plain.calls} plain calls, expected {k1 + apply}")
+        worst = peak = 0.0
+        for g, r in zip(kern, ref):
+            d, r = (g.float() - r.float()), r.float()
+            worst = max(worst, d.norm().item() / max(r.norm().item(), 1e-12))
+            peak = max(peak, d.abs().max().item() / max(r.abs().max().item(), 1e-12))
+        if not worst <= ZOO_RTOL:
+            raise RuntimeError(f"phase 13 {name}: kernels vs plain versions {worst:.3e} in "
+                               f"norm > {ZOO_RTOL}")
+        summary[name] = dict(pth_mb=mb, load_s=load_s, loaded=counts[1], skipped=counts[2],
+                             serve_host_ms=host_ms, serve_event_ms=ev_ms,
+                             valid=int(out[3].sum()), launches=[k1, apply],
+                             plain_calls=plain.calls, kernels_vs_plain=worst,
+                             kernels_vs_plain_peak=peak)
+        print(f"phase 13 {name} (c) B={pts.shape[0]} request on the warm start: serve "
+              f"{host_ms:.3f} ms host / {ev_ms:.3f} ms CUDA events, {int(out[3].sum())} "
+              f"detections, launches K1 {k1} apply {apply}; eval forward with K1 / K2 routed "
+              f"to their plain versions ({plain.calls} plain calls, 0 launches): head outputs "
+              f"within {worst:.3e} in norm (tolerance {ZOO_RTOL}), largest element "
+              f"{peak:.3e} of scale [{card}]",
+              flush=True)
+        del tr, cpu_model, model, serve
+
+    # (d) the CLIs on the .pth files, on the card at full width
+    def cli_run(label, fn, path, want_layout, n_rows=None, work=None, launches=True):
+        """One CLI run on `path`: its [load-from] line, its K1 / K2 launches
+        (none for an export, which traces), finite logged losses."""
+        torch.cuda.synchronize()
+        zero_counts()
+        with Tee() as tee:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        got = read_counts()
+        counts = _load_line(tee.text(), path)
+        ran = got["sparse_conv"] + got["masked_batch_norm"]
+        if counts[0] != want_layout or bool(ran) != launches or (not launches and any(
+                got.values())):
+            raise RuntimeError(f"phase 13 {label}: {counts}, launches {got}")
+        row = dict(wall_s=wall_s, loaded=counts[1], skipped=counts[2], launches=got)
+        if n_rows is not None:
+            losses = _finite_losses(work, n_rows)
+            row["loss"] = [round(r["loss"], 4) for r in losses]
+            row["l2"] = [round(r.get("perturbation_l2_norm", 0.0), 5) for r in losses]
+        summary[label] = row
+        print(f"phase 13 (d) {label}: " + json.dumps(row) + f" [{card}]", flush=True)
+        return res
+
+    wd = {k: os.path.join(tmp, k) for k in ("kitti", "generic", "nuscenes", "export")}
+    cli_run("train_kitti_3class_adversarial", lambda: kitti_cli.main(
+        ["--config", ZOO_CONFIGS["second"], "--synthetic", "--load-from", pth["second"],
+         "--epochs", str(ZOO_CLI_STEPS), "--steps-per-epoch", "1", "--seed", str(seed),
+         "--work-dir", wd["kitti"]]), pth["second"], "second", ZOO_CLI_STEPS, wd["kitti"])
+    if not summary["train_kitti_3class_adversarial"]["l2"][-1] > 0:
+        raise RuntimeError("phase 13: the adversary did not perturb at epoch 3")
+    cli_run("cli/train pointpillars", lambda: generic_cli.main(
+        [ZOO_CONFIGS["pointpillars"], "--synthetic", "--load-from", pth["pointpillars"],
+         "--steps-per-epoch", "2", "--work-dir", wd["generic"], "--cfg-options",
+         "max_epochs=1"]), pth["pointpillars"], "pointpillars", 1, wd["generic"])
+    cli_run("train_nuscenes_adversarial", lambda: nus_cli.main(
+        ["--synthetic", "--pretrained", pth["centerpoint"], "--batch-size", str(CP_BATCH),
+         "--steps", "2", "--work-dir", wd["nuscenes"]]), pth["centerpoint"], "centerpoint", 2,
+        wd["nuscenes"])
+    if summary["train_nuscenes_adversarial"]["skipped"] != 12:  # the plain head: 2 x 6 tasks
+        raise RuntimeError("phase 13: the CLI's plain head skipped "
+                           f"{summary['train_nuscenes_adversarial']['skipped']}, expected 12")
+    res = cli_run("evaluate_kitti_3class", lambda: evaluate_kitti_3class.main(
+        ["--mode", "clean", "--checkpoint", os.path.join(tmp, "empty"), "--load-from",
+         pth["second"], "--synthetic", "--limit", str(IN_BATCH)]), pth["second"], "second")
+    if res["clean"] is None or not np.isfinite(res["clean"]["mAP_3d_moderate"]):
+        raise RuntimeError(f"phase 13 evaluate_kitti_3class: {res}")
+    os.makedirs(wd["export"], exist_ok=True)
+    art = os.path.join(wd["export"], "second.pt2")
+    cli_run("export", lambda: export.main(
+        [art, "--load-from", pth["second"], "--batch-size", str(IN_BATCH), "--num-points",
+         str(IN_POINTS)]), pth["second"], "second", launches=False)
+    call, _ = export.load_exported(art)
+    ref_tr = Trainer(VoxelNetConfig(), TrainConfig(), device=dev)
+    ref_tr.init_state(0)  # export's own init before the warm start
+    with Tee():
+        load_pretrained(ref_tr, pth["second"])
+    b = synthetic_kitti_batch(rng, batch_size=IN_BATCH, num_points=IN_POINTS, max_gt=20,
+                              num_objects=8, point_range=ref_tr.model_cfg.voxelizer.point_cloud_range)
+    pts = torch.from_numpy(np.asarray(b.points)).to(dev)
+    msk = torch.from_numpy(np.asarray(b.points_mask)).to(dev)
+    eager = export.export_serving(ref_tr.model, None, ref_tr.anchors, ref_tr.model_cfg.head)
+    zero_counts()
+    out_a = call(pts, msk)
+    n_a = read_counts()
+    zero_counts()
+    out_e = eager(pts, msk)
+    n_e = read_counts()
+    if not outputs_equal(tuple(out_a), tuple(out_e)) or n_a != n_e or (
+            n_a["sparse_conv"], n_a["masked_batch_norm"]) != EX_LAUNCHES["second"]:
+        raise RuntimeError(f"phase 13 export: the warm-started artifact differs from the eager "
+                           f"serve (launches {n_a} vs {n_e})")
+    print(f"phase 13 (d) export: the artifact of the warm start answers a B={IN_BATCH} request "
+          f"bit-equal to the eager serve ({int(out_a[3].sum())} detections, launches "
+          f"{n_a['sparse_conv']} / {n_a['masked_batch_norm']}) [{card}]", flush=True)
+
+    # (e) the converter's CLI writes a port checkpoint equal to the warm start
+    conv_dir = os.path.join(tmp, "converted")
+    with Tee() as tee:
+        t0 = time.perf_counter()
+        loaded, skipped = cvt.main([pth["second"], "--out", conv_dir])
+        conv_s = time.perf_counter() - t0
+    other = Trainer(VoxelNetConfig(), TrainConfig(), device=dev)
+    other.init_state(seed + 1)
+    with Tee():
+        load_pretrained(other, conv_dir)
+    for k, v in ref_tr.model.state_dict().items():
+        if not torch.equal(other.model.state_dict()[k], v):
+            raise RuntimeError(f"phase 13 (e): {k} differs between --load-from the converted "
+                               "directory and --load-from the .pth")
+    if (len(loaded), len(skipped)) != (ZOO_SECOND_LOADED, 0):
+        raise RuntimeError(f"phase 13 (e): converter loaded {len(loaded)}, skipped {skipped}")
+    summary["convert_cli_s"] = conv_s
+    print(f"phase 13 (e) tools.convert_torch_checkpoint {os.path.basename(pth['second'])} --out "
+          f"DIR: {conv_s:.2f} s, loaded {len(loaded)}; --load-from DIR equals --load-from the "
+          f".pth on every key [{card}]", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.time() - t_phase
+    print(f"phase 13: {summary['seconds']:.1f} s [{card}]", flush=True)
+    print("phase 13 summary " + json.dumps(summary), flush=True)
+    return summary
+
+
 def bn_step_total(rows, kernel):
     """One train step's sum over its 17 MaskedBatchNorms (count x each
     shape); a device time that one shape did not measure leaves the sum not
@@ -3866,6 +4274,9 @@ def main() -> int:
     # ---- phase 12: the serving export, each family's artifact on the card
     run_export(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels)
 
+    # ---- phase 13: zoo warm starts of the three families, and their entry points
+    zoo = run_zoo(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels)
+
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
     tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
@@ -3892,13 +4303,17 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row.get("bound_by", bound_by), "library_ms": row["library_ms"]}
 
+    # phase 13's serving launches on the three warm-started families
+    zoo_launches = {k: zoo[k]["launches"] for k in ("second", "pointpillars", "centerpoint")}
     kernels = [
-        conv_row("sparse_conv", conv_src, launches["sparse_conv"], conv_tot),
+        dict(conv_row("sparse_conv", conv_src, launches["sparse_conv"], conv_tot),
+             warm_start_launches={k: v[0] for k, v in zoo_launches.items()}),
         k2_row("masked_stats", 113, launches["masked_stats"], k2),
         # one train step's 17 BNs, summed; launches over the timed train steps
         dict(k2_row("masked_batch_norm", 63, train_launches["masked_batch_norm"],
                     dict(bn_tot["masked_batch_norm"], library_ms=None)),
-             bound_two_pass_ms=bn_tot["masked_batch_norm"]["bound_two_pass_ms"]),
+             bound_two_pass_ms=bn_tot["masked_batch_norm"]["bound_two_pass_ms"],
+             warm_start_launches={k: v[1] for k, v in zoo_launches.items()}),
         dict(k2_row("masked_batch_norm_bwd", 102, train_launches["masked_batch_norm_bwd"],
                     dict(bn_tot["masked_batch_norm_bwd"], library_ms=None)),
              bound_two_pass_ms=bn_tot["masked_batch_norm_bwd"]["bound_two_pass_ms"]),

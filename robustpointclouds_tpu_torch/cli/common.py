@@ -219,7 +219,8 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
     last, the newest `max_keep` kept.
 
     `load_from`: warm start of the model weights from a port checkpoint (a
-    file or a directory; zoo `.pth` files raise). `resume`: restore the
+    file or a directory) or a zoo `.pth` (train/checkpoint.load_pretrained).
+    `resume`: restore the
     newest checkpoint of `work_dir` and go on at the next epoch.
     `val_loader`: () -> batches for `evaluate` (run_evaluation, the KITTI
     metric, by default) every `val_interval` epochs; the best

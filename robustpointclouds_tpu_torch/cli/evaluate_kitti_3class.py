@@ -28,8 +28,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--mode", choices=("clean", "adversarial", "both"), default="both")
     p.add_argument("--checkpoint", default=None, help="explicit checkpoint dir")
     p.add_argument("--load-from", default=None,
-                   help="port checkpoint (file or dir) scored when the work dir has no "
-                        "checkpoint; zoo .pth files are not ported yet")
+                   help="port checkpoint (file or dir) or zoo .pth scored when the work dir "
+                        "has no checkpoint")
     p.add_argument("--allow-random-init", action="store_true",
                    help="score an untrained model when no checkpoint exists (smoke runs only)")
     p.add_argument("--work-dir", default="work_dirs/kitti_3class_adversarial_torch")

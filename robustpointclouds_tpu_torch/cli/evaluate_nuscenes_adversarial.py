@@ -15,7 +15,7 @@ SUCCESS/FAILED summary. Scores are the self-contained NuScenes mAP/NDS
 with --synthetic or without info pickles under --data-root, over --frames
 synthetic scenes, whose every result key then carries the `SYNTHETIC_`
 prefix. A work dir without a checkpoint falls back to --pretrained (a port
-checkpoint) or, with --allow-random-init, to a random init. Runs on the
+checkpoint or a zoo `.pth`) or, with --allow-random-init, to a random init. Runs on the
 card unless --cpu; without a card and without --cpu it raises.
 """
 from __future__ import annotations
@@ -43,7 +43,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--limit", type=int, default=None,
                    help="cap on real val frames (default: full split)")
     p.add_argument("--pretrained", default=None,
-                   help="port checkpoint scored when the work dir is empty")
+                   help="port checkpoint or zoo .pth scored when the work dir is empty")
     p.add_argument("--allow-random-init", action="store_true",
                    help="score an untrained model (smoke runs only)")
     return p.parse_args(argv)

@@ -205,7 +205,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--work-dir", default=None,
                    help="checkpoint dir to bake weights from (its latest epoch)")
     p.add_argument("--load-from", default=None,
-                   help="port checkpoint (file or dir) to bake weights from")
+                   help="port checkpoint (file or dir) or zoo .pth to bake weights from")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--num-points", type=int, default=20000)
     p.add_argument("--plan", action="store_true",

@@ -17,9 +17,11 @@ the built model) and trains it:
 `batch_size`, `max_epochs`, `val_interval`, `work_dir`, `data_root`,
 `load_from` and `auto_scale_lr.base_batch_size` come from the config.
 `--auto-scale-lr` scales the learning rate by batch_size / base_batch_size.
-Runs on the card unless --cpu. The JAX CLI's `--devices` and `--multihost`
-(data parallel, ROADMAP.md M10) and `--amp` (M16) raise "not ported yet",
-as any other undeclared flag does; so do zoo `.pth` warm starts (M11).
+`--load-from` (or the config's `load_from`) takes a port checkpoint or an
+mmdet3d zoo `.pth` (train/checkpoint.load_pretrained). Runs on the card
+unless --cpu. The JAX CLI's `--devices` and `--multihost` (data parallel,
+ROADMAP.md M10) and `--amp` (M16) raise "not ported yet", as any other
+undeclared flag does.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--work-dir", default=None)
     p.add_argument("--resume", nargs="?", const="auto", default=None,
                    help="resume from the work dir's newest checkpoint")
-    p.add_argument("--load-from", default=None, help="warm start from a port checkpoint")
+    p.add_argument("--load-from", default=None, help="warm start from a port checkpoint or a zoo .pth")
     p.add_argument("--auto-scale-lr", action="store_true",
                    help="scale lr by batch_size / auto_scale_lr.base_batch_size")
     p.add_argument("--synthetic", action="store_true",
@@ -66,9 +68,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     val_interval = int(cfg.get("val_interval", 5))
     data_root = cfg.get("data_root", "data/kitti")
     load_from = args.load_from or cfg.get("load_from")
-    if load_from is not None and load_from.endswith(".pth"):
-        raise SystemExit(f"train: --load-from {load_from}: zoo .pth warm starts are not "
-                         "ported yet")
     device = "cpu" if args.cpu else None
 
     if model_type in ("AdversarialCenterPoint", "CenterPoint"):

@@ -18,9 +18,10 @@ adversary on from epoch 0. Data: the KITTI layout under --data-root through
 data/kitti.kitti_epoch_loader (native IO + augmentation + GT-paste), or
 synthetic scenes with --synthetic or when --data-root holds no KITTI layout.
 `--steps N` is a debug run: one epoch of N steps, logging every step.
-`--load-from` warm-starts from a port checkpoint. Runs on the card unless
---cpu. `--devices` (data parallel, ROADMAP.md M10), `--amp` and zoo `.pth`
-warm starts (M11) raise "not ported yet", as any other unknown flag does.
+`--load-from` warm-starts from a port checkpoint or an mmdet3d zoo `.pth`
+(train/checkpoint.load_pretrained). Runs on the card unless --cpu.
+`--devices` (data parallel, ROADMAP.md M10) and `--amp` raise "not ported
+yet", as any other unknown flag does.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--resume", action="store_true", help="resume from the latest checkpoint")
     p.add_argument("--freeze-detector", action="store_true",
                    help="freeze the detector, train the adversary only (lr x20, w=0.5, reg=1e-5)")
-    p.add_argument("--load-from", default=None, help="warm start from a port checkpoint")
+    p.add_argument("--load-from", default=None, help="warm start from a port checkpoint or a zoo .pth")
     p.add_argument("--work-dir", default="work_dirs/kitti_3class_adversarial_torch")
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--batch-size", type=int, default=6)
@@ -59,9 +60,6 @@ def parse_args(argv: Optional[List[str]] = None):
     from .common import parse_ported_args
 
     args = parse_ported_args(p, argv, "train_kitti_3class_adversarial")
-    if args.load_from is not None and args.load_from.endswith(".pth"):
-        raise SystemExit(f"train_kitti_3class_adversarial: --load-from {args.load_from}: zoo "
-                         ".pth warm starts are not ported yet")
     if not os.path.isfile(args.config):
         raise SystemExit(f"train_kitti_3class_adversarial: no config file {args.config!r}")
     return args

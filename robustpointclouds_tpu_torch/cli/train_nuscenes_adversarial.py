@@ -12,8 +12,9 @@ NuScenes loader (multi-sweep points, velocity targets) or, with
 --synthetic or when --data-root holds no info pickles, synthetic scenes of
 30000 points; the host plan with the CenterHead targets is built in the
 prefetch thread. `--pretrained DIR` restores a port checkpoint directory's
-newest state (weights and optimizer state, as the JAX CLI does); zoo
-`.pth` warm starts (ROADMAP.md M11) raise "not ported yet". `--resume`
+newest state (weights and optimizer state, as the JAX CLI does), and a
+zoo `.pth` (or a port checkpoint file) the model weights
+(train/checkpoint.load_pretrained). `--resume`
 restores the work dir's newest checkpoint and goes on at the next epoch.
 `--steps N` is a debug run: one epoch of N steps. Runs on the card unless
 --cpu. A device mesh (data parallel, M10) raises "not ported yet".
@@ -35,7 +36,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--work-dir", default="work_dirs/nuscenes_adversarial_training")
     p.add_argument("--pretrained", default=None,
-                   help="port checkpoint dir to warm-start from (zoo .pth: not ported yet)")
+                   help="port checkpoint dir or zoo .pth to warm-start from")
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--steps-per-epoch", type=int, default=None)
@@ -47,11 +48,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--tiny", action="store_true", help="debug: the 25.6 m smoke grid")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("--seed", type=int, default=0)
-    args = p.parse_args(argv)
-    if args.pretrained is not None and args.pretrained.endswith(".pth"):
-        raise SystemExit(f"train_nuscenes_adversarial: --pretrained {args.pretrained}: zoo .pth "
-                         "warm starts are not ported yet")
-    return args
+    return p.parse_args(argv)
 
 
 def tiny_centerpoint_cfg(model_cfg, num_points: int = 512):

@@ -112,17 +112,50 @@ class CheckpointManager:
         return _load_into(trainer, _read(path, trainer.device))
 
 
-def load_pretrained(trainer: Trainer, path: str) -> None:
-    """Warm start: load the model weights (parameters and BatchNorm running
-    statistics) of a port checkpoint, a file or a checkpoint directory (its
-    latest epoch); the optimizer state and counters stay as they are.
+# the detector trunk a zoo warm start must load whole, per layout (the JAX
+# package's strict prefixes in the port's module names; head tensors may skip:
+# the plain and DCN CenterHead differ, and the adversary has no zoo tensors)
+_STRICT = {"centerpoint": ("pts_middle_encoder", "pts_backbone", "pts_neck"),
+           "pointpillars": ("voxel_encoder.pfn_layers", "backbone", "neck"),
+           "second": ("middle_encoder", "backbone", "neck")}
 
-    A zoo `.pth` (mmdet3d) is not ported yet (ROADMAP.md, M11): the JAX
-    encoder's z-fold is dz-major where mmdet3d's is channel-major, and flax
-    'SAME' pads stride-2 convs otherwise, so its tensors need remapping."""
+
+def load_pretrained(trainer: Trainer, path: str) -> None:
+    """Warm start: load model weights (parameters and BatchNorm running
+    statistics); the optimizer state and counters stay as they are. `path`:
+
+      * an mmdet3d zoo `.pth` (SECOND, PointPillars or voxel CenterPoint),
+        converted by key through tools/convert_torch_checkpoint as the JAX
+        package converts it. Dropping a tensor of the detector trunk, or
+        loading no parameter at all, raises. Tensors the file lacks (the
+        adversary, the backbone convs past each stage's first) keep their
+        values. The file is unpickled with weights_only=False, as JAX reads
+        it: load only files you trust;
+      * a port checkpoint, a file or a checkpoint directory (its latest
+        epoch), whose whole model state_dict is loaded."""
     if path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: warm starts from zoo .pth checkpoints are not ported yet")
+        from ..tools.convert_torch_checkpoint import (
+            convert_centerpoint_state_dict, convert_pointpillars_state_dict,
+            convert_second_state_dict, detect_state_dict_layout, load_torch_checkpoint,
+            merge_into_state_dict)
+
+        sd = load_torch_checkpoint(path)
+        layout = detect_state_dict_layout(sd)
+        if layout == "centerpoint":
+            converted = convert_centerpoint_state_dict(
+                sd, dcn_head=bool(getattr(trainer.model_cfg, "use_dcn_head", False)))
+        elif layout == "pointpillars":
+            converted = convert_pointpillars_state_dict(sd)
+        else:
+            converted = convert_second_state_dict(sd)
+        loaded, skipped = merge_into_state_dict(
+            trainer.model, converted, strict_prefixes=_STRICT[layout],
+            zero_error=(f"warm start from {path} (detected layout: {layout}) loaded ZERO "
+                        "parameter tensors — the checkpoint family does not match this "
+                        "model's architecture"))
+        print(f"[load-from] {path} ({layout}): loaded {len(loaded)} tensors, "
+              f"skipped {len(skipped)}", flush=True)
+        return
     if os.path.isdir(path):
         mgr = CheckpointManager(path)
         epoch = mgr.latest_epoch()

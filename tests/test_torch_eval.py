@@ -236,8 +236,27 @@ def test_checkpoint_round_trip(setup, tmp_path):
     assert warm.state.step == 0
     for k, v in tr.model.state_dict().items():
         assert torch.equal(warm.model.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        load_pretrained(warm, "second_zoo.pth")
+    # a zoo .pth is read where it stands: a missing one raises
+    with pytest.raises(FileNotFoundError):
+        load_pretrained(warm, str(tmp_path / "second_zoo.pth"))
+
+
+def test_eval_cli_scores_a_zoo_warm_start(tmp_path, capsys):
+    """evaluate_kitti_3class --load-from a SECOND .pth with an empty work
+    dir scores the warm-started model, as the JAX CLI does."""
+    from zoo_checkpoint import fake_zoo_state_dict, save_pth
+
+    from robustpointclouds_tpu_torch.cli.common import tiny_voxelnet_cfg
+
+    shapes = Trainer(tiny_voxelnet_cfg(), TrainConfig(), device="cpu").model.state_dict()
+    pth = save_pth(fake_zoo_state_dict(shapes, seed=6), str(tmp_path / "second.pth"))
+    res = t_eval_cli.main(["--mode", "clean", "--checkpoint", str(tmp_path / "empty"),
+                           "--load-from", pth, "--tiny", "--cpu", "--data-root", KITTI_MINI,
+                           "--batch-size", "2"])
+    printed = capsys.readouterr().out
+    assert f"[load-from] {pth} (second): loaded 86 tensors, skipped 0" in printed
+    assert "warm start from" in printed
+    assert res["clean"]["num_frames"] == 1 and "mAP_3d_moderate" in res["clean"]
 
 
 def test_train_cli_checkpoint_is_scored_by_the_eval_cli(tmp_path, capsys):

@@ -6,10 +6,11 @@
     wrappers reach them and count no launch on the CPU;
   * main: --tiny --cpu --allow-random-init writes the artifact and its meta
     (load_exported refuses it when the device it was exported for is not
-    there); no checkpoint without --allow-random-init raises; a .pth
-    --load-from raises "not ported yet"; a port checkpoint restores through
-    --work-dir into an artifact equal to the eager serve with those
-    weights, and another model's checkpoint is refused.
+    there); no checkpoint without --allow-random-init raises; a missing
+    .pth --load-from raises FileNotFoundError; a port checkpoint restores
+    through --work-dir, and a zoo .pth warm-starts through --load-from, into
+    an artifact equal to the eager serve with those weights, and another
+    model's checkpoint is refused.
 The artifacts of the three families against the eager serve and against
 JAX's: tests/test_torch_export.py; the card's side:
 tests/test_torch_kernels_cuda.py.
@@ -27,9 +28,10 @@ from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
 from robustpointclouds_tpu_torch.kernels.masked_stats import (
     masked_batch_norm, masked_bn_apply, masked_stats_ref)
 from robustpointclouds_tpu_torch.kernels.sparse_conv import sparse_conv, sparse_conv_fwd
-from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager, load_pretrained
 from robustpointclouds_tpu_torch.train.loop import Trainer
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+from zoo_checkpoint import fake_zoo_state_dict, save_pth
 
 KITTI_POINTS = 600
 
@@ -99,7 +101,7 @@ def test_main_refuses_random_weights_and_zoo_checkpoints(tmp_path):
         texport.main(_main_args(tmp_path / "a.pt2"))
     with pytest.raises(RuntimeError, match="refusing"):  # an empty work dir restores nothing
         texport.main(_main_args(tmp_path / "a.pt2", "--work-dir", str(tmp_path / "none")))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError):  # a zoo .pth is read where it stands
         texport.main(_main_args(tmp_path / "a.pt2", "--load-from", str(tmp_path / "zoo.pth")))
     assert not (tmp_path / "a.pt2").exists()
 
@@ -128,6 +130,28 @@ def test_main_restores_work_dir_checkpoint(tmp_path):
     CheckpointManager(str(other)).save(0, pp)
     with pytest.raises(RuntimeError, match="does not match the exported model"):
         texport.main(_main_args(tmp_path / "x.pt2", "--work-dir", str(other)))
+
+
+def test_main_bakes_a_zoo_warm_start(tmp_path, capsys):
+    """--load-from a SECOND .pth: the artifact answers a request bit-equal
+    to the eager serve of the same init warm-started from the same file."""
+    trainer = Trainer(tiny_voxelnet_cfg(), device="cpu")
+    trainer.init_state(0)
+    pth = save_pth(fake_zoo_state_dict(trainer.model.state_dict(), seed=8),
+                   str(tmp_path / "second.pth"))
+    out = tmp_path / "zoo.pt2"
+    texport.main(_main_args(out, "--load-from", pth))
+    assert f"[load-from] {pth} (second): loaded 86 tensors, skipped 0" in (
+        capsys.readouterr().out)
+    load_pretrained(trainer, pth)
+    call, _ = texport.load_exported(str(out))
+    b = synthetic_kitti_batch(np.random.RandomState(9), batch_size=1, num_points=KITTI_POINTS,
+                              max_gt=4, num_objects=3,
+                              point_range=trainer.model_cfg.voxelizer.point_cloud_range)
+    pts, msk = np.asarray(b.points), np.asarray(b.points_mask)
+    want = texport.export_serving(trainer.model, None, trainer.anchors, trainer.model_cfg.head,
+                                  device="cpu")(pts, msk)
+    _assert_equal(call(torch.from_numpy(pts), torch.from_numpy(msk)), want)
 
 
 def test_main_exports_random_init(tmp_path, monkeypatch):

@@ -11,13 +11,16 @@
   * CenterPoint dispatches to train_nuscenes_adversarial.run with the
     config, which builds its model and learning rate from it;
   * --devices, --multihost and --amp (flags cli/train does not declare)
-    and a .pth --load-from raise "not ported yet".
+    raise "not ported yet"; a zoo .pth --load-from warm-starts the pillar
+    model (a missing one raises FileNotFoundError).
 """
 import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
+import torch
 
 from robustpointclouds_tpu.core import Config as JConfig
 from robustpointclouds_tpu.core import builders as jb
@@ -29,7 +32,9 @@ from robustpointclouds_tpu_torch.core.config import Config
 from robustpointclouds_tpu_torch.models.pointpillars import PointPillarsConfig
 from robustpointclouds_tpu_torch.models.voxelnet import VoxelNetConfig
 from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+from zoo_checkpoint import fake_zoo_state_dict, save_pth
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")
@@ -195,8 +200,37 @@ def test_nuscenes_run_builds_from_the_config(tmp_path, monkeypatch):
                                    ["--load-from", "zoo.pth"]],
                          ids=["devices", "multihost", "amp", "pth"])
 def test_unported_flags_raise(flags, tmp_path):
+    if flags[0] == "--load-from":
+        # zoo .pth warm starts are ported: a missing file raises where it is read
+        flags = [flags[0], str(tmp_path / flags[1])]
+        with pytest.raises(FileNotFoundError):
+            train_cli.main([_write(tmp_path, TINY_PILLARS, PILLARS), "--cpu", "--synthetic",
+                            "--work-dir", str(tmp_path), *flags])
+        return
     with pytest.raises(SystemExit, match="not ported yet"):
         train_cli.main([PILLARS, "--cpu", "--synthetic", "--work-dir", str(tmp_path), *flags])
+
+
+def test_cli_warm_starts_pointpillars_from_a_zoo_pth(tmp_path, capsys):
+    """--load-from a PointPillars .pth: the PFN, the backbone stages' first
+    convs, the neck and the head load before the first step (41 tensors)."""
+    cfg = _write(tmp_path, TINY_PILLARS, PILLARS)
+    model_cfg = tb.build_model_config(Config.fromfile(cfg))
+    shapes = Trainer(model_cfg, TrainConfig(), device="cpu").model.state_dict()
+    zoo = fake_zoo_state_dict(shapes, seed=3)
+    pth = save_pth(zoo, str(tmp_path / "pointpillars.pth"))
+    work = tmp_path / "wd"
+    out = train_cli.main([cfg, "--synthetic", "--cpu", "--steps-per-epoch", "1",
+                          "--work-dir", str(work), "--load-from", pth])
+    assert f"[load-from] {pth} (pointpillars): loaded 41 tensors, skipped 0" in (
+        capsys.readouterr().out)
+    assert out["state"].step == 1
+    # one optimizer step from the file's weights, not from the init's
+    saved = torch.load(work / "epoch_0.pt", weights_only=True)["model"]
+    for k in ("voxel_encoder.pfn_layers.0.linear.weight", "neck.deblocks.2.0.weight",
+              "bbox_head.conv_cls.weight"):
+        np.testing.assert_allclose(saved[k].numpy(), zoo[k], rtol=0, atol=1e-2, err_msg=k)
+        assert not torch.equal(saved[k], torch.from_numpy(zoo[k])), k
 
 
 def test_cli_runs_on_the_card_unless_cpu(tmp_path, monkeypatch):

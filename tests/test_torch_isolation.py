@@ -68,6 +68,9 @@ _EXPECTED = {
     "robustpointclouds_tpu_torch.ops.voxelize", "robustpointclouds_tpu_torch.ops.sparse",
     "robustpointclouds_tpu_torch.nn.sparse_encoder", "robustpointclouds_tpu_torch.models.voxelnet",
     "robustpointclouds_tpu_torch.cli.export",
+    # the zoo warm start and the BEV visualiser
+    "robustpointclouds_tpu_torch.tools.convert_torch_checkpoint",
+    "robustpointclouds_tpu_torch.tools.visualize_results",
 }
 
 
@@ -77,6 +80,32 @@ def test_importing_every_module_loads_no_jax():
     assert int(out[0]) >= 38, out
     assert out[1].strip() == "[]", out
     assert _EXPECTED <= set(out[2].strip().split(",")), out
+
+
+_WARM_START = r"""
+import sys
+import numpy as np
+from robustpointclouds_tpu_torch.tools import convert_torch_checkpoint as cvt
+from robustpointclouds_tpu_torch.tools import visualize_results
+from robustpointclouds_tpu_torch.train import checkpoint
+sd = {"middle_encoder.conv_input.0.weight": np.zeros((16, 3, 3, 3, 4), np.float32)}
+sd.update({f"middle_encoder.conv_input.1.{k}": np.ones(16, np.float32)
+           for k in ("weight", "bias", "running_mean", "running_var")})
+assert cvt.detect_state_dict_layout(sd) == "second"
+assert len(cvt.convert_second_state_dict(sd)) == 5
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "robustpointclouds_tpu"
+             or k.startswith("robustpointclouds_tpu."))
+print(bad, "matplotlib" in sys.modules)
+"""
+
+
+def test_warm_start_and_visualiser_load_no_jax():
+    """The two M11 modules and the warm start's caller import and convert
+    without jax or the JAX package; the visualiser leaves matplotlib to main."""
+    out = subprocess.run([sys.executable, "-c", _WARM_START], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    assert out.strip() == "[] False", out
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():

@@ -218,8 +218,11 @@ def test_train_cli_on_the_fixture_writes_and_resumes(tmp_path):
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     from robustpointclouds_tpu_torch.cli import train_nuscenes_adversarial as cli
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.parse_args(["--pretrained", "zoo.pth"])
+    # zoo .pth warm starts are ported: the flag parses, a missing file raises
+    assert cli.parse_args(["--pretrained", "zoo.pth"]).pretrained == "zoo.pth"
+    with pytest.raises(FileNotFoundError):
+        cli.run(work_dir=str(tmp_path), pretrained=str(tmp_path / "zoo.pth"), tiny=True,
+                synthetic=True, max_steps=1, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.run(work_dir=str(tmp_path), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):  # PGD-AT is anchor-head only, as in JAX
@@ -227,3 +230,29 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
         from robustpointclouds_tpu_torch.train.loop import TrainConfig
 
         CenterPointTrainer(train_cfg=TrainConfig(pgd_steps=2), device="cpu")
+
+
+def test_cli_warm_starts_from_a_zoo_pth(tmp_path, capsys):
+    """--pretrained a CenterPoint .pth with the DCN head into the CLIs'
+    plain-head model: the trunk, the shared conv and each task's heatmap and
+    regression branches load, the 12 DCN adaptations (cls, reg x 6 tasks)
+    are skipped as missing, as in JAX; training and evaluation run on it."""
+    from zoo_checkpoint import fake_zoo_state_dict, save_pth
+
+    from robustpointclouds_tpu_torch.cli import evaluate_nuscenes_adversarial as tev
+    from robustpointclouds_tpu_torch.cli import train_nuscenes_adversarial as cli
+    from robustpointclouds_tpu_torch.models.centerpoint import CenterPointConfig
+    from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer
+
+    dcn_cfg, _ = cli.tiny_centerpoint_cfg(CenterPointConfig(use_dcn_head=True))
+    shapes = CenterPointTrainer(dcn_cfg, device="cpu").model.state_dict()
+    pth = save_pth(fake_zoo_state_dict(shapes, seed=9), str(tmp_path / "centerpoint.pth"))
+    line = f"[load-from] {pth} (centerpoint): loaded 382 tensors, skipped 12"
+    out = cli.main(["--tiny", "--cpu", "--synthetic", "--steps", "1", "--pretrained", pth,
+                    "--work-dir", str(tmp_path / "wd")])
+    assert line in capsys.readouterr().out and out["state"].step == 1
+    res = tev.main(["--mode", "clean", "--tiny", "--cpu", "--synthetic", "--frames", "2",
+                    "--batch-size", "2", "--pretrained", pth, "--work-dir",
+                    str(tmp_path / "none")])["clean"]
+    assert line in capsys.readouterr().out
+    assert res and all(k.startswith("SYNTHETIC_") for k in res)

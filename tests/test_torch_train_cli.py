@@ -3,7 +3,8 @@ runs through run_training (plans built in the prefetch thread) and writes
 the reference-schema l2_norms.csv; on tests/fixtures/kitti_mini it trains on
 the KITTI loader and validates, resumes, freezes the detector, runs PGD
 adversarial training from --cfg-options and writes a profiler trace and
-TensorBoard events; the flags that are not ported yet raise."""
+TensorBoard events; the flags that are not ported yet raise; a zoo .pth
+--load-from warm-starts the model."""
 import csv
 import glob
 import json
@@ -18,6 +19,7 @@ from robustpointclouds_tpu_torch.cli.common import prefetch_iterator
 from robustpointclouds_tpu_torch.core.tensorboard import read_scalar_events
 from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+from zoo_checkpoint import fake_zoo_state_dict, save_pth
 
 KITTI_MINI = os.path.join(os.path.dirname(__file__), "fixtures", "kitti_mini")
 
@@ -47,9 +49,43 @@ def test_cli_trains_two_steps_and_writes_l2_norms(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--synthetic", "--devices", "2"], ["--synthetic", "--amp"],
                                   ["--synthetic", "--load-from", "x.pth"], ["--unknown-flag"]])
-def test_unported_flags_raise(argv):
+def test_unported_flags_raise(argv, tmp_path):
+    if "x.pth" in argv:
+        # zoo .pth warm starts are ported: the flag parses, a missing file
+        # raises where the warm start reads it
+        assert cli.parse_args(argv).load_from == "x.pth"
+        argv = [a if a != "x.pth" else str(tmp_path / a) for a in argv]
+        with pytest.raises(FileNotFoundError):
+            cli.main([*argv, "--tiny", "--cpu", "--steps", "1", "--work-dir",
+                      str(tmp_path / "wd")])
+        return
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.parse_args(argv)
+
+
+def test_cli_warm_starts_from_a_zoo_pth(tmp_path, capsys):
+    """--load-from a SECOND .pth (conv_input in spconv1's layout): 86
+    tensors load before the first step; the adversary keeps its init."""
+    from robustpointclouds_tpu_torch.cli.common import tiny_voxelnet_cfg
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    fresh = Trainer(tiny_voxelnet_cfg(), TrainConfig(), device="cpu")
+    fresh.init_state(0)
+    conv = "middle_encoder.conv_input.0.weight"
+    zoo = fake_zoo_state_dict(fresh.model.state_dict(), seed=4, spconv1=[conv])
+    pth = save_pth(zoo, str(tmp_path / "second.pth"))
+    work = str(tmp_path / "wd")
+    out = cli.main(["--synthetic", "--tiny", "--steps", "1", "--cpu", "--work-dir", work,
+                    "--batch-size", "2", "--load-from", pth])
+    assert f"[load-from] {pth} (second): loaded 86 tensors, skipped 0" in (
+        capsys.readouterr().out)
+    assert out["state"].step == 1
+    saved = torch.load(os.path.join(work, "epoch_0.pt"), weights_only=True)["model"]
+    want = torch.from_numpy(zoo[conv]).permute(4, 0, 1, 2, 3)
+    assert torch.allclose(saved[conv], want, rtol=0, atol=1e-2)
+    # the adversary, absent from the file, trained from the seed's init
+    k = "adversary.mlp_out.weight"
+    assert torch.allclose(saved[k], fresh.model.state_dict()[k], rtol=0, atol=1e-2)
 
 
 def test_kitti_trains_two_steps_on_the_kitti_loader(tmp_path, capsys):
