@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None), serving-export and zoo warm-start paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None), serving-export, zoo warm-start and data-parallel paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -227,13 +227,29 @@ Phases (any failure exits non-zero and prints no result):
      [load-from] line, finite losses or scores, and launches K1 and K2;
      (e) tools/convert_torch_checkpoint's main writes a port checkpoint
      from the SECOND .pth, and a warm start from it equals one from the
-     .pth.
+     .pth;
+ 14. data-parallel training (run_data_parallel; train/loop.Trainer.
+     compile_sharded through cli/common.run_training(group=...)): two
+     ranks spawned on this card over gloo (NCCL refuses two ranks on one
+     device), SECOND at global B=6 (3 rows and one host plan a rank, the
+     adversary on from epoch 0) for 6 steps and CenterPoint at B=4 for 3;
+     after every step rank 1's state (model, Adam moments, counters) is
+     held bit for bit to rank 0's and each rank's launches to the one-rank
+     step's (TRAIN_LAUNCHES, CP_TRAIN_LAUNCHES); the first step against a
+     one-process emulation on this card, run twice; the all-reduce's ms
+     (host clock and CUDA events) and bytes, each rank's step and plan ms
+     and peak memory, global frames/s per epoch beside one process at
+     B=6; then cli/train.py --multihost as a group of one over NCCL (a
+     checkpoint) and --devices 2 refused with JAX's message. The kernels
+     line's sparse_conv and masked_batch_norm rows carry the launches a
+     rank made.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -3705,6 +3721,371 @@ def run_zoo(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_ker
     return summary
 
 
+# phase 14: data-parallel training (M10): two ranks on the one card over gloo
+# (NCCL refuses two ranks on one device), each on its own rows with its own
+# host plans; the all-reduce of gradients, BatchNorm statistics and logs
+DP_WORLD = 2
+DP_SECOND_BATCH, DP_SECOND_EPOCHS, DP_SECOND_STEPS = 6, 2, 3  # 3 rows a rank, 6 steps
+DP_CP_BATCH, DP_CP_EPOCHS, DP_CP_STEPS = 4, 1, 3  # 2 rows a rank, 3 steps
+DP_ROOT = os.path.join(REPO, "work_dirs", "chip_smoke_dp")
+SECOND_CONFIG = os.path.join(REPO, "configs", "adversarial",
+                             "adversarial-second_kitti-3d-3class.py")
+
+
+def free_port() -> int:
+    """A TCP port on the loopback interface that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_family(family: str, seed: int):
+    """(make_trainer(device), epoch loader, epochs, launches a step) of a
+    phase 14 family: SECOND with the adversary on from epoch 0, or
+    CenterPoint, at full width on synthetic frames."""
+    from robustpointclouds_tpu_torch.cli.common import synthetic_loader
+    from robustpointclouds_tpu_torch.cli.train_nuscenes_adversarial import (
+        synthetic_nuscenes_loader)
+    from robustpointclouds_tpu_torch.models.centerpoint import CenterPointConfig
+    from robustpointclouds_tpu_torch.models.voxelnet import VoxelNetConfig
+    from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    if family == "second":
+        cfg = VoxelNetConfig()._replace(adversary_start_epoch=0)
+        loader = synthetic_loader(DP_SECOND_BATCH, DP_SECOND_STEPS, num_points=20000, seed=seed,
+                                  point_range=cfg.voxelizer.point_cloud_range)
+        return (lambda dev: Trainer(cfg, TrainConfig(), device=dev)), loader, \
+            DP_SECOND_EPOCHS, TRAIN_LAUNCHES
+    cfg = CenterPointConfig()
+    loader = synthetic_nuscenes_loader(DP_CP_BATCH, DP_CP_STEPS, CP_POINTS, cfg.head.max_objs,
+                                       cfg.voxelizer.point_cloud_range, seed)
+    return (lambda dev: CenterPointTrainer(cfg, device=dev)), loader, DP_CP_EPOCHS, \
+        CP_TRAIN_LAUNCHES
+
+
+def _named_state(trainer):
+    """The model's state_dict, the Adam moments and the train state's
+    counters, on the host, by name."""
+    import torch
+
+    st = trainer.state
+    out = {f"model.{k}": v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if isinstance(v, dict):
+            out.update({f"{f.name}.{k}": v[k].detach().cpu() for k in sorted(v)})
+        else:
+            out[f.name] = v.detach().cpu() if isinstance(v, torch.Tensor) else torch.tensor(v)
+    return out
+
+
+def _state_bytes(named):
+    """Every tensor's bytes, concatenated: two states are equal bit for bit
+    when these are."""
+    import torch
+
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in named.values()])
+
+
+def dp_rank(rank: int, world: int, seed: int, device: str):
+    """One rank of phase 14 (parallel/multihost.launch_local): each family
+    through cli/common.run_training(group=...) on `device`, every step timed
+    to a synchronise with its launches read and checked, the state compared
+    with rank 0's bit for bit after it, the all-reduce timed (host clock
+    between synchronises, and CUDA events) with its bytes; rank 0 saves the
+    state after the first step for the emulation."""
+    import torch
+    import torch.distributed as dist
+
+    from robustpointclouds_tpu_torch.cli.common import run_training
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        masked_batch_norm, masked_batch_norm_bwd, masked_stats, masked_stats_bwd)
+    from robustpointclouds_tpu_torch.kernels.sparse_conv import (
+        sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
+    from robustpointclouds_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+    torch.cuda.set_device(dev)
+    group = dist.group.WORLD
+    counters = {"sparse_conv": sparse_conv, "sparse_conv_dgrad": sparse_conv_dgrad,
+                "sparse_conv_wgrad": sparse_conv_wgrad, "masked_stats": masked_stats,
+                "masked_stats_bwd": masked_stats_bwd, "masked_batch_norm": masked_batch_norm,
+                "masked_batch_norm_bwd": masked_batch_norm_bwd}
+    convs = (sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+        for fn in convs:
+            fn.tf32_launches = 0
+        masked_batch_norm_bwd.reduce_launches = 0
+
+    def read_counts():
+        return {**{k: fn.launches for k, fn in counters.items()},
+                "bwd_reduce": masked_batch_norm_bwd.reduce_launches}
+
+    reduces = []
+    orig_average = mesh.average_step
+
+    def timed_average(tensors, is_nan, grp):
+        torch.cuda.synchronize(dev)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        out = orig_average(tensors, is_nan, grp)
+        e1.record()
+        torch.cuda.synchronize(dev)
+        reduces.append({"host_ms": (time.perf_counter() - t0) * 1e3,
+                        "event_ms": e0.elapsed_time(e1),
+                        "bytes": 4 * (sum(t.numel() for t in tensors) + 1)})
+        return out
+
+    mesh.average_step = timed_average
+    results = {}
+    for family in ("second", "centerpoint"):
+        make, loader, epochs, expected = _dp_family(family, seed)
+        trainer = make(dev)
+        orig_step = type(trainer).train_step
+        steps = []
+
+        def step(batch, epoch, plan=None, trainer=trainer, orig_step=orig_step, steps=steps,
+                 expected=expected, family=family):
+            torch.cuda.synchronize(dev)
+            zero_counts()
+            t0 = time.perf_counter()
+            logs = orig_step(trainer, batch, epoch, plan)
+            logs = {k: float(v) for k, v in logs.items()}  # waits for the step
+            torch.cuda.synchronize(dev)
+            step_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counts()
+            if launches != expected or any(fn.tf32_launches for fn in convs):
+                raise RuntimeError(f"phase 14 {family} rank {rank}: launches {launches}, "
+                                   f"expected {expected} on the bf16 kernels")
+            t1 = time.perf_counter()
+            named = _named_state(trainer)
+            mine = _state_bytes(named)
+            if rank == 0:
+                for src in range(1, world):
+                    other = torch.empty_like(mine)
+                    dist.recv(other, src=src, group=group)
+                    if not torch.equal(mine, other):
+                        raise RuntimeError(f"phase 14 {family}: rank {src}'s state differs from "
+                                           f"rank 0's after step {len(steps) + 1}")
+                if not steps:
+                    torch.save(named, os.path.join(DP_ROOT, f"first_step_{family}.pt"))
+            else:
+                dist.send(mine, dst=0, group=group)
+            steps.append({"epoch": epoch, "step_ms": step_ms, "launches": launches,
+                          "check_ms": (time.perf_counter() - t1) * 1e3, "loss": logs["loss"],
+                          "num_pos": logs.get("num_pos"), "l2": logs["perturbation_l2_norm"],
+                          "state_bytes": int(mine.numel())})
+            return logs
+
+        trainer.train_step = step
+        reduces.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = run_training(trainer, loader, work_dir=os.path.join(DP_ROOT, family),
+                           max_epochs=epochs, checkpoint_interval=1, seed=seed, group=group)
+        results[family] = {"steps": steps, "reduces": list(reduces), "plans": res["plans"],
+                           "epochs": res["epochs"], "sha256": res["state_sha256"],
+                           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        del trainer
+        torch.cuda.empty_cache()
+    mesh.average_step = orig_average
+    return results
+
+
+def _dp_cli(card: str) -> float:
+    """Phase 14 (c): cli/train.py on SECOND's config file as a --multihost
+    group of one over NCCL (exit 0, one checkpoint), and --devices 2 refused
+    on this card with JAX's message; returns the CLI run's seconds."""
+    import torch
+
+    from robustpointclouds_tpu_torch.cli import train as train_cli
+    from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+
+    port = free_port()
+    cli_dir = os.path.join(DP_ROOT, "cli")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "robustpointclouds_tpu_torch.cli.train", SECOND_CONFIG,
+         "--multihost", "--num-processes", "1", "--process-id", "0",
+         "--coordinator", f"127.0.0.1:{port}", "--synthetic", "--steps-per-epoch", "2",
+         "--work-dir", cli_dir, "--cfg-options", "max_epochs=1"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.time() - t0
+    if proc.returncode != 0 or "[multihost] process 0/1, nccl" not in proc.stdout:
+        raise RuntimeError(f"phase 14 (c): cli/train --multihost exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    if CheckpointManager(cli_dir).epochs() != [0]:
+        raise RuntimeError(f"phase 14 (c): checkpoints {os.listdir(cli_dir)}")
+    try:
+        train_cli.main([SECOND_CONFIG, "--devices", "2", "--synthetic",
+                        "--work-dir", os.path.join(DP_ROOT, "refused")])
+        raise RuntimeError("phase 14 (c): --devices 2 ran on one card")
+    except SystemExit as e:
+        refusal = str(e)
+    if refusal != f"--devices 2 but only {torch.cuda.device_count()} attached":
+        raise RuntimeError(f"phase 14 (c): --devices 2 refused with {refusal!r}")
+    print(f"phase 14 (c) cli/train --multihost, a group of one over NCCL: exit 0 in {cli_s:.1f} "
+          f"s, one checkpoint; --devices 2: {refusal!r} [{card}]", flush=True)
+    return cli_s
+
+
+def run_data_parallel(dev, card: str, seed: int):
+    """Phase 14: data-parallel training (cli/common.run_training(group=...),
+    train/loop.Trainer.compile_sharded) at full width:
+    (a) SECOND, global B=6 over 2 gloo ranks on this card (3 rows and one
+        host plan a rank), DP_SECOND_EPOCHS x DP_SECOND_STEPS steps, the
+        adversary on from epoch 0; CenterPoint, global B=4, DP_CP_STEPS
+        steps (dp_rank): after every step both ranks' states are equal bit
+        for bit and each rank's launches are the one-rank step's;
+    (b) the first step of each against a one-process emulation on this card
+        (tests/torch_dp_ranks.emulate_step: each sub-batch's gradients from
+        the same state, summed and halved as the all-reduce does, then the
+        optimizer), run twice: bit-equal, or within twice the spread of the
+        two emulation runs (max over tensors of |difference| / the tensor's
+        largest entry; three draws of the same atomics-ordered sums, so one
+        spread would fail by chance half the time); one process at SECOND
+        B=6 through run_training for the frames/s beside the two ranks';
+    (c) cli/train.py --multihost as a group of one over NCCL (a checkpoint),
+        and --devices 2 refused on this one card with JAX's message.
+    A rank that fails fails the phase. Returns the summary (launches a rank)."""
+    import numpy as np
+    import torch
+
+    from robustpointclouds_tpu_torch.cli.common import run_training
+    from robustpointclouds_tpu_torch.parallel.mesh import shard_batch
+    from robustpointclouds_tpu_torch.parallel.multihost import launch_local
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dp_ranks import emulate_step
+
+    t_phase = time.time()
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    os.makedirs(DP_ROOT)
+    torch.cuda.synchronize()
+    # (a) the two ranks
+    t0 = time.time()
+    ranks = launch_local(dp_rank, DP_WORLD, (seed, str(dev)), backend="gloo",
+                         init_file=os.path.join(DP_ROOT, "rendezvous"))
+    ranks_s = time.time() - t0
+    summary = {"ranks_s": ranks_s}
+    for family, batch in (("second", DP_SECOND_BATCH), ("centerpoint", DP_CP_BATCH)):
+        rs = [r[family] for r in ranks]
+        if len({r["sha256"] for r in rs}) != 1:
+            raise RuntimeError(f"phase 14 {family}: final digests {[r['sha256'] for r in rs]}")
+        for r, res in enumerate(rs):
+            for i, st in enumerate(res["steps"]):
+                print(f"phase 14 {family} rank {r} step {i + 1}: " + json.dumps(
+                    {k: v for k, v in st.items() if k != "launches"}) + f" [{card}]", flush=True)
+            red = res["reduces"]
+            print(f"phase 14 {family} rank {r} all-reduce ({len(red)} steps, "
+                  f"{red[0]['bytes']} bytes each): host ms "
+                  f"{[round(x['host_ms'], 3) for x in red]}, CUDA events ms "
+                  f"{[round(x['event_ms'], 3) for x in red]} [{card}]", flush=True)
+            print(f"phase 14 {family} rank {r} plan ms "
+                  f"{[round(p['plan_ms'], 1) for p in res['plans']]}; peak "
+                  f"{res['peak_gib']:.2f} GiB [{card}]", flush=True)
+        r0 = rs[0]
+        # rank 0's epochs with the time of its replica checks taken out
+        checks = {e["epoch"]: sum(st["check_ms"] for st in r0["steps"]
+                                  if st["epoch"] == e["epoch"]) / 1e3 for e in r0["epochs"]}
+        summary[family] = {
+            "steps": len(r0["steps"]), "launches_a_rank_a_step": r0["steps"][0]["launches"],
+            "launches_a_rank": {k: sum(st["launches"][k] for st in r0["steps"])
+                                for k in r0["steps"][0]["launches"]},
+            "step_ms": [statistics.median(st["step_ms"] for st in r["steps"][1:]) for r in rs],
+            "allreduce_host_ms": statistics.median(x["host_ms"] for r in rs
+                                                   for x in r["reduces"][1:]),
+            "allreduce_event_ms": statistics.median(x["event_ms"] for r in rs
+                                                    for x in r["reduces"][1:]),
+            "allreduce_bytes": r0["reduces"][0]["bytes"],
+            "plan_ms": [statistics.mean(p["plan_ms"] for p in r["plans"]) for r in rs],
+            "peak_gib": [r["peak_gib"] for r in rs],
+            "frames_per_s": [e["frames_per_s"] for e in r0["epochs"]],
+            "frames_per_s_without_checks": [e["frames"] / (e["s"] - checks[e["epoch"]])
+                                            for e in r0["epochs"]],
+            "global_batch": batch}
+    # (b) the first step against the one-process emulation, twice
+    for family in ("second", "centerpoint"):
+        make, loader, _, _ = _dp_family(family, seed)
+        item = next(iter(loader(0)))
+        batch = item if family == "second" else item[0]
+        emus = []
+        for _ in range(2):
+            tr = make(dev)
+            tr.init_state(seed)
+            builder = tr.make_plan_builder()
+            plans = []
+            for r in range(DP_WORLD):
+                sub = shard_batch(item, r, DP_WORLD)
+                b, extra = (sub, ()) if family == "second" else (sub[0], sub[1:])
+                plans.append(builder(b.points, b.points_mask, b.gt_boxes, b.gt_labels,
+                                     b.gt_mask, *extra))
+            emulate_step(tr, batch, plans, 0, DP_WORLD)
+            torch.cuda.synchronize()
+            emus.append(_named_state(tr))
+            del tr
+        rank0 = torch.load(os.path.join(DP_ROOT, f"first_step_{family}.pt"), weights_only=True)
+
+        def worst(a, b):
+            w = 0.0
+            for k, x in a.items():
+                x, y = x.double(), b[k].double()
+                w = max(w, float((x - y).abs().max()) / max(float(x.abs().max()), 1e-30))
+            return w
+
+        equal = [torch.equal(_state_bytes(rank0), _state_bytes(e)) for e in emus]
+        spread, diff = worst(emus[0], emus[1]), worst(emus[0], rank0)
+        if not (any(equal) or diff <= 2 * spread):
+            raise RuntimeError(f"phase 14 {family}: the first step differs from the emulation "
+                               f"by {diff:.3e} of scale, beyond twice the emulation runs' "
+                               f"spread {spread:.3e}")
+        summary[family].update(first_step_bit_equal=equal, first_step_diff=diff,
+                               emulation_spread=spread)
+        print(f"phase 14 {family} first step vs the one-process emulation: bit-equal to run 1 / "
+              f"2: {equal}; worst |difference| / scale {diff:.3e}, two emulation runs' spread "
+              f"{spread:.3e} [{card}]", flush=True)
+    # one process at SECOND B=6 through the same loop, for the frames/s
+    make, loader, epochs, _ = _dp_family("second", seed)
+    tr = make(dev)
+    res = run_training(tr, loader, work_dir=os.path.join(DP_ROOT, "one_rank"), max_epochs=epochs,
+                       checkpoint_interval=1, seed=seed)
+    summary["second"]["one_process_frames_per_s"] = [e["frames_per_s"] for e in res["epochs"]]
+    summary["second"]["one_process_plan_ms"] = statistics.mean(p["plan_ms"] for p in res["plans"])
+    del tr
+    # (c) the CLI: --multihost as a group of one over NCCL, --devices 2 refused
+    summary["cli_s"] = _dp_cli(card)
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    summary["seconds"] = time.time() - t_phase
+    for family in ("second", "centerpoint"):
+        s = summary[family]
+        print(f"phase 14 {family} global B={s['global_batch']} over {DP_WORLD} ranks on one card: "
+              f"median step_ms {s['step_ms']} (host clock, the first step left out), all-reduce "
+              f"{s['allreduce_bytes']} bytes in {s['allreduce_host_ms']:.3f} ms host / "
+              f"{s['allreduce_event_ms']:.3f} ms CUDA events (median), plan {s['plan_ms']} ms a "
+              f"rank, frames/s per epoch {[round(f, 3) for f in s['frames_per_s']]} "
+              f"({[round(f, 3) for f in s['frames_per_s_without_checks']]} without the "
+              f"replica checks), peak "
+              f"{[round(g, 2) for g in s['peak_gib']]} GiB; launches a rank a step "
+              f"{json.dumps(s['launches_a_rank_a_step'])} [{card}]", flush=True)
+    print(f"phase 14 SECOND one process B=6: frames/s per epoch "
+          f"{[round(f, 3) for f in summary['second']['one_process_frames_per_s']]}, plan "
+          f"{summary['second']['one_process_plan_ms']:.1f} ms [{card}]", flush=True)
+    print(f"phase 14: {summary['seconds']:.1f} s (the ranks {ranks_s:.1f} s) [{card}]",
+          flush=True)
+    print("phase 14 summary " + json.dumps(summary), flush=True)
+    return summary
+
+
 def bn_step_total(rows, kernel):
     """One train step's sum over its 17 MaskedBatchNorms (count x each
     shape); a device time that one shape did not measure leaves the sum not
@@ -4277,6 +4658,10 @@ def main() -> int:
     # ---- phase 13: zoo warm starts of the three families, and their entry points
     zoo = run_zoo(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels)
 
+    # ---- phase 14: data-parallel training, two ranks on the card, and the CLI over NCCL
+    dp = run_data_parallel(dev, card, args.seed)
+    dp_launches = {f: dp[f]["launches_a_rank"] for f in ("second", "centerpoint")}
+
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
     tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
@@ -4307,13 +4692,17 @@ def main() -> int:
     zoo_launches = {k: zoo[k]["launches"] for k in ("second", "pointpillars", "centerpoint")}
     kernels = [
         dict(conv_row("sparse_conv", conv_src, launches["sparse_conv"], conv_tot),
-             warm_start_launches={k: v[0] for k, v in zoo_launches.items()}),
+             warm_start_launches={k: v[0] for k, v in zoo_launches.items()},
+             data_parallel_launches_a_rank={k: v["sparse_conv"]
+                                            for k, v in dp_launches.items()}),
         k2_row("masked_stats", 113, launches["masked_stats"], k2),
         # one train step's 17 BNs, summed; launches over the timed train steps
         dict(k2_row("masked_batch_norm", 63, train_launches["masked_batch_norm"],
                     dict(bn_tot["masked_batch_norm"], library_ms=None)),
              bound_two_pass_ms=bn_tot["masked_batch_norm"]["bound_two_pass_ms"],
-             warm_start_launches={k: v[1] for k, v in zoo_launches.items()}),
+             warm_start_launches={k: v[1] for k, v in zoo_launches.items()},
+             data_parallel_launches_a_rank={k: v["masked_batch_norm"]
+                                            for k, v in dp_launches.items()}),
         dict(k2_row("masked_batch_norm_bwd", 102, train_launches["masked_batch_norm_bwd"],
                     dict(bn_tot["masked_batch_norm_bwd"], library_ms=None)),
              bound_two_pass_ms=bn_tot["masked_batch_norm_bwd"]["bound_two_pass_ms"]),

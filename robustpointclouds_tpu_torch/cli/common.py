@@ -9,11 +9,16 @@ a port checkpoint (`load_from`), resumes from the newest one (`resume`) and
 traces steps 10-13 with torch.profiler (`profile_dir`). Evaluation: host
 plan -> (attack) -> eval forward -> decode + NMS -> the KITTI AP metric
 (CenterPoint's NuScenes evaluation: cli/train_nuscenes_adversarial).
-Not ported yet: the mesh / multi-host paths (ROADMAP.md, M10).
+Data parallel (`run_training(group=...)`): every rank runs the same seeded
+loader, keeps its rows and builds only its own plan; rank 0 alone reads a
+warm start or a resume and then broadcasts the state, writes checkpoints,
+CSVs and TensorBoard, and validates.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
+import hashlib
 import json
 import os
 import pickle
@@ -24,6 +29,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.tensorboard import TensorBoardWriter
 from ..data.synthetic import PointCloudBatch, synthetic_kitti_batch
@@ -32,6 +38,7 @@ from ..eval.kitti_metric import KittiMetric
 from ..models.detection import anchor_head_predict
 from ..ops import boxes as box_ops
 from ..ops.nms import _suppression_sweep
+from ..parallel import mesh as dp
 from ..train.checkpoint import CheckpointManager, load_pretrained
 from ..train.hooks import NaNLadder, reinit_adversary_params
 from ..train.loop import HostPlanBuilder, Trainer
@@ -39,12 +46,62 @@ from ..train.loop import HostPlanBuilder, Trainer
 
 def parse_ported_args(parser, argv: Optional[List[str]], prog: str):
     """parser.parse_args, where a flag the parser does not declare raises "not
-    ported yet": among them the JAX CLIs' --devices and --multihost (data
-    parallel, ROADMAP.md M10) and --amp (M16)."""
+    ported yet": among them the JAX CLIs' --amp (ROADMAP.md M16)."""
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         raise SystemExit(f"{prog}: {' '.join(unknown)}: not ported yet")
     return args
+
+
+def add_data_parallel_args(parser, multihost: bool = True) -> None:
+    """The JAX CLIs' data-parallel flags: --devices N, and (cli/train) the
+    --multihost family."""
+    parser.add_argument("--devices", type=int, default=None,
+                        help="data-parallel ranks on this machine: one a card (cuda:0..N-1), "
+                             "or N CPU processes with --cpu")
+    if not multihost:
+        return
+    parser.add_argument("--multihost", action="store_true",
+                        help="one rank of a multi-process job, one card a process (LOCAL_RANK "
+                             "picks it): the reference's --launcher pytorch")
+    parser.add_argument("--coordinator", default=None,
+                        help="rank 0's host:port (or JAX_COORDINATOR_ADDRESS, or torchrun's "
+                             "MASTER_ADDR / MASTER_PORT)")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="process count (or JAX_NUM_PROCESSES / WORLD_SIZE)")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="this process's rank (or JAX_PROCESS_ID / RANK)")
+
+
+def check_devices(devices: int, batch_size: int, cpu: bool, batch_flag: str) -> None:
+    """The JAX CLIs' refusals of --devices N: more cards than attached (on
+    the card), a batch that N does not divide."""
+    if not cpu and torch.cuda.device_count() < devices:
+        raise SystemExit(f"--devices {devices} but only {torch.cuda.device_count()} attached")
+    if batch_size % devices:
+        raise SystemExit(f"{batch_flag} {batch_size} not divisible by --devices {devices}")
+
+
+def launch_devices(fn: Callable, devices: int, argv: List[str], cpu: bool,
+                   work_dir: str) -> List:
+    """--devices N: fn(rank, N, argv) in N spawned ranks on this machine
+    (gloo over CPU processes with --cpu, else NCCL with rank r on cuda:r),
+    met through a file in `work_dir`; returns their results in rank order."""
+    from ..parallel.multihost import launch_local
+
+    os.makedirs(work_dir, exist_ok=True)
+    print(f"[devices] data-parallel over {devices} {'CPU processes' if cpu else 'cards'}",
+          flush=True)
+    return launch_local(fn, devices, (argv,), backend="gloo" if cpu else "nccl",
+                        init_file=os.path.join(os.path.abspath(work_dir),
+                                               f".rendezvous_{os.getpid()}"),
+                        use_cuda=not cpu)
+
+
+def picklable_result(out: Dict) -> Dict:
+    """run_training's result without the train state (device tensors), as a
+    spawned rank returns it."""
+    return {k: v for k, v in out.items() if k != "state"}
 
 
 class MetricsLogger:
@@ -206,10 +263,11 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
                  checkpoint_interval: int = 5, max_keep: int = 10, val_interval: int = 5,
                  val_loader: Optional[Callable[[], Iterator]] = None, resume: bool = False,
                  load_from: Optional[str] = None, profile_dir: Optional[str] = None,
-                 evaluate: Optional[Callable[[Trainer, Iterator], Dict[str, float]]] = None
-                 ) -> Dict:
-    """The training loop on one device (the reference scenario:
-    train_kitti_3class_adversarial.py --validate).
+                 evaluate: Optional[Callable[[Trainer, Iterator], Dict[str, float]]] = None,
+                 group=None) -> Dict:
+    """The training loop (the reference scenario:
+    train_kitti_3class_adversarial.py --validate), on one device or, with
+    `group`, data parallel.
 
     The host plan (native index plan + anchor assignment) is built in the
     prefetch thread, overlapping the device step; `plan_build_ms` in the
@@ -229,25 +287,44 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
     `profile_dir`: a torch.profiler Chrome trace of steps 10-13 of the first
     epoch (closed early if the epoch ends first). The result holds the
     newest plan builds' timings ("plans", HostPlanBuilder.timings) and each
-    epoch's seconds and frames/s ("epochs")."""
+    epoch's seconds and frames/s ("epochs").
+
+    `group`: a torch.distributed process group, one rank a device (the
+    reference's DDP, JAX's mesh). Every rank runs `epoch_loader` with the
+    same seed over the global batch, keeps its rows (parallel/mesh.
+    shard_batch) and builds only its own plan; the trainer's step is its
+    data-parallel one (compile_sharded). Rank 0 alone loads `load_from` and
+    `resume`, then broadcasts the model and train state; it alone writes
+    checkpoints, the CSVs and TensorBoard, validates and profiles. Frames/s
+    counts the global batch. The ranks' final states are compared by
+    digest (a mismatch raises) and every rank waits at a barrier before
+    returning."""
+    rank, world = dp.rank_and_world(group)
+    primary = rank == 0
+    if group is not None:
+        trainer.compile_sharded(group)
     os.makedirs(work_dir, exist_ok=True)
-    logger = MetricsLogger(work_dir)
+    logger = MetricsLogger(work_dir) if primary else None
     ladder = NaNLadder()
     plan_builder = trainer.make_plan_builder()
     ckpt = CheckpointManager(work_dir, max_to_keep=max_keep,
-                             save_interval_epochs=checkpoint_interval)
+                             save_interval_epochs=checkpoint_interval, group=group)
     on_card = trainer.device.type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize(trainer.device)
 
+    def local_rows(it: Iterator) -> Iterator:
+        for item in it:
+            yield dp.shard_batch(item, rank, world)
+
     if trainer.state is None:
         trainer.init_state(seed)
-    if load_from:
+    if load_from and primary:
         load_pretrained(trainer, load_from)
     start_epoch = 0
-    if resume:
+    if resume and primary:
         latest = ckpt.latest_epoch()
         if latest is not None:
             ckpt.restore(trainer)
@@ -255,6 +332,11 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
             print(f"[resume] restored epoch {latest} from {work_dir}", flush=True)
         else:
             print(f"[resume] no checkpoint in {work_dir}, starting fresh", flush=True)
+    if group is not None:
+        trainer.replicate(group)
+        start_epoch, = dp.broadcast_ints([start_epoch], group)
+        print(f"[dp] rank {rank}/{world} on {trainer.device}, {dist.get_backend(group)}",
+              flush=True)
     reinit_gen = torch.Generator().manual_seed(seed)
     history: Dict = {}
     epochs: List[Dict] = []
@@ -264,9 +346,12 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
     for epoch in range(start_epoch, max_epochs):
         epoch_t0 = time.time()
         n_frames = 0
-        batches = prefetch_iterator(with_plans(plan_builder, epoch_loader(epoch)))
+        items = epoch_loader(epoch)
+        if group is not None:
+            items = local_rows(items)
+        batches = prefetch_iterator(with_plans(plan_builder, items))
         for i, (batch, plan) in enumerate(batches):
-            if profile_dir and epoch == start_epoch and i == 10:
+            if primary and profile_dir and epoch == start_epoch and i == 10:
                 prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU] + (
                     [torch.profiler.ProfilerActivity.CUDA] if on_card else []))
                 prof.__enter__()
@@ -274,16 +359,17 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
             if prof is not None and i == 13:
                 _close_profile(prof, profile_dir, sync)
                 prof = None
-            n_frames += batch.points.shape[0]
+            n_frames += batch.points.shape[0] * world
             if (i + 1) % log_interval == 0 or i == 0:
                 logs = {k: float(v) for k, v in logs.items()}
                 logs["plan_build_ms"] = round(plan_builder.timings[-1]["plan_ms"], 1)
-                logger.log_step(logs)
                 if trainer.model.adversary is not None:
                     ladder.update(trainer.state, adversary_reinit_fn=lambda: reinit_adversary_params(
                         trainer.model.adversary, reinit_gen))
-                print(f"[epoch {epoch} iter {i + 1}] "
-                      + " ".join(f"{k}={v:.4f}" for k, v in sorted(logs.items())), flush=True)
+                if primary:
+                    logger.log_step(logs)
+                    print(f"[epoch {epoch} iter {i + 1}] "
+                          + " ".join(f"{k}={v:.4f}" for k, v in sorted(logs.items())), flush=True)
                 if ladder.should_stop:
                     print("[NaN ladder] too many consecutive NaNs - stopping", flush=True)
                     break
@@ -291,12 +377,13 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
             _close_profile(prof, profile_dir, sync)
             prof = None
         dt = time.time() - epoch_t0
-        print(f"[epoch {epoch}] done in {dt:.1f}s ({n_frames / max(dt, 1e-9):.2f} frames/s)",
-              flush=True)
+        if primary:
+            print(f"[epoch {epoch}] done in {dt:.1f}s ({n_frames / max(dt, 1e-9):.2f} frames/s)",
+                  flush=True)
         epochs.append({"epoch": epoch, "s": dt, "frames": n_frames,
                        "frames_per_s": n_frames / max(dt, 1e-9)})
         ckpt.maybe_save(epoch, trainer)
-        if val_loader is not None and (epoch + 1) % val_interval == 0:
+        if primary and val_loader is not None and (epoch + 1) % val_interval == 0:
             metrics = (evaluate or run_evaluation)(trainer, val_loader())
             history[f"val_epoch{epoch}"] = metrics
             print(f"[val epoch {epoch}] {metrics}", flush=True)
@@ -307,13 +394,46 @@ def run_training(trainer: Trainer, epoch_loader: Callable[[int], Iterator[PointC
         if ladder.should_stop:
             break
     ckpt.save(max_epochs - 1, trainer)
-    logger.save_l2_norms()
-    logger.save_history()
-    logger.close()
+    if primary:
+        logger.save_l2_norms()
+        logger.save_history()
+        logger.close()
     history["wall_time_s"] = time.time() - t_start
     history["final_epoch"] = epoch
-    return {"state": trainer.state, "history": history, "work_dir": work_dir,
-            "start_epoch": start_epoch, "plans": list(plan_builder.timings), "epochs": epochs}
+    out = {"state": trainer.state, "history": history, "work_dir": work_dir,
+           "start_epoch": start_epoch, "plans": list(plan_builder.timings), "epochs": epochs}
+    if group is not None:
+        out["state_sha256"] = _equal_replicas(trainer, group)
+        dp.barrier(group, trainer.device)
+    return out
+
+
+def state_digest(trainer: Trainer) -> str:
+    """sha256 over the model's state_dict and the train state's tensors and
+    counters, in a fixed order: equal digests, equal replicas."""
+    h = hashlib.sha256()
+    st = trainer.state
+    items = list(trainer.model.state_dict().items())
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        items += sorted(v.items()) if isinstance(v, dict) else [(f.name, v)]
+    for k, v in items:
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes() if isinstance(v, torch.Tensor)
+                 else repr(v).encode())
+    return h.hexdigest()
+
+
+def _equal_replicas(trainer: Trainer, group) -> str:
+    """Every rank's state digest, gathered: raises unless all are equal."""
+    rank, world = dp.rank_and_world(group)
+    mine = state_digest(trainer)
+    every = [None] * world
+    dist.all_gather_object(every, mine, group=group)
+    if len(set(every)) != 1:
+        raise RuntimeError(f"data-parallel replicas diverged: state digests {every}")
+    print(f"[dp] rank {rank}/{world}: {world} replicas equal, state sha256 {mine}", flush=True)
+    return mine
 
 
 def _close_profile(prof, profile_dir: str, sync: Callable[[], None]) -> None:

@@ -4,7 +4,7 @@
         [--config FILE] [--cfg-options k=v ...] [--data-root data/kitti] \
         [--synthetic] [--validate] [--resume] [--freeze-detector] \
         [--load-from CKPT] [--profile DIR] [--epochs N] [--steps-per-epoch N] \
-        [--batch-size 6] [--tiny] [--steps N] [--seed 0] [--work-dir DIR] [--cpu]
+        [--batch-size 6] [--devices N] [--tiny] [--steps N] [--seed 0] [--work-dir DIR] [--cpu]
 
 The reference recipe (batch 6, 20 epochs, validation every `val_interval`
 epochs of the config, a checkpoint every 5 epochs, the newest 10 kept). The
@@ -20,8 +20,12 @@ synthetic scenes with --synthetic or when --data-root holds no KITTI layout.
 `--steps N` is a debug run: one epoch of N steps, logging every step.
 `--load-from` warm-starts from a port checkpoint or an mmdet3d zoo `.pth`
 (train/checkpoint.load_pretrained). Runs on the card unless --cpu.
-`--devices` (data parallel, ROADMAP.md M10) and `--amp` raise "not ported
-yet", as any other unknown flag does.
+`--devices N` trains data parallel (cli/common.run_training's `group`): N
+spawned ranks, one a card (cuda:0..N-1, NCCL) or, with --cpu, N CPU
+processes (gloo), each on batch_size / N rows of every batch; JAX's
+refusals: more than the attached cards, a --batch-size N does not divide.
+`--amp` (ROADMAP.md M16) raises "not ported yet", as any other unknown
+flag does.
 """
 from __future__ import annotations
 
@@ -57,8 +61,9 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="write a torch.profiler trace of steps 10-13")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cfg-options", nargs="*", default=[], help="dotted config overrides key=value")
-    from .common import parse_ported_args
+    from .common import add_data_parallel_args, parse_ported_args
 
+    add_data_parallel_args(p, multihost=False)
     args = parse_ported_args(p, argv, "train_kitti_3class_adversarial")
     if not os.path.isfile(args.config):
         raise SystemExit(f"train_kitti_3class_adversarial: no config file {args.config!r}")
@@ -66,8 +71,32 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
-    """Run the CLI; returns run_training's result."""
+    """Run the CLI; returns run_training's result (rank 0's, without the
+    train state, for --devices N)."""
+    import sys
+
+    from . import common
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
+    if args.devices and args.devices > 1:
+        common.check_devices(args.devices, args.batch_size, args.cpu, "--batch-size")
+        return common.launch_devices(_devices_rank, args.devices, argv, args.cpu,
+                                     args.work_dir)[0]
+    return train(args)
+
+
+def _devices_rank(rank: int, world: int, argv: List[str]) -> Dict:
+    """One rank of --devices N (parallel/multihost.launch_local)."""
+    import torch.distributed
+
+    from .common import picklable_result
+
+    return picklable_result(train(parse_args(argv), torch.distributed.group.WORLD))
+
+
+def train(args, group=None) -> Dict:
+    """Train as the parsed `args` ask, data parallel over `group`."""
     from ..core.builders import build_train_config, build_voxelnet_config
     from ..core.config import Config
     from ..data.kitti import kitti_available, kitti_epoch_loader, kitti_val_loader
@@ -120,7 +149,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                        val_loader=val_loader if args.validate else None, resume=args.resume,
                        log_interval=50 if args.steps is None else 1, checkpoint_interval=5,
                        max_keep=10, seed=args.seed, profile_dir=args.profile,
-                       load_from=args.load_from or cfg.get("load_from"))
+                       load_from=args.load_from or cfg.get("load_from"), group=group)
     print(f"[done] work_dir={out['work_dir']}", flush=True)
     return out
 

@@ -17,7 +17,9 @@ zoo `.pth` (or a port checkpoint file) the model weights
 (train/checkpoint.load_pretrained). `--resume`
 restores the work dir's newest checkpoint and goes on at the next epoch.
 `--steps N` is a debug run: one epoch of N steps. Runs on the card unless
---cpu. A device mesh (data parallel, M10) raises "not ported yet".
+--cpu. Data parallel through `run(group=...)` (JAX's `run(mesh=...)`), as
+cli/train.py's --devices / --multihost reach it: this CLI, as JAX's, takes
+no --devices.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+import torch.distributed
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -87,21 +91,21 @@ def run(cfg=None, work_dir: str = "work_dirs/nuscenes_adversarial_training",
         data_root: str = "data/nuscenes", batch_size: int = 1, max_epochs: int = 20,
         steps_per_epoch: Optional[int] = None, resume: bool = False,
         pretrained: Optional[str] = None, synthetic: bool = False, validate: bool = False,
-        tiny: bool = False, max_sweeps: int = 9, seed: int = 0, mesh=None,
+        tiny: bool = False, max_sweeps: int = 9, seed: int = 0, group=None,
         max_steps: Optional[int] = None, device=None) -> Dict:
     """Programmatic entry (cli/train.py's dispatch for CenterPoint); returns
     cli/common.run_training's result. `cfg`: a core/config.Config whose
     model config (core/builders.build_centerpoint_config) and learning rate
     replace CenterPointConfig() and the recipe's 5e-5, as the JAX entry
-    takes them."""
+    takes them. `group`: a torch.distributed process group to train over,
+    data parallel (run_training's), `batch_size` the global batch; rank 0
+    alone reads `pretrained`."""
     from ..data.nuscenes import nuscenes_available, nuscenes_epoch_loader, nuscenes_val_loader
     from ..models.centerpoint import CenterPointConfig
     from ..train.centerpoint_loop import CENTERPOINT_TRAIN, CenterPointTrainer
     from ..train.checkpoint import CheckpointManager, load_pretrained
     from .common import run_training
 
-    if mesh is not None:
-        raise NotImplementedError("a device mesh (data-parallel CenterPoint) is not ported yet")
     model_cfg, num_points, lr = CenterPointConfig(), 30000, CENTERPOINT_TRAIN.learning_rate
     if cfg is not None:
         from ..core.builders import build_centerpoint_config, build_train_config
@@ -133,7 +137,7 @@ def run(cfg=None, work_dir: str = "work_dirs/nuscenes_adversarial_training",
                                        max_gt=max_gt, max_sweeps=max_sweeps, limit=64)
 
     trainer.init_state(seed)
-    if pretrained:
+    if pretrained and (group is None or torch.distributed.get_rank(group) == 0):
         if os.path.isdir(pretrained):
             if CheckpointManager(pretrained).latest_epoch() is not None:
                 CheckpointManager(pretrained).restore(trainer)
@@ -148,7 +152,7 @@ def run(cfg=None, work_dir: str = "work_dirs/nuscenes_adversarial_training",
                        log_interval=20 if max_steps is None else 1, seed=seed,
                        checkpoint_interval=2, val_interval=2,
                        val_loader=val_loader if validate else None, resume=resume,
-                       evaluate=evaluate_centerpoint)
+                       evaluate=evaluate_centerpoint, group=group)
     print(f"[done] work_dir={work_dir}", flush=True)
     return out
 
@@ -164,8 +168,6 @@ def evaluate_centerpoint(trainer, batches, attack: bool = False,
     host-clock ms of the plan, of the device work up to the detections on
     the host and of the metric's bookkeeping ("batches"), and the metric's
     ms ("metric_ms")."""
-    import torch
-
     from ..data.nuscenes import NUSCENES_CLASSES
     from ..data.synthetic import PointCloudBatch
     from ..eval.nuscenes_metric import eval_nuscenes_map

@@ -14,7 +14,11 @@ there from the batch's GTs and velocities. The reference recipe: AdamW lr
 
 PGD adversarial training (`pgd_steps`) raises, as the JAX trainer does:
 training clean while the config asks for PGD-AT would make a fake robust
-checkpoint. The data-parallel step waits for ROADMAP.md M10.
+checkpoint. The data-parallel step (`compile_sharded(group)`) is
+train/loop.Trainer's, as JAX's CenterPoint `_sharded_step_impl` is its
+Trainer's: the rank's own rows and plan, then one all-reduce of the
+gradients, BatchNorm running statistics and logs, and any rank's NaN a
+NaN step on every rank.
 """
 from __future__ import annotations
 
@@ -126,6 +130,8 @@ class CenterPointTrainer(Trainer):
         old_stats = [b.clone() for b in self._bn_buffers()]
         grads, logs, is_nan = self._grads(targets, float(epoch), plan_t,
                                           self._points(batch, plan_t))
+        if self.group is not None:
+            grads, logs, is_nan = self._average(grads, logs, is_nan)
         self._apply(grads, is_nan, old_stats)
         return logs
 

@@ -8,7 +8,9 @@ too). Each epoch's checkpoint is one file,
 `<directory>/epoch_<N>.pt`, written to a temporary name and renamed, so a
 crash never leaves a torn file; the newest `max_to_keep` are kept. Files are
 read back with `torch.load(weights_only=True)`, which unpickles tensors and
-plain containers only.
+plain containers only. In a data-parallel run (`group`) only the group's
+rank 0 writes, as JAX's `single_process_io`: the state is replicated, so
+rank 0 holds all of it.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import re
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from .loop import TrainState, Trainer
 
@@ -50,10 +53,14 @@ def _load_into(trainer: Trainer, payload: Dict) -> TrainState:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 10, save_interval_epochs: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 10, save_interval_epochs: int = 5,
+                 group=None):
+        """`group`: a torch.distributed process group whose rank 0 alone
+        writes (save, maybe_save and save_best do nothing on the others)."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_epochs = save_interval_epochs
+        self.writes = group is None or dist.get_rank(group) == 0
 
     def _path(self, epoch: int) -> str:
         return os.path.join(self.directory, f"epoch_{epoch}.pt")
@@ -66,6 +73,8 @@ class CheckpointManager:
         return sorted(int(m.group(1)) for m in found if m)
 
     def save(self, epoch: int, trainer: Trainer) -> None:
+        if not self.writes:
+            return
         os.makedirs(self.directory, exist_ok=True)
         _write(self._path(epoch), _payload(trainer))
         for old in self.epochs()[:-self.max_to_keep]:
@@ -84,7 +93,7 @@ class CheckpointManager:
         return _load_into(trainer, _read(self._path(epoch), trainer.device))
 
     def maybe_save(self, epoch: int, trainer: Trainer) -> bool:
-        if (epoch + 1) % self.save_interval_epochs == 0:
+        if self.writes and (epoch + 1) % self.save_interval_epochs == 0:
             self.save(epoch, trainer)
             return True
         return False
@@ -93,6 +102,8 @@ class CheckpointManager:
     def save_best(self, metric_value: float, trainer: Trainer, epoch: int) -> bool:
         """Keep the single best-metric checkpoint as <dir>/best.pt. Returns
         True when this value beat the stored best (higher is better)."""
+        if not self.writes:
+            return False
         best_file = os.path.join(self.directory, "best_metric.json")
         if os.path.isfile(best_file):
             with open(best_file) as f:

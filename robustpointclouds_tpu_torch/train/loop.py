@@ -36,8 +36,20 @@ step's backward. The host plan comes from HostPlanBuilder (SECOND) or
 PillarPlanBuilder (the pillar family), as `make_plan_builder` picks. With
 `plan=None` the step is inline, as JAX's: the model builds the plan from
 the batch's points on the device and the loss assigns the anchors there
-(anchor_head_loss with no "assign"). The sharded DDP step
-(`compile_sharded`) is not ported yet (ROADMAP.md, M10).
+(anchor_head_loss with no "assign").
+
+Data parallel (`compile_sharded(group)`, JAX's `_sharded_step_impl`): each
+rank of a torch.distributed process group runs the step on its own rows
+with its own host plan (PGD-AT attacks that plan), computes and sanitises
+its gradients, then ONE all-reduce over one flat buffer averages the
+gradients, the BatchNorm running statistics (written back into the modules
+before the optimizer half, so a global NaN step restores every rank's old
+ones) and the logs, and sums the NaN flags: a NaN on any rank is a NaN
+step on every rank. Each forward normalises with its rank's own batch
+statistics, as non-synchronised DDP does. Not torch's
+DistributedDataParallel: its hooks average during backward, before the
+sanitation, it copies rank 0's BatchNorm buffers instead of averaging
+them, and it does not average the logs.
 """
 from __future__ import annotations
 
@@ -57,6 +69,7 @@ from ..models.detection import anchor_head_loss
 from ..models.pointpillars import AdversarialPointPillars, PointPillarsConfig
 from ..models.voxelnet import (AdversarialVoxelNet, VoxelNetConfig, adversary_direct_terms,
                                anchor_assign_plan, init_weights, plan_to_device)
+from ..parallel import mesh as dp
 from .hooks import device_nan_ladder
 
 
@@ -236,6 +249,7 @@ class Trainer:
     Runs on the card unless `device` asks for another (core/device)."""
 
     state_cls = TrainState  # what a checkpoint's train state is read back as
+    group = None  # the data-parallel step's process group (compile_sharded)
 
     def __init__(self, model_cfg: Union[VoxelNetConfig, PointPillarsConfig] = VoxelNetConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
@@ -282,6 +296,46 @@ class Trainer:
             adversary_enabled=torch.ones((), dtype=torch.float32, device=dev),
         )
         return self.state
+
+    # -- data parallel ----------------------------------------------------------
+    def compile_sharded(self, group) -> "Trainer":
+        """Make train_step the data-parallel step over the torch.distributed
+        process `group` (see the module docstring); returns self."""
+        self.group = group
+        return self
+
+    def replicate(self, group) -> None:
+        """Rank 0's model (parameters and buffers) and train state on every
+        rank of `group`: after init, a warm start or a resume on rank 0."""
+        dp.replicate(self.model, group)
+        st = self.state
+        fields = [f.name for f in dataclasses.fields(st)]
+        tensors, ints = [], []
+        for name in fields:
+            v = getattr(st, name)
+            if isinstance(v, dict):
+                tensors += [v[k] for k in sorted(v)]
+            elif isinstance(v, torch.Tensor):
+                tensors.append(v)
+            else:
+                ints.append(name)
+        dp.replicate(tensors, group)
+        for name, v in zip(ints, dp.broadcast_ints([getattr(st, n) for n in ints], group)):
+            setattr(st, name, v)
+
+    def _average(self, grads: Dict[str, torch.Tensor], logs: Dict[str, torch.Tensor],
+                 is_nan: torch.Tensor):
+        """The data-parallel step's reduction (JAX's pmean of grads, batch
+        stats and logs, psum of is_nan > 0), in one all-reduce; the averaged
+        BatchNorm running statistics go back into the modules."""
+        bn = self._bn_buffers()
+        out, any_nan = dp.average_step([*grads.values(), *bn, *logs.values()], is_nan,
+                                       self.group)
+        n, m = len(grads), len(grads) + len(bn)
+        with torch.no_grad():
+            for b, v in zip(bn, out[n:m]):
+                b.copy_(v)
+        return dict(zip(grads, out[:n])), dict(zip(logs, out[m:])), any_nan
 
     @staticmethod
     def is_adversary(name: str) -> bool:
@@ -388,13 +442,16 @@ class Trainer:
         host plan (HostPlanBuilder, with "assign"), or inline with plan=None
         (the plan and the assignment built on the device from the batch's
         points). Returns the logs as device scalars; reading them waits for
-        the step."""
+        the step. Data parallel (compile_sharded): `batch` and `plan` are this
+        rank's rows and their plan, the logs the ranks' average."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
         gt, plan_t = self._to_device(batch, plan)
         plan_t = self._maybe_pgd(batch, plan_t)
         old_stats = [b.clone() for b in self._bn_buffers()]
         grads, logs, is_nan = self._grads(gt, float(epoch), plan_t, self._points(batch, plan_t))
+        if self.group is not None:
+            grads, logs, is_nan = self._average(grads, logs, is_nan)
         self._apply(grads, is_nan, old_stats)
         return logs
 

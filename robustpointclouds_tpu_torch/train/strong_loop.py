@@ -138,6 +138,12 @@ class StrongTrainer(Trainer):
             return len(plan["order"])
         return len(batch.points) * self.model_cfg.base.voxelizer.max_voxels
 
+    def compile_sharded(self, group) -> "StrongTrainer":
+        """Refused: the strong family has no data-parallel step (JAX's
+        StrongTrainer and its CLI take no mesh)."""
+        raise NotImplementedError("the strong family has no data-parallel step, as in the "
+                                  "JAX package")
+
     def train_step(self, batch, epoch: float = 0, plan: Optional[Dict[str, Any]] = None
                    ) -> Dict[str, torch.Tensor]:
         """One step on `batch` with its host plan (HostPlanBuilder on

@@ -63,6 +63,7 @@ from robustpointclouds_tpu_torch.train.loop import TrainConfig as TTrainConfig, 
 from test_model import tiny_batch
 from test_torch_serving import _randomise_bn
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 OUT_TOL = 2.0 ** -6        # of the largest head output
 AUX_RTOL = 2e-2

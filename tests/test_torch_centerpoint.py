@@ -47,6 +47,7 @@ from robustpointclouds_tpu_torch.ops.sparse import SparseGrid
 from robustpointclouds_tpu_torch.tools.convert import centerpoint_to_state_dict
 from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointPlanBuilder
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 FWD_RTOL = 1e-5
 TRAIN_RTOL = 1e-4

@@ -41,6 +41,7 @@ from robustpointclouds_tpu_torch.ops import losses as tlosses
 from robustpointclouds_tpu_torch.ops import nms as tnms
 from robustpointclouds_tpu_torch.tools.convert import center_head_to_state_dict
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 HEAD_RTOL = 1e-5
 DCN_RTOL = 1e-5

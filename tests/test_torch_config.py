@@ -23,6 +23,7 @@ from robustpointclouds_tpu_torch.core import builders as tbuilders
 from robustpointclouds_tpu_torch.core import tensorboard as ttb
 from robustpointclouds_tpu_torch.core.config import Config as TConfig
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.py"), recursive=True))

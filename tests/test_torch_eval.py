@@ -48,6 +48,7 @@ from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
 from test_model import tiny_batch
 from test_torch_serving import _randomise_bn
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 KITTI_MINI = os.path.join(os.path.dirname(__file__), "fixtures", "kitti_mini")
 # float32 on both sides, summation order only (the serving parity measures

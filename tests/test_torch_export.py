@@ -54,6 +54,7 @@ from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d
 from robustpointclouds_tpu_torch.tools.convert import (
     centerpoint_to_state_dict, jax_to_state_dict, pointpillars_to_state_dict)
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 from test_pointpillars import tiny_pp_cfg as j_tiny_pp_cfg
 
 RTOL, ATOL = 1e-4, 1e-4

@@ -10,9 +10,11 @@
     validation with best_metric.json, --auto-scale-lr's print;
   * CenterPoint dispatches to train_nuscenes_adversarial.run with the
     config, which builds its model and learning rate from it;
-  * --devices, --multihost and --amp (flags cli/train does not declare)
-    raise "not ported yet"; a zoo .pth --load-from warm-starts the pillar
-    model (a missing one raises FileNotFoundError).
+  * --amp (a flag cli/train does not declare) raises "not ported yet";
+    --devices refuses a batch_size the ranks do not divide and --multihost
+    a job without a coordinator (tests/test_torch_multihost_cli.py runs
+    both); a zoo .pth --load-from warm-starts the pillar model (a missing
+    one raises FileNotFoundError).
 """
 import dataclasses
 import json
@@ -34,6 +36,7 @@ from robustpointclouds_tpu_torch.models.voxelnet import VoxelNetConfig
 from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
 from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 from zoo_checkpoint import fake_zoo_state_dict, save_pth
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -196,10 +199,22 @@ def test_nuscenes_run_builds_from_the_config(tmp_path, monkeypatch):
     assert CheckpointManager(str(tmp_path)).latest_epoch() is not None and out["state"] is not None
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--multihost"], ["--amp"],
+@pytest.mark.parametrize("flags", [["--devices", "4"], ["--multihost"], ["--amp"],
                                    ["--load-from", "zoo.pth"]],
                          ids=["devices", "multihost", "amp", "pth"])
-def test_unported_flags_raise(flags, tmp_path):
+def test_unported_flags_raise(flags, tmp_path, monkeypatch):
+    if flags[0] == "--devices":
+        # data parallel is ported: JAX's refusal of a batch the ranks do not divide
+        with pytest.raises(SystemExit, match="batch_size 6 not divisible by --devices 4"):
+            train_cli.main([PILLARS, "--cpu", "--synthetic", "--work-dir", str(tmp_path), *flags])
+        return
+    if flags[0] == "--multihost":
+        # ported: a job with no coordinator anywhere is refused before any rendezvous
+        for k in ("JAX_COORDINATOR_ADDRESS", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(ValueError, match="--multihost needs a coordinator"):
+            train_cli.main([PILLARS, "--cpu", "--synthetic", "--work-dir", str(tmp_path), *flags])
+        return
     if flags[0] == "--load-from":
         # zoo .pth warm starts are ported: a missing file raises where it is read
         flags = [flags[0], str(tmp_path / flags[1])]

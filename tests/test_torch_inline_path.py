@@ -41,6 +41,7 @@ from robustpointclouds_tpu_torch.train.loop import (HostPlanBuilder, PillarPlanB
                                                     TrainConfig, Trainer)
 from robustpointclouds_tpu_torch.train.strong_loop import StrongTrainer
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 CPU = torch.device("cpu")
 TRAIN_KW = dict(warmup_iters=5, max_epochs=2, steps_per_epoch=4)

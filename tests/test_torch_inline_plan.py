@@ -41,6 +41,7 @@ from robustpointclouds_tpu_torch.ops import sparse as tsp
 from robustpointclouds_tpu_torch.ops import voxelize as tvox
 from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointPlanBuilder
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 from test_torch_native_plan import TINY, TRUNCATING
 

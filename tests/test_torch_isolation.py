@@ -71,6 +71,9 @@ _EXPECTED = {
     # the zoo warm start and the BEV visualiser
     "robustpointclouds_tpu_torch.tools.convert_torch_checkpoint",
     "robustpointclouds_tpu_torch.tools.visualize_results",
+    # data parallel (torch.distributed)
+    "robustpointclouds_tpu_torch.parallel", "robustpointclouds_tpu_torch.parallel.mesh",
+    "robustpointclouds_tpu_torch.parallel.multihost",
 }
 
 

@@ -25,6 +25,7 @@ from robustpointclouds_tpu_torch.ops import boxes as tboxes
 
 from test_kitti_ap_golden import CALIB, GOLDEN, _THR, _oracle_eval, make_golden_scenes
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 
 @pytest.fixture

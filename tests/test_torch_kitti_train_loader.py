@@ -32,6 +32,7 @@ from robustpointclouds_tpu_torch.data import transforms as TT
 from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
 from robustpointclouds_tpu_torch.tools.create_kitti_dbinfos import create_dbinfos as t_create_dbinfos
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 KITTI_MINI = os.path.join(os.path.dirname(__file__), "fixtures", "kitti_mini")
 SEEDS = [0, 1, 2, 3, 4]

@@ -16,6 +16,7 @@ import os
 import re
 
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 import jax
 import jax.numpy as jnp

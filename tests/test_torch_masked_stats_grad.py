@@ -23,6 +23,7 @@ from robustpointclouds_tpu_torch.kernels.masked_stats import (
     masked_stats, masked_stats_bwd, masked_stats_bwd_ref)
 from robustpointclouds_tpu_torch.nn import layers as tlayers
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 SHAPES = [(100, 8), (1024, 64), (3000, 16)]
 

@@ -14,6 +14,7 @@ from robustpointclouds_tpu.ops.voxelize import VoxelizerConfig
 from robustpointclouds_tpu_torch.data import native_plan as port_native_plan
 from robustpointclouds_tpu_torch.ops.voxelize import VoxelizerConfig as PortVoxelizerConfig
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 # the tests/test_native_plan.py tiny-grid settings
 TINY = dict(point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),

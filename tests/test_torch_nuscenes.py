@@ -26,6 +26,7 @@ from robustpointclouds_tpu.eval.nuscenes_metric import eval_nuscenes_map as jax_
 from robustpointclouds_tpu_torch.data import nuscenes as tnus
 from robustpointclouds_tpu_torch.eval.nuscenes_metric import eval_nuscenes_map
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "nuscenes_mini")
 TINY_PCR = (-12.8, -12.8, -5.0, 12.8, 12.8, 3.0)
@@ -223,7 +224,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(FileNotFoundError):
         cli.run(work_dir=str(tmp_path), pretrained=str(tmp_path / "zoo.pth"), tiny=True,
                 synthetic=True, max_steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(TypeError):  # the port trains over a process group, run(group=...)
         cli.run(work_dir=str(tmp_path), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):  # PGD-AT is anchor-head only, as in JAX
         from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer

@@ -45,6 +45,7 @@ from robustpointclouds_tpu_torch.train.loop import TrainConfig as TTrainConfig, 
 from test_attack_quantified import separated_car_batch
 from test_model import tiny_batch, tiny_cfg
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 K = 2
 EPOCH = 5

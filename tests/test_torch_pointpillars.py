@@ -58,6 +58,7 @@ from robustpointclouds_tpu_torch.train.loop import (PillarPlanBuilder, TrainConf
 from test_pointpillars import tiny_batch, tiny_pp_cfg
 from test_torch_serving import _randomise_bn
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 TRAIN_KW = dict(warmup_iters=5, max_epochs=2, steps_per_epoch=4)
 # float32 on both sides, summation order only

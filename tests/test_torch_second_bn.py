@@ -15,6 +15,7 @@ from robustpointclouds_tpu.nn import second as jsecond
 
 from robustpointclouds_tpu_torch.nn import second as tsecond
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 
 def _bn(sd, prefix, p, s):

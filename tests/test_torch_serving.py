@@ -27,6 +27,7 @@ from robustpointclouds_tpu_torch.models.detection import (
 from robustpointclouds_tpu_torch.ops.voxelize import VoxelizerConfig as TVoxelizerConfig
 from robustpointclouds_tpu_torch.tools.convert import jax_to_state_dict
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 # float32 on both sides; the residual differences are summation order over
 # 12 sparse convs, 12 dense convs and the BN chain, measured at ~1e-6

@@ -26,6 +26,7 @@ from robustpointclouds_tpu_torch.ops import sparse as tsparse
 from test_torch_sparse_conv import DOWN, OUT, SUBM, _grid
 from test_torch_sparse_conv_plan import CONVS, ROW_COUNTS, SECOND_CONVS
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 TF32_SOURCE = os.path.join(os.path.dirname(sc.__file__), os.pardir, "csrc",
                            "sparse_conv_tf32.cu")

@@ -55,6 +55,7 @@ from robustpointclouds_tpu_torch.train.strong_loop import StrongTrainer as TStro
 
 from test_model import tiny_batch
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 KITTI_MINI = os.path.join(os.path.dirname(__file__), "fixtures", "kitti_mini")
 TRAIN_KW = dict(warmup_iters=5, max_epochs=2, steps_per_epoch=4)

@@ -29,6 +29,7 @@ from robustpointclouds_tpu_torch.ops.voxelize import VoxelizerConfig as TVoxeliz
 from robustpointclouds_tpu_torch.train import hooks as thooks
 from robustpointclouds_tpu_torch.train.loop import TrainConfig as TTrainConfig, make_lr_schedule as t_sched
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 HEAD = jdet.AnchorHeadConfig()
 # float32 elementwise math on both sides (transcendentals may differ by an ulp)

@@ -3,8 +3,9 @@ runs through run_training (plans built in the prefetch thread) and writes
 the reference-schema l2_norms.csv; on tests/fixtures/kitti_mini it trains on
 the KITTI loader and validates, resumes, freezes the detector, runs PGD
 adversarial training from --cfg-options and writes a profiler trace and
-TensorBoard events; the flags that are not ported yet raise; a zoo .pth
---load-from warm-starts the model."""
+TensorBoard events; the flags that are not ported yet raise (--devices
+refuses a batch the ranks do not divide); a zoo .pth --load-from
+warm-starts the model."""
 import csv
 import glob
 import json
@@ -50,6 +51,14 @@ def test_cli_trains_two_steps_and_writes_l2_norms(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["--synthetic", "--devices", "2"], ["--synthetic", "--amp"],
                                   ["--synthetic", "--load-from", "x.pth"], ["--unknown-flag"]])
 def test_unported_flags_raise(argv, tmp_path):
+    if "--devices" in argv:
+        # data parallel is ported: the flag parses, and JAX's refusal of a
+        # batch the ranks do not divide comes before any rank starts
+        assert cli.parse_args(argv).devices == 2
+        with pytest.raises(SystemExit, match="--batch-size 3 not divisible by --devices 2"):
+            cli.main([*argv, "--batch-size", "3", "--tiny", "--cpu", "--steps", "1",
+                      "--work-dir", str(tmp_path / "wd")])
+        return
     if "x.pth" in argv:
         # zoo .pth warm starts are ported: the flag parses, a missing file
         # raises where the warm start reads it

@@ -20,6 +20,7 @@ from robustpointclouds_tpu_torch.tools import visualize_results as tvis
 from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
 from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 
 matplotlib.use("Agg")
 

@@ -51,6 +51,7 @@ from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTraine
 from robustpointclouds_tpu_torch.train.checkpoint import load_pretrained
 from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
+import jax_native_libs  # noqa: F401  (JAX's native libraries built once, under a lock)
 from test_pointpillars import tiny_pp_cfg as j_tiny_pp_cfg
 from zoo_checkpoint import fake_zoo_state_dict, save_pth
 
