@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None), serving-export, zoo warm-start and data-parallel paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None), serving-export, zoo warm-start, data-parallel and convergence paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -242,7 +242,30 @@ Phases (any failure exits non-zero and prints no result):
      B=6; then cli/train.py --multihost as a group of one over NCCL (a
      checkpoint) and --devices 2 refused with JAX's message. The kernels
      line's sparse_conv and masked_batch_norm rows carry the launches a
-     rank made.
+     rank made;
+ 15. the convergence run, the plain-block CenterPoint encoder and --amp
+     (run_convergence): (a) one full-width B=6 inline train step
+     (Trainer.train_step with no plan) with K1's forward, dgrad and wgrad
+     on its 12 convs and K2's fused BN forward and backward on its 17 BNs
+     against their plain versions; then tools/convergence_run's main at
+     full width and reduced depth (CONV_ENV: 100 inline steps in chunks of
+     50 on the epoch ramp, then a 50-step freeze phase; AP before, clean
+     and attack after on 4 held-out scenes), every train step's launches
+     read (K1 12 / 12 / 12 and 17 fused BNs forward and backward) and no
+     host plan build in any, steps/s, each chunk's peak and end-of-chunk
+     GiB, and one chunk of CONV_PROFILE_STEPS steps under torch.profiler:
+     at most the one read at its end may copy to the host or wait for the
+     card; (b) the plain-block CenterPoint (residual_encoder=False, 13
+     sparse convs, 13 + 5 MaskedBatchNorms) at full width, B=4 of 30000
+     points: one train step at epoch 3 with its launches checked
+     (CP_PLAIN_LAUNCHES), K1 and K2 held against their plain versions on
+     its 13 convs and 18 BNs, then one self-contained serve request with
+     its launches (13 K1 forwards and 13 BNs); (c) cli/train.py --amp on
+     SECOND's config file for AMP_STEPS B=6 steps: torch's float32 matmul
+     precision "medium" and cuDNN's TF32 switch on while it trains, both
+     restored after, every step's launches TRAIN_LAUNCHES. The kernels
+     line's sparse_conv and masked_batch_norm rows carry the launches of a
+     convergence step and of the plain-block step and request.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -2084,31 +2107,34 @@ ST_C256_LAUNCHES = {"stats_kernel": 2, "apply_kernel": 2, "bwd_reduce_kernel": 2
                     "dx_kernel": 2}
 
 
-def _bn_check(torch, name, x, mask, mod, gout):
-    """One captured train-mode BN (ReLU, no row mask) of the strong adversary
-    against the plain versions, bit-identical on a repeat: the max errors."""
+def _bn_check(torch, name, x, mask, mod, gout, relu=True, row_mask=False, out_dtype=None):
+    """One captured train-mode BN (the strong adversary's: ReLU, no row
+    mask; or as the call's flags say) against the plain versions,
+    bit-identical on a repeat: the max errors."""
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
         _bn_forward, _bn_ref, masked_batch_norm_bwd, masked_batch_norm_bwd_ref)
 
     w, b = mod.weight.detach(), mod.bias.detach()
     rm, rv = mod.running_mean.clone(), mod.running_var.clone()
-    flags = (True, mod.momentum, mod.eps, True, False, x.dtype)
+    flags = (True, mod.momentum, mod.eps, relu, row_mask, out_dtype or x.dtype)
     y, mean, var, cnt = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)
     ref = _bn_ref(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
-    grads = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, True, False)
-    refs = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, True,
-                                     False)
+    grads = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, relu,
+                                  row_mask)
+    refs = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, relu,
+                                     row_mask)
     errs = [(y.float() - ref.float()).abs().max().item()]
     for got, r, tol in zip((y, *grads), (ref, *refs),
                            (BN_RTOL, BN_RTOL, BN_PARAM_GRAD_RTOL, BN_PARAM_GRAD_RTOL)):
         e = (got.float() - r.float()).abs().max().item()
         if not e <= tol * max(r.float().abs().max().item(), 1e-6):
-            raise RuntimeError(f"strong {name} [{x.shape[0]}, {x.shape[1]}]: max error {e}")
+            raise RuntimeError(f"BN {name} [{x.shape[0]}, {x.shape[1]}]: max error {e}")
         errs.append(e)
     y2 = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
-    again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, True, False)
+    again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, mod.eps, True, relu,
+                                  row_mask)
     if not (torch.equal(y, y2) and all(torch.equal(p, q) for p, q in zip(grads, again))):
-        raise RuntimeError(f"strong {name}: a repeat is not bit-identical")
+        raise RuntimeError(f"BN {name}: a repeat is not bit-identical")
     return max(errs)
 
 
@@ -4086,6 +4112,345 @@ def run_data_parallel(dev, card: str, seed: int):
     return summary
 
 
+# phase 15: the convergence run (tools/convergence_run.py), the plain-block
+# CenterPoint encoder (model.residual_encoder=False) and cli/train.py --amp
+CONV_ENV = {"CONV_STEPS": "100", "CONV_SCAN_LEN": "50", "CONV_FREEZE_STEPS": "50"}
+CONV_ROOT = os.path.join(REPO, "work_dirs", "chip_smoke_convergence")
+CONV_PROFILE_STEPS = 5  # inline steps of the chunk traced for host syncs
+# a sync is a host wait on the device inside the traced work: a stream
+# synchronisation (a blocking copy either way makes one) or a scalar read;
+# the device synchronisations are the tracing harness's own
+SYNC_EVENTS = ("cudaStreamSynchronize", "aten::_local_scalar_dense", "aten::nonzero")
+CP_PLAIN_CONVS = 13  # conv_input + 3 + 3 + 3 + 2 stage convs + conv_out
+# a plain-block CenterPoint train step: CP_TRAIN_LAUNCHES with 13 convs and
+# 13 + 5 MaskedBatchNorms (the encoder's and the adversary's)
+CP_PLAIN_LAUNCHES = dict(CP_TRAIN_LAUNCHES, sparse_conv=13, sparse_conv_dgrad=13,
+                         sparse_conv_wgrad=13, masked_batch_norm=18, masked_batch_norm_bwd=18,
+                         bwd_reduce=18)
+AMP_STEPS = 2
+
+
+class StepLaunches:
+    """Wraps a trainer class's train_step: per step, the launch counts it
+    made (read_counts before and after, host counters only: no sync), the
+    host plan builds it called (HostPlanCalls) and its loss, left on the
+    device."""
+
+    def __init__(self, cls, read_counts, host_calls=None):
+        self.cls, self.read, self.host = cls, read_counts, host_calls
+        self.steps = []
+
+    def __enter__(self):
+        self.orig = self.cls.train_step
+        outer = self
+
+        def train_step(trainer, *a, **kw):
+            before = outer.read()
+            h0 = outer.host.calls if outer.host is not None else 0
+            logs = outer.orig(trainer, *a, **kw)
+            after = outer.read()
+            outer.steps.append({"launches": {k: after[k] - before[k] for k in after},
+                                "host_builds": (outer.host.calls if outer.host is not None
+                                                else 0) - h0,
+                                "loss": logs["loss"]})
+            return logs
+        self.cls.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.orig
+
+
+def hold_k1(torch, name, feats, kernel, idx, bwd_idx, mirror, g):
+    """K1's forward, dgrad and wgrad on one captured conv of a train step
+    against their plain versions -> the errors relative to each reference's
+    largest entry; raises beyond SPARSE_CONV_RTOL / WGRAD_RTOL."""
+    from robustpointclouds_tpu_torch.kernels.sparse_conv import (
+        backward_kernel, sparse_conv, sparse_conv_dgrad, sparse_conv_ref, sparse_conv_wgrad,
+        sparse_conv_wgrad_ref)
+
+    w_bwd = backward_kernel(kernel, idx.shape[1], mirror)
+    errs = {}
+    for key, got, ref, tol in (
+            ("fwd", sparse_conv(feats, kernel, idx), sparse_conv_ref(feats, kernel, idx),
+             SPARSE_CONV_RTOL),
+            ("dgrad", sparse_conv_dgrad(g, w_bwd, bwd_idx), sparse_conv_ref(g, w_bwd, bwd_idx),
+             SPARSE_CONV_RTOL),
+            ("wgrad", sparse_conv_wgrad(feats, g, idx), sparse_conv_wgrad_ref(feats, g, idx),
+             WGRAD_RTOL)):
+        scale = max(ref.float().abs().max().item(), 1e-6)
+        err = (got.float() - ref.float()).abs().max().item() / scale
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise RuntimeError(f"K1 {key} {name} [{feats.shape[0]}, {feats.shape[1]}] -> "
+                               f"{kernel.shape[1]}: error {err} of scale")
+        errs[key] = err
+    return errs
+
+
+def capture_step(torch, model, step):
+    """Run `step()` (one train step) with hooks on `model`'s sparse convs and
+    MaskedBatchNorms -> (conv inputs with their output cotangents, BN inputs
+    with their call flags and output cotangents), each in call order."""
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+    from robustpointclouds_tpu_torch.nn.sparse_encoder import SparseConv3d
+
+    convs, bns, grads, hooks = [], [], {}, []
+
+    def capture_g(out, key):  # a forward hook that returns nothing keeps the output
+        out.register_hook(lambda g: grads.__setitem__(key, g.contiguous()))
+
+    for n, m in model.named_modules():
+        if isinstance(m, SparseConv3d):
+            hooks.append(m.register_forward_pre_hook(lambda mod, a, name=n: convs.append(
+                (name, a[0].detach().contiguous(), mod.img2col_kernel(a[0].dtype).detach(),
+                 a[1], a[2], a[3]))))
+        elif isinstance(m, MaskedBatchNorm):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a, kw, name=n: bns.append((name, a[0].detach(), a[1], mod, dict(kw))),
+                with_kwargs=True))
+        else:
+            continue
+        hooks.append(m.register_forward_hook(lambda mod, a, out, name=n: capture_g(out, name)))
+    logs = step()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    return ([(*c, grads[c[0]]) for c in convs], [(*b, grads[b[0]]) for b in bns], logs)
+
+
+def hold_step(torch, convs, bns):
+    """hold_k1 on every captured conv (errors of scale) and _bn_check on
+    every captured BN (max errors, repeats bit-identical) -> the worst
+    errors {fwd, dgrad, wgrad, bn} and the (Cin, Cout, K) widths."""
+    worst = {"fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0, "bn": 0.0}
+    for name, feats, kernel, idx, bwd_idx, mirror, g in convs:
+        for k, e in hold_k1(torch, name, feats, kernel, idx, bwd_idx, mirror, g).items():
+            worst[k] = max(worst[k], e)
+    for name, x, mask, mod, kw, g in bns:
+        worst["bn"] = max(worst["bn"], _bn_check(
+            torch, name, x.contiguous(), mask.contiguous(), mod, g, bool(kw.get("relu")),
+            bool(kw.get("row_mask")), kw.get("out_dtype") or mod.dtype))
+    widths = sorted({(c[1].shape[1], c[2].shape[1], c[3].shape[1]) for c in convs})
+    return worst, widths
+
+
+def count_syncs(torch, fn):
+    """fn() under torch.profiler -> (its host-sync events by name, its
+    device-to-host copies, each sync's chain of enclosing operations with
+    its count)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                with_stack=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    syncs, dtoh, where = {}, 0, {}
+    for e in prof.events():
+        if e.name in SYNC_EVENTS:
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+            chain, p, top = [], e.cpu_parent, e
+            while p is not None:
+                chain.append(p.name)
+                top, p = p, p.cpu_parent
+            frames = [f for f in (top.stack or []) if "robustpointclouds_tpu_torch" in f][:2]
+            key = " < ".join([e.name] + chain[:4] + frames)
+            where[key] = where.get(key, 0) + 1
+        if "DtoH" in e.name or "Device -> Host" in e.name:
+            dtoh += 1
+    return syncs, dtoh, where
+
+
+def run_convergence(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_kernels):
+    """Phase 15: (a) the convergence tool at full width and reduced depth,
+    (b) a plain-block CenterPoint B=4 train step and serve, (c) cli/train.py
+    --amp (module docstring). Returns the launches for the kernels line."""
+    import numpy as np
+    import torch
+
+    from robustpointclouds_tpu_torch.cli import common
+    from robustpointclouds_tpu_torch.cli import train as train_cli
+    from robustpointclouds_tpu_torch.cli.export import export_serving
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.models.centerpoint import CenterPointConfig
+    from robustpointclouds_tpu_torch.models.voxelnet import VoxelNetConfig
+    from robustpointclouds_tpu_torch.tools import convergence_run as conv
+    from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer
+    from robustpointclouds_tpu_torch.train.checkpoint import CheckpointManager
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    t_phase = time.time()
+    out = {}
+    # (a) one inline step's K1 / K2 held against their plain versions
+    tr = Trainer(VoxelNetConfig(), TrainConfig(), device=dev)
+    tr.init_state(seed)
+    scene = conv.to_device(conv.make_scenes(tr.model_cfg, 6, 20000, [100])[0], dev)
+    convs, bns, logs = capture_step(torch, tr.model, lambda: tr.train_step(scene, 3.0))
+    if len(convs) != 12 or len(bns) != 17:
+        raise RuntimeError(f"phase 15 (a): the inline step ran {len(convs)} convs, {len(bns)} BNs")
+    worst, _ = hold_step(torch, convs, bns)
+    del convs, bns, tr
+    print(f"phase 15 (a) inline train step B=6 full width, loss {float(logs['loss']):.4f}: K1 "
+          f"fwd / dgrad / wgrad (errors of scale) and the 17 fused BNs (max errors, repeats "
+          f"bit-identical) against their plain versions, worst {json.dumps(worst)} [{card}]",
+          flush=True)
+
+    # the tool through its entry point, every train step's launches read
+    shutil.rmtree(CONV_ROOT, ignore_errors=True)
+    saved_env = {k: os.environ.get(k) for k in CONV_ENV}
+    os.environ.update(CONV_ENV)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    try:
+        with HostPlanCalls() as hp, StepLaunches(Trainer, read_counts, hp) as sl:
+            res = conv.main(["--work-dir", CONV_ROOT])
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    tool_s = time.time() - t0
+    launches = read_counts()
+    expect_bf16_kernels("convergence")
+    n_steps = int(CONV_ENV["CONV_STEPS"]) + int(CONV_ENV["CONV_FREEZE_STEPS"])
+    if len(sl.steps) != n_steps:
+        raise RuntimeError(f"phase 15 (a): {len(sl.steps)} train steps, expected {n_steps}")
+    kinds = {}
+    for st in sl.steps:
+        key = json.dumps(st["launches"], sort_keys=True)
+        kinds[key] = kinds.get(key, 0) + 1
+        if any(st["launches"][k] != TRAIN_LAUNCHES[k] for k in (
+                "sparse_conv", "sparse_conv_dgrad", "sparse_conv_wgrad", "masked_batch_norm",
+                "masked_batch_norm_bwd")) or st["host_builds"]:
+            raise RuntimeError(f"phase 15 (a): a train step launched {st['launches']} with "
+                               f"{st['host_builds']} host plan builds")
+    summary, recs, drecs = res["summary"], res["records"], res["device"]
+    for k in ("sparse_conv", "masked_batch_norm", "masked_stats"):
+        if not launches[k]:
+            raise RuntimeError(f"phase 15 (a): {k} never launched: {launches}")
+    if not all(np.isfinite(r["loss"]) and r["nan_steps"] == 0 for r in recs) or \
+            summary["final_train_step"] != int(CONV_ENV["CONV_FREEZE_STEPS"]):
+        raise RuntimeError(f"phase 15 (a): records {recs}, summary {summary}")
+    with open(os.path.join(CONV_ROOT, "summary.json")) as f:
+        if json.load(f) != summary:
+            raise RuntimeError("phase 15 (a): summary.json differs from the returned summary")
+    steps_per_s = int(CONV_ENV["CONV_STEPS"]) / summary["wall_s"]
+    print(f"phase 15 (a) convergence_run {json.dumps(CONV_ENV)} B=6 full width: {tool_s:.1f} s "
+          f"through main; phase 1 {summary['wall_s']} s, {steps_per_s:.3f} steps/s, "
+          f"{summary['frames_per_sec']} frames/s; chunk losses "
+          f"{[r['loss'] for r in recs]}; per chunk peak / end GiB "
+          f"{[(round(d['peak_gib'], 3), round(d['alloc_gib'], 3)) for d in drecs]}; "
+          f"mean AP clean {summary['mean_ap_clean']} attack {summary['mean_ap_attack']} "
+          f"(before {summary['ap_before_3d_moderate']}) [{card}]", flush=True)
+    print(f"phase 15 (a) launches a train step over {n_steps} inline steps (phase 1 and the "
+          f"freeze phase), no host plan build in any: "
+          + "; ".join(f"{n} steps {k}" for k, n in kinds.items()) + f"; all launches of the run, "
+          f"evaluations included: {json.dumps(launches)}", flush=True)
+    # one chunk of the loop traced: the one read at its end is the only sync
+    trainer, scenes = res["trainer"], res["scenes"]
+    torch.cuda.synchronize()
+    with HostPlanCalls() as hp:
+        syncs, dtoh, where = count_syncs(torch, lambda: conv.run_chunk(
+            trainer, scenes, conv.FREEZE_EPOCH, 0, CONV_PROFILE_STEPS))
+    n_sync = sum(syncs.values())
+    print(f"phase 15 (a) one chunk of {CONV_PROFILE_STEPS} inline steps under torch.profiler: "
+          f"host syncs {json.dumps(syncs)} ({json.dumps(where)}), device-to-host copies "
+          f"{dtoh}, host plan builds {hp.calls} [{card}]", flush=True)
+    if hp.calls or dtoh > 1 or n_sync > 1:
+        raise RuntimeError(f"phase 15 (a): the train loop syncs {syncs}, copies {dtoh} to the "
+                           f"host and builds {hp.calls} host plans a chunk")
+    out["convergence"] = dict(sl.steps[-1]["launches"], steps=n_steps,
+                              steps_per_s=steps_per_s, syncs=syncs, dtoh=dtoh)
+    del res, trainer, scenes
+    shutil.rmtree(CONV_ROOT, ignore_errors=True)
+
+    # (b) the plain-block CenterPoint encoder at full width, B=4
+    cfg = CenterPointConfig(residual_encoder=False)
+    pcr = cfg.voxelizer.point_cloud_range
+    b, vel = synthetic_nuscenes_batch(np.random.RandomState(seed + 15), batch_size=CP_BATCH,
+                                      num_points=CP_POINTS, max_gt=cfg.head.max_objs,
+                                      point_range=pcr)
+    cpt = CenterPointTrainer(cfg, device=dev)
+    cpt.init_state(seed)
+    plan = cpt.make_plan_builder()(b.points, b.points_mask, b.gt_boxes, b.gt_labels, b.gt_mask,
+                                   vel)
+    torch.cuda.synchronize()
+    zero_counts()
+    convs, bns, logs = capture_step(torch, cpt.model, lambda: cpt.train_step(b, 3, plan,
+                                                                            gt_vel=vel))
+    cp_launches = read_counts()
+    expect_bf16_kernels("plain-block CenterPoint training")
+    if cp_launches != CP_PLAIN_LAUNCHES or len(convs) != CP_PLAIN_CONVS:
+        raise RuntimeError(f"phase 15 (b): plain-block step launches {cp_launches}, "
+                           f"{len(convs)} convs; expected {CP_PLAIN_LAUNCHES}")
+    if not all(np.isfinite(float(v)) for v in logs.values()):
+        raise RuntimeError(f"phase 15 (b): non-finite logs {logs}")
+    worst, widths = hold_step(torch, convs, bns)
+    del convs, bns
+    print(f"phase 15 (b) plain-block CenterPoint B={CP_BATCH} train step, loss "
+          f"{float(logs['loss']):.4f}, {int(plan['voxel_mask'].sum())} voxels: launches "
+          f"{json.dumps(cp_launches)}; (Cin, Cout, K) {widths}; K1 fwd / dgrad / wgrad and "
+          f"the 18 fused BNs against their plain versions, worst errors (K1 of scale, BN "
+          f"max) {json.dumps(worst)}; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"[{card}]", flush=True)
+    serve = export_serving(cpt.model, None, None, cfg.head, device=dev)
+    pts, msk = b.points, b.points_mask
+    serve(pts, msk)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    boxes, scores, labels, valid = serve(pts, msk)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    serve_launches = read_counts()
+    if serve_launches["sparse_conv"] != CP_PLAIN_CONVS or serve_launches[
+            "masked_batch_norm"] != CP_PLAIN_CONVS or not (
+            torch.isfinite(boxes).all() and torch.isfinite(scores).all()) or boxes.shape[-1] != 9:
+        raise RuntimeError(f"phase 15 (b): serve launches {serve_launches}, boxes "
+                           f"{tuple(boxes.shape)}")
+    print(f"phase 15 (b) plain-block CenterPoint serve B={CP_BATCH} (plan built on the card): "
+          f"{serve_ms:.1f} ms, {int(valid.sum())} detections, launches "
+          f"{json.dumps(serve_launches)} [{card}]", flush=True)
+    out["centerpoint_plain"] = {"train_step": cp_launches, "serve": serve_launches}
+    del cpt, serve
+
+    # (c) cli/train.py --amp: the precision set while it trains, restored after
+    amp_dir = os.path.join(REPO, "work_dirs", "chip_smoke_amp")
+    shutil.rmtree(amp_dir, ignore_errors=True)
+    before = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    precision = []
+    real_run = common.run_training
+
+    def recording(*a, **kw):
+        precision.append((torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32))
+        return real_run(*a, **kw)
+
+    common.run_training = recording
+    zero_counts()
+    t0 = time.time()
+    try:
+        with StepLaunches(Trainer, read_counts) as sl:
+            res = train_cli.main([SECOND_CONFIG, "--amp", "--synthetic", "--steps-per-epoch",
+                                  str(AMP_STEPS), "--work-dir", amp_dir, "--cfg-options",
+                                  "max_epochs=1"])
+    finally:
+        common.run_training = real_run
+    amp_s = time.time() - t0
+    after = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    losses = [float(st["loss"]) for st in sl.steps]
+    if precision != [("medium", True)] or after != before or len(sl.steps) != AMP_STEPS or any(
+            st["launches"] != TRAIN_LAUNCHES for st in sl.steps) or not np.isfinite(
+            losses).all() or CheckpointManager(res["work_dir"]).epochs() != [0]:
+        raise RuntimeError(f"phase 15 (c): precision during {precision}, before {before}, after "
+                           f"{after}; steps {sl.steps}; {os.listdir(amp_dir)}")
+    print(f"phase 15 (c) cli/train.py --amp, {AMP_STEPS} steps B=6: {amp_s:.1f} s, precision "
+          f"{precision[0]} while it ran, {after} after; launches a step "
+          f"{json.dumps(sl.steps[0]['launches'])}; losses {losses} [{card}]", flush=True)
+    shutil.rmtree(amp_dir, ignore_errors=True)
+    print(f"phase 15: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
 def bn_step_total(rows, kernel):
     """One train step's sum over its 17 MaskedBatchNorms (count x each
     shape); a device time that one shape did not measure leaves the sum not
@@ -4662,6 +5027,9 @@ def main() -> int:
     dp = run_data_parallel(dev, card, args.seed)
     dp_launches = {f: dp[f]["launches_a_rank"] for f in ("second", "centerpoint")}
 
+    # ---- phase 15: the convergence run, the plain-block CenterPoint encoder, --amp
+    p15 = run_convergence(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels)
+
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
     tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
@@ -4694,7 +5062,10 @@ def main() -> int:
         dict(conv_row("sparse_conv", conv_src, launches["sparse_conv"], conv_tot),
              warm_start_launches={k: v[0] for k, v in zoo_launches.items()},
              data_parallel_launches_a_rank={k: v["sparse_conv"]
-                                            for k, v in dp_launches.items()}),
+                                            for k, v in dp_launches.items()},
+             convergence_launches_a_step=p15["convergence"]["sparse_conv"],
+             plain_centerpoint_launches={k: v["sparse_conv"]
+                                         for k, v in p15["centerpoint_plain"].items()}),
         k2_row("masked_stats", 113, launches["masked_stats"], k2),
         # one train step's 17 BNs, summed; launches over the timed train steps
         dict(k2_row("masked_batch_norm", 63, train_launches["masked_batch_norm"],
@@ -4702,7 +5073,10 @@ def main() -> int:
              bound_two_pass_ms=bn_tot["masked_batch_norm"]["bound_two_pass_ms"],
              warm_start_launches={k: v[1] for k, v in zoo_launches.items()},
              data_parallel_launches_a_rank={k: v["masked_batch_norm"]
-                                            for k, v in dp_launches.items()}),
+                                            for k, v in dp_launches.items()},
+             convergence_launches_a_step=p15["convergence"]["masked_batch_norm"],
+             plain_centerpoint_launches={k: v["masked_batch_norm"]
+                                         for k, v in p15["centerpoint_plain"].items()}),
         dict(k2_row("masked_batch_norm_bwd", 102, train_launches["masked_batch_norm_bwd"],
                     dict(bn_tot["masked_batch_norm_bwd"], library_ms=None)),
              bound_two_pass_ms=bn_tot["masked_batch_norm_bwd"]["bound_two_pass_ms"]),

@@ -16,6 +16,7 @@ CSVs and TensorBoard, and validates.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import hashlib
@@ -46,11 +47,39 @@ from ..train.loop import HostPlanBuilder, Trainer
 
 def parse_ported_args(parser, argv: Optional[List[str]], prog: str):
     """parser.parse_args, where a flag the parser does not declare raises "not
-    ported yet": among them the JAX CLIs' --amp (ROADMAP.md M16)."""
+    ported yet"."""
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         raise SystemExit(f"{prog}: {' '.join(unknown)}: not ported yet")
     return args
+
+
+AMP_HELP = ("bfloat16 matmul precision for the float32 dense work (the reference's --amp; "
+            "K1's float32 sparse convs stay 3xTF32)")
+
+
+@contextlib.contextmanager
+def amp_precision(enabled: bool):
+    """The training CLIs' --amp, JAX's `jax_default_matmul_precision =
+    bfloat16`: while the block runs, float32 matmuls may compute in bfloat16
+    (`torch.set_float32_matmul_precision("medium")`) and cuDNN's float32
+    convolutions in TF32 (`torch.backends.cudnn.allow_tf32`), so the float32
+    dense work -- a float32 config's backbone, neck and heads, CenterPoint's
+    float32 CenterHead -- takes the tensor cores. Both settings are put back
+    on exit, so an in-process caller sees no change. The bf16 default configs
+    compute in bf16 already; K1's float32 route (csrc/sparse_conv_tf32.cu)
+    stays 3xTF32 whatever this says."""
+    if not enabled:
+        yield
+        return
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("medium")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
 
 
 def add_data_parallel_args(parser, multihost: bool = True) -> None:

@@ -4,7 +4,7 @@
         [--resume] [--load-from CKPT] [--synthetic] [--validate] \
         [--steps-per-epoch N] [--seed 0] [--auto-scale-lr] [--cpu] \
         [--devices N | --multihost [--coordinator HOST:PORT] [--num-processes N] \
-        [--process-id I]] [--cfg-options k=v ...]
+        [--process-id I]] [--amp] [--cfg-options k=v ...]
 
 Builds the model named by `model.type` through the config file
 (core/builders.build_model_config; `--cfg-options` dotted overrides change
@@ -29,8 +29,9 @@ Data parallel (cli/common.run_training's `group`), for every family:
 batch; `--multihost` makes this process one rank of a multi-process job
 (torchrun's environment, or JAX's --coordinator / --num-processes /
 --process-id), one card a process. JAX's refusals: more --devices than
-attached cards, a batch_size the ranks do not divide. `--amp` (ROADMAP.md
-M16) raises "not ported yet", as any other undeclared flag does.
+attached cards, a batch_size the ranks do not divide. `--amp` sets
+bfloat16 matmul precision for the float32 dense work while the CLI runs
+(cli/common.amp_precision; K1's float32 route stays 3xTF32).
 """
 from __future__ import annotations
 
@@ -58,7 +59,9 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("--cfg-options", nargs="*", default=[])
-    from .common import add_data_parallel_args, parse_ported_args
+    from .common import AMP_HELP, add_data_parallel_args, parse_ported_args
+
+    p.add_argument("--amp", action="store_true", help=AMP_HELP)
 
     add_data_parallel_args(p)
     return parse_ported_args(p, argv, "train")
@@ -75,17 +78,19 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
     cfg = _config(args)
     batch_size = int(cfg.get("batch_size", 6))
-    if args.multihost:
-        group = _join_multihost(args, batch_size)
-        try:
-            return train(args, cfg, group)
-        finally:
-            torch.distributed.destroy_process_group()
-    if args.devices and args.devices > 1:
-        common.check_devices(args.devices, batch_size, args.cpu, "batch_size")
-        work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/train")
-        return common.launch_devices(_devices_rank, args.devices, argv, args.cpu, work_dir)[0]
-    return train(args, cfg)
+    with common.amp_precision(args.amp):
+        if args.multihost:
+            group = _join_multihost(args, batch_size)
+            try:
+                return train(args, cfg, group)
+            finally:
+                torch.distributed.destroy_process_group()
+        if args.devices and args.devices > 1:
+            common.check_devices(args.devices, batch_size, args.cpu, "batch_size")
+            work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/train")
+            return common.launch_devices(_devices_rank, args.devices, argv, args.cpu,
+                                         work_dir)[0]
+        return train(args, cfg)
 
 
 def _join_multihost(args, batch_size: int):
@@ -107,10 +112,11 @@ def _join_multihost(args, batch_size: int):
 
 def _devices_rank(rank: int, world: int, argv: List[str]) -> Dict:
     """One rank of --devices N (parallel/multihost.launch_local)."""
-    from .common import picklable_result
+    from .common import amp_precision, picklable_result
 
     args = parse_args(argv)
-    return picklable_result(train(args, _config(args), torch.distributed.group.WORLD))
+    with amp_precision(args.amp):
+        return picklable_result(train(args, _config(args), torch.distributed.group.WORLD))
 
 
 def _config(args):

@@ -4,7 +4,8 @@
         [--config FILE] [--cfg-options k=v ...] [--data-root data/kitti] \
         [--synthetic] [--validate] [--resume] [--freeze-detector] \
         [--load-from CKPT] [--profile DIR] [--epochs N] [--steps-per-epoch N] \
-        [--batch-size 6] [--devices N] [--tiny] [--steps N] [--seed 0] [--work-dir DIR] [--cpu]
+        [--batch-size 6] [--devices N] [--tiny] [--steps N] [--seed 0] [--work-dir DIR] [--cpu] \
+        [--amp]
 
 The reference recipe (batch 6, 20 epochs, validation every `val_interval`
 epochs of the config, a checkpoint every 5 epochs, the newest 10 kept). The
@@ -24,8 +25,8 @@ synthetic scenes with --synthetic or when --data-root holds no KITTI layout.
 spawned ranks, one a card (cuda:0..N-1, NCCL) or, with --cpu, N CPU
 processes (gloo), each on batch_size / N rows of every batch; JAX's
 refusals: more than the attached cards, a --batch-size N does not divide.
-`--amp` (ROADMAP.md M16) raises "not ported yet", as any other unknown
-flag does.
+`--amp` sets bfloat16 matmul precision for the float32 dense work while
+the CLI runs (cli/common.amp_precision; K1's float32 route stays 3xTF32).
 """
 from __future__ import annotations
 
@@ -61,7 +62,9 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="write a torch.profiler trace of steps 10-13")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cfg-options", nargs="*", default=[], help="dotted config overrides key=value")
-    from .common import add_data_parallel_args, parse_ported_args
+    from .common import AMP_HELP, add_data_parallel_args, parse_ported_args
+
+    p.add_argument("--amp", action="store_true", help=AMP_HELP)
 
     add_data_parallel_args(p, multihost=False)
     args = parse_ported_args(p, argv, "train_kitti_3class_adversarial")
@@ -79,20 +82,23 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    if args.devices and args.devices > 1:
-        common.check_devices(args.devices, args.batch_size, args.cpu, "--batch-size")
-        return common.launch_devices(_devices_rank, args.devices, argv, args.cpu,
-                                     args.work_dir)[0]
-    return train(args)
+    with common.amp_precision(args.amp):
+        if args.devices and args.devices > 1:
+            common.check_devices(args.devices, args.batch_size, args.cpu, "--batch-size")
+            return common.launch_devices(_devices_rank, args.devices, argv, args.cpu,
+                                         args.work_dir)[0]
+        return train(args)
 
 
 def _devices_rank(rank: int, world: int, argv: List[str]) -> Dict:
     """One rank of --devices N (parallel/multihost.launch_local)."""
     import torch.distributed
 
-    from .common import picklable_result
+    from .common import amp_precision, picklable_result
 
-    return picklable_result(train(parse_args(argv), torch.distributed.group.WORLD))
+    args = parse_args(argv)
+    with amp_precision(args.amp):
+        return picklable_result(train(args, torch.distributed.group.WORLD))
 
 
 def train(args, group=None) -> Dict:

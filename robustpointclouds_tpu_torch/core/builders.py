@@ -77,9 +77,6 @@ def build_centerpoint_config(cfg: Config):
     from ..models.centerpoint import CenterPointConfig
 
     m = cfg.get("model", {})
-    if not m.get("residual_encoder", True):
-        raise NotImplementedError("model.residual_encoder=False (the plain-block CenterPoint "
-                                  "encoder) is not ported yet")
     base = CenterPointConfig()
     tasks = m.get("tasks")
     return CenterPointConfig(
@@ -94,6 +91,7 @@ def build_centerpoint_config(cfg: Config):
         adversary_start_epoch=int(m.get("adversary_start_epoch", base.adversary_start_epoch)),
         encoder_channels=(_as_tuple(m["encoder_channels"], depth=2)
                           if m.get("encoder_channels") else base.encoder_channels),
+        residual_encoder=bool(m.get("residual_encoder", base.residual_encoder)),
         use_dcn_head=bool(m.get("use_dcn_head", base.use_dcn_head)),
     )
 

@@ -5,8 +5,10 @@ sparse index; the native host plan, or with `plan=None` the torch plan
 built on the points' device by `build_centerpoint_plan`) -> (learned
 VoxelPerturber on the 5 features behind the gradient-reversal
 `grad_scale`; the lag channel's bound is 0)
--> HardSimpleVFE -> the residual (basicblock) SparseEncoder -> SECONDBackbone
--> SECONDFPN -> CenterHead. The architecture is the reference's
+-> HardSimpleVFE -> the residual (basicblock) SparseEncoder, or with
+`residual_encoder=False` the plain conv_module one at the same channels
+(JAX's `model.residual_encoder=False`: 13 sparse convs instead of 21) ->
+SECONDBackbone -> SECONDFPN -> CenterHead. The architecture is the reference's
 centerpoint_voxel01_second_secfpn_head-dcn-circlenms base: voxels 0.1 x 0.1
 x 0.2 over [-51.2, 51.2]^2 x [-5, 3], sparse shape [41, 1024, 1024], BEV
 [B, 256, 128, 128] -> [B, 512, 128, 128] -> 6 tasks.
@@ -50,6 +52,10 @@ class CenterPointConfig(NamedTuple):
     encoder_channels: Tuple[Tuple[int, ...], ...] = (
         (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)
     )
+    # False: the plain conv_module layout at encoder_channels (conv_input,
+    # each stage's strided down first from stage 2 on, submanifold convs
+    # otherwise, conv_out: 13 sparse convs), as JAX's residual=False
+    residual_encoder: bool = True
     tasks: Tuple[Tuple[str, ...], ...] = NUSCENES_TASKS
     head: CenterHeadConfig = CenterHeadConfig(tasks=NUSCENES_TASKS)
     adversary: Optional[Dict[str, Any]] = {
@@ -90,7 +96,8 @@ class AdversarialCenterPoint(nn.Module):
         dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.pts_middle_encoder = SparseEncoder(
             cfg.voxelizer.sparse_shape, in_channels=cfg.num_point_features,
-            encoder_channels=cfg.encoder_channels, dtype=dt, block_type="basicblock")
+            encoder_channels=cfg.encoder_channels, dtype=dt,
+            block_type="basicblock" if cfg.residual_encoder else "conv_module")
         self.pts_backbone = SECONDBackbone(self.pts_middle_encoder.bev_channels, dtype=dt)
         self.pts_neck = SECONDFPN(dtype=dt)
         self.pts_bbox_head = CenterHead(tasks=cfg.tasks, use_dcn=cfg.use_dcn_head)

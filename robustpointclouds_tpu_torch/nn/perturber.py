@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.device import device_constant
 from ..core.registry import ADVERSARIES
 from ..kernels.masked_stats import masked_stats
 from .layers import MaskedBatchNorm
@@ -166,8 +167,8 @@ class VoxelPerturber(nn.Module):
             raw = raw * torch.sigmoid(a.float())
 
         scale_b, clamp_b = _bound_profile(f, self.sensor_error_bound, attack)
-        scale_t = torch.as_tensor(scale_b, device=raw.device)
-        clamp_t = torch.as_tensor(clamp_b, device=raw.device)
+        scale_t = device_constant(scale_b.tolist(), torch.float32, raw.device)
+        clamp_t = device_constant(clamp_b.tolist(), torch.float32, raw.device)
         pert = torch.clamp(raw * scale_t, -clamp_t, clamp_t)
         # branch-free NaN guard == the reference's fall-back-to-identity
         pert = torch.nan_to_num(pert, nan=0.0, posinf=0.0, neginf=0.0)

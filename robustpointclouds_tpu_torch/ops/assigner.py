@@ -14,6 +14,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..core.device import device_constant
 from . import boxes as box_ops
 
 
@@ -40,15 +41,15 @@ def assign(anchors: torch.Tensor, anchor_classes: torch.Tensor, gt_boxes: torch.
     iou = torch.where(class_match & gt_mask[:, None, :], iou, torch.full_like(iou, -1.0))
 
     max_iou, argmax_gt = iou.max(dim=2)          # first index among ties
-    pos_thr = torch.tensor(pos_iou_thr, dtype=torch.float32, device=dev)[anchor_classes]
-    neg_thr = torch.tensor(neg_iou_thr, dtype=torch.float32, device=dev)[anchor_classes]
+    pos_thr = device_constant(pos_iou_thr, torch.float32, dev)[anchor_classes]
+    neg_thr = device_constant(neg_iou_thr, torch.float32, dev)[anchor_classes]
     pos = max_iou >= pos_thr[None]
     neg = max_iou < neg_thr[None]  # includes anchors with no same-class GT (iou -1)
 
     # GT-wise forcing: each GT claims its best same-class anchor when that
     # IoU reaches the class's min_pos_iou
     gt_best_iou, gt_best_anchor = iou.max(dim=1)                       # [B, G]
-    min_thr = torch.tensor(min_pos_iou, dtype=torch.float32, device=dev)[
+    min_thr = device_constant(min_pos_iou, torch.float32, dev)[
         torch.clamp(gt_labels, 0, num_classes - 1)]
     min_thr = torch.where(gt_mask, min_thr, torch.full_like(min_thr, float("inf")))
     force = gt_mask & (gt_best_iou >= min_thr)

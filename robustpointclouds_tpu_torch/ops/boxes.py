@@ -117,8 +117,10 @@ def rotated_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tenso
 
 
 def boxes3d_to_bev(boxes: torch.Tensor) -> torch.Tensor:
-    """[..., 7] -> [..., 5] BEV box (x, y, dx, dy, yaw)."""
-    return boxes[..., [0, 1, 3, 4, 6]]
+    """[..., 7] -> [..., 5] BEV box (x, y, dx, dy, yaw). Slices, not a list
+    index: on the card a list index is a host-to-device copy that waits for
+    the card."""
+    return torch.cat([boxes[..., 0:2], boxes[..., 3:5], boxes[..., 6:7]], -1)
 
 
 def box3d_corners(boxes: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,8 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.device import device_constant
+
 INT32_MAX = np.iinfo(np.int32).max
 # JAX's wide two-key rank sort needs ids below this band: past it the
 # neighbour index takes the one-query-per-tap form, as in JAX
@@ -95,7 +97,7 @@ def kernel_offsets(kernel_size: Sequence[int]) -> np.ndarray:
 
 def flatten_coords(coords: torch.Tensor, mask: torch.Tensor, spatial_shape) -> torch.Tensor:
     """Flat row-major ids [N] int32; INT32_MAX where `mask` is False."""
-    strides = torch.tensor(_strides_of(spatial_shape), dtype=torch.int64, device=coords.device)
+    strides = device_constant(_strides_of(spatial_shape), torch.int64, coords.device)
     flat = (coords.long() * strides).sum(-1)
     return torch.where(mask, flat, torch.full_like(flat, INT32_MAX)).to(torch.int32)
 
@@ -518,10 +520,9 @@ def scatter_to_dense(features: torch.Tensor, grid: SparseGrid) -> torch.Tensor:
     shape = tuple(int(s) for s in grid.spatial_shape)
     c = features.shape[1]
     size = int(np.prod(shape, dtype=np.int64))
-    strides = torch.tensor(
-        [int(np.prod(shape[i + 1:], dtype=np.int64)) for i in range(len(shape))],
-        dtype=torch.int64, device=features.device,
-    )
+    strides = device_constant(
+        [int(np.prod(shape[i + 1:], dtype=np.int64)) for i in range(len(shape))], torch.int64,
+        features.device)
     flat = (grid.coords.long() * strides).sum(-1)
     flat = torch.where(grid.mask, flat, torch.full_like(flat, size))
     dense = torch.zeros((size + 1, c), dtype=features.dtype, device=features.device)

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.device import device_constant
 from . import sparse
 
 
@@ -69,8 +70,8 @@ def voxelize_batch(points: torch.Tensor, points_mask: torch.Tensor,
     dev = points.device
     # the bin divides by a device tensor: torch turns a division by a host
     # scalar into a multiply by its reciprocal, which can round differently
-    pcr = torch.tensor(cfg.point_cloud_range[:3], dtype=points.dtype, device=dev)
-    vs = torch.tensor(cfg.voxel_size, dtype=points.dtype, device=dev)
+    pcr = device_constant(cfg.point_cloud_range[:3], points.dtype, dev)
+    vs = device_constant(cfg.voxel_size, points.dtype, dev)
     ijk = torch.floor((points[..., :3] - pcr) / vs).to(torch.int32)
     ix, iy, iz = ijk.unbind(-1)
     in_range = ((ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny) & (iz >= 0) & (iz < nz)

@@ -21,7 +21,8 @@ The VoxelPerturber, which the zoo map lacks, maps `mlp_i`/`mlp_out`/
 whole JAX StrongAdversarialVoxelNet too (its SECOND body carries the same
 names, its adversary is the strong one). `centerpoint_to_state_dict` does the same for the JAX
 AdversarialCenterPoint: the residual encoder's `stage{i}_res{j}` blocks
-(conv1/bn1/conv2/bn2) and `stage{i}_down` convs, the backbone and neck
+(conv1/bn1/conv2/bn2) and `stage{i}_down` convs, or the plain encoder's
+`stage{i}_subm{j}` / `stage{i}_down` convs, the backbone and neck
 under `pts_`, and the CenterHead (flax convs -> Conv2d, the DCN kernel ->
 mmcv's grouped [Cout, Cin/g, 3, 3] weight). `pointpillars_to_state_dict`
 maps the JAX AdversarialPointPillars: the PillarFeatureNet's `pfn/Dense_0`
@@ -170,8 +171,9 @@ def _sep_head(sd: Dict[str, np.ndarray], prefix: str, p: Mapping, s: Mapping):
 def centerpoint_to_state_dict(params: Mapping, batch_stats: Mapping,
                               encoder_channels=((16, 16, 32), (32, 32, 64), (64, 64, 128),
                                                 (128, 128))) -> Dict[str, torch.Tensor]:
-    """(params, batch_stats) of the JAX AdversarialCenterPoint (residual
-    encoder of `encoder_channels`) -> the port's state_dict."""
+    """(params, batch_stats) of the JAX AdversarialCenterPoint (its encoder
+    of `encoder_channels`, residual or plain as its tree holds) -> the
+    port's state_dict."""
     sd: Dict[str, np.ndarray] = {}
     me, mes = params["pts_middle_encoder"], batch_stats["pts_middle_encoder"]
     enc = "pts_middle_encoder"
@@ -182,17 +184,24 @@ def centerpoint_to_state_dict(params: Mapping, batch_stats: Mapping,
 
     block(f"{enc}.conv_input", "conv_input")
     n_stages = len(encoder_channels)
+    residual = "stage0_res0" in me
     for i, stage in enumerate(encoder_channels):
+        layer = f"{enc}.encoder_layers.encoder_layer{i + 1}"
+        if not residual:
+            # the conv_module layout: stage i's strided down first (i > 0)
+            for j in range(len(stage)):
+                block(f"{layer}.{j}", f"stage{i}_down" if i and not j else f"stage{i}_subm{j}")
+            continue
         n_res = len(stage) if i == n_stages - 1 else len(stage) - 1
         for j in range(n_res):
-            name, prefix = f"stage{i}_res{j}", f"{enc}.encoder_layers.encoder_layer{i + 1}.{j}"
+            name, prefix = f"stage{i}_res{j}", f"{layer}.{j}"
             for c in ("conv1", "conv2"):
                 sd[f"{prefix}.{c}.weight"] = sparse_kernel_to_spconv(me[name][c]["kernel"],
                                                                      (3, 3, 3))
             for b in ("bn1", "bn2"):
                 _bn(sd, f"{prefix}.{b}", me[name][b], mes[name][b])
         if i != n_stages - 1:
-            block(f"{enc}.encoder_layers.encoder_layer{i + 1}.{n_res}", f"stage{i}_down")
+            block(f"{layer}.{n_res}", f"stage{i}_down")
     block(f"{enc}.conv_out", "conv_out", (3, 1, 1))
 
     _dense_body(sd, "pts_", params, batch_stats)

@@ -10,7 +10,9 @@
     validation with best_metric.json, --auto-scale-lr's print;
   * CenterPoint dispatches to train_nuscenes_adversarial.run with the
     config, which builds its model and learning rate from it;
-  * --amp (a flag cli/train does not declare) raises "not ported yet";
+  * --amp sets bfloat16 matmul precision (torch's float32 matmul
+    precision "medium", cuDNN's TF32 switch) while the CLI trains and
+    restores both after;
     --devices refuses a batch_size the ranks do not divide and --multihost
     a job without a coordinator (tests/test_torch_multihost_cli.py runs
     both); a zoo .pth --load-from warm-starts the pillar model (a missing
@@ -203,6 +205,26 @@ def test_nuscenes_run_builds_from_the_config(tmp_path, monkeypatch):
                                    ["--load-from", "zoo.pth"]],
                          ids=["devices", "multihost", "amp", "pth"])
 def test_unported_flags_raise(flags, tmp_path, monkeypatch):
+    if flags[0] == "--amp":
+        # ported: the precision is set while run_training runs, restored after
+        from robustpointclouds_tpu_torch.cli import common
+
+        seen, real = [], common.run_training
+
+        def recording(*a, **k):
+            seen.append((torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32))
+            return real(*a, **k)
+
+        monkeypatch.setattr(common, "run_training", recording)
+        before = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+        assert train_cli.parse_args([PILLARS, *flags]).amp
+        out = train_cli.main([_write(tmp_path, TINY_PILLARS, PILLARS), "--cpu", "--synthetic",
+                              "--steps-per-epoch", "1", "--work-dir", str(tmp_path / "wd"),
+                              *flags])
+        assert seen == [("medium", True)]
+        assert (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32) == before
+        assert CheckpointManager(out["work_dir"]).latest_epoch() == 0
+        return
     if flags[0] == "--devices":
         # data parallel is ported: JAX's refusal of a batch the ranks do not divide
         with pytest.raises(SystemExit, match="batch_size 6 not divisible by --devices 4"):

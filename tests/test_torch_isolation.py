@@ -74,6 +74,9 @@ _EXPECTED = {
     # data parallel (torch.distributed)
     "robustpointclouds_tpu_torch.parallel", "robustpointclouds_tpu_torch.parallel.mesh",
     "robustpointclouds_tpu_torch.parallel.multihost",
+    # the convergence run (M16) and the dryrun_multichip counterpart
+    "robustpointclouds_tpu_torch.tools.convergence_run",
+    "robustpointclouds_tpu_torch.parallel.dryrun",
 }
 
 

@@ -3,7 +3,8 @@ runs through run_training (plans built in the prefetch thread) and writes
 the reference-schema l2_norms.csv; on tests/fixtures/kitti_mini it trains on
 the KITTI loader and validates, resumes, freezes the detector, runs PGD
 adversarial training from --cfg-options and writes a profiler trace and
-TensorBoard events; the flags that are not ported yet raise (--devices
+TensorBoard events; --amp sets bfloat16 matmul precision while it trains
+and restores it after; an undeclared flag raises "not ported yet" (--devices
 refuses a batch the ranks do not divide); a zoo .pth --load-from
 warm-starts the model."""
 import csv
@@ -50,7 +51,25 @@ def test_cli_trains_two_steps_and_writes_l2_norms(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--synthetic", "--devices", "2"], ["--synthetic", "--amp"],
                                   ["--synthetic", "--load-from", "x.pth"], ["--unknown-flag"]])
-def test_unported_flags_raise(argv, tmp_path):
+def test_unported_flags_raise(argv, tmp_path, monkeypatch):
+    if "--amp" in argv:
+        # ported: the precision is set while run_training runs, restored after
+        from robustpointclouds_tpu_torch.cli import common
+
+        seen, real = [], common.run_training
+
+        def recording(*a, **k):
+            seen.append((torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32))
+            return real(*a, **k)
+
+        monkeypatch.setattr(common, "run_training", recording)
+        before = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+        assert cli.parse_args(argv).amp
+        out = cli.main([*argv, "--tiny", "--cpu", "--steps", "1", "--batch-size", "2",
+                        "--work-dir", str(tmp_path / "wd")])
+        assert seen == [("medium", True)] and out["state"].step == 1
+        assert (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32) == before
+        return
     if "--devices" in argv:
         # data parallel is ported: the flag parses, and JAX's refusal of a
         # batch the ranks do not divide comes before any rank starts
