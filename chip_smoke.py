@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None), serving-export, zoo warm-start, data-parallel and convergence paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, probe, evaluation, KITTI training, CenterPoint, PointPillars, strong-family, inline (plan=None), serving-export, zoo warm-start, data-parallel, convergence and env-gated variant paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -265,7 +265,36 @@ Phases (any failure exits non-zero and prints no result):
      precision "medium" and cuDNN's TF32 switch on while it trains, both
      restored after, every step's launches TRAIN_LAUNCHES. The kernels
      line's sparse_conv and masked_batch_norm rows carry the launches of a
-     convergence step and of the plain-block step and request.
+     convergence step and of the plain-block step and request;
+ 16. the JAX package's env-gated variants (run_variants): (a) the compact
+     adversary (RPC_COMPACT_PERT, models/voxelnet.COMPACT_PERT) for SECOND
+     and PointPillars at B=6 of 20000 points and CenterPoint at B=4 of
+     30000: a float32 train step and an attack=True forward compact
+     against padded from one state (losses, gradients, head outputs, each
+     gap beside its tolerance); at bf16, the adversary stage alone (its K2
+     launches, the rows its BNs ran at, its ms and device ms) and train
+     steps in turns (padded, compact, compact, padded), then the plan-fed
+     compact step bit-equal to the inline one (the plan built on the
+     card), and one compact train step's K2 launches at the compact rows
+     (the kernels line's compact rows count them); K2 at the pillar
+     adversary's compact rows against the plain versions; (b) the JAX
+     package's gather-form densify (RPC_DENSE_GATHER, and its plan-fed
+     pillar default), which the port holds by tests and does not run,
+     replayed on SECOND's conv_out rows and the pillar BEV beside the
+     port's scatter: bit-equal forward and gradient, device ms of both;
+     (c) K2's bfloat16-read mode (RPC_BN_BF16_STATS) forward and backward
+     at every bf16 BN shape of a SECOND step and the PFN's [3072000, 64]
+     against its plain version at bounds a kernel that ignores the mode
+     misses (hold_lowp), timed beside the float32-read mode on the same
+     inputs, and a full-width SECOND step in the mode (VR_LOWP_LAUNCHES)
+     beside the float32-read step; (d) the JAX package's FPN depth-to-space
+     (RPC_FPN_D2S), held by tests too, replayed on the bf16 SECOND neck's
+     stride-2 deblock beside the port's ConvTranspose2d, device ms of
+     both; (e) tools/diag_centerpoint_nan's main at DIAG_STEPS=3, the
+     adversary on and off; then a child process with the four variables
+     set in its environment trains full-width SECOND for VR_CHILD_STEPS
+     steps on its host plans and answers an attack request (the two gates
+     the port reads, each read, its path taken, the launches of the mode).
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -308,6 +337,27 @@ STATS_BWD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 BN_RTOL = 1e-2
 # its d gamma / d beta: float32 sums of the same gated products in another order
 BN_PARAM_GRAD_RTOL = 1e-4
+# K2's bfloat16-read mode (RPC_BN_BF16_STATS), held so that a kernel which
+# ignores the mode in either launch fails (hold_lowp):
+#  * the mean within LOWP_MEAN_RTOL of its largest entry and each channel's
+#    variance within LOWP_VAR_RTOL of its own (float32 sums of the same
+#    terms in another order); the float32-read variance of the same x must
+#    miss the mode's by LOWP_VAR_SEP times that (measured on the CPU: about
+#    1e-3 of each channel's at these inputs);
+#  * the apply on the kernel's statistics bit-equal to the plain version's
+#    on all but LOWP_Y_MISMATCH of y's entries, where the float32-read apply
+#    differs on at least LOWP_Y_DIFFERS of them (measured on the CPU: 12%
+#    with the ReLU, 40% without);
+#  * the forward's y within LOWP_Y_STEPS of |x a| + |b| of the plain
+#    forward's, entry by entry: a folded scale a or shift b that rounds one
+#    bfloat16 step apart, where the statistics' sums round apart, moves an
+#    entry by about a step of each term and of the output
+LOWP_MEAN_RTOL = 1e-5
+LOWP_VAR_RTOL = 2e-5
+LOWP_VAR_SEP = 10.0
+LOWP_Y_MISMATCH = 1e-3
+LOWP_Y_DIFFERS = 2e-2
+LOWP_Y_STEPS = 2.0 ** -6
 # float32 train-step gradients, card vs CPU: summation order through the
 # whole step (the CPU parity tests measure 1e-4 of each tensor's largest
 # entry against JAX); tensors whose true gradient is 0 are held to 1e-6 of
@@ -799,11 +849,12 @@ def check_masked_batch_norm(torch, seed, prev_bn):
 
 
 def bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, relu, row_mask, prev_bn,
-            momentum=0.1):
+            momentum=0.1, lowp=False):
     """The fused MaskedBatchNorm forward and backward on these inputs (y in
     x's type) against the plain versions, bit-identical on a repeat call,
     timed (L2-cold inputs) beside `prev_bn` when given: the forward row and
-    the backward row."""
+    the backward row. `lowp`: the bfloat16-read mode (RPC_BN_BF16_STATS),
+    whose statistics are two launches of the statistics kernel."""
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
         _bn_forward, _bn_ref, masked_batch_norm, masked_batch_norm_bwd,
         masked_batch_norm_bwd_ref)
@@ -812,16 +863,19 @@ def bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, relu, row_ma
     n, c = x.shape
     dt = x.dtype
     rows = []
-    flags = (train, momentum, 1e-3, relu, row_mask, dt)
+    flags = (train, momentum, 1e-3, relu, row_mask, dt, lowp)
     y, mean, var, cnt = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)
-    ref = _bn_ref(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
+    ref, rmean, rvar, _ = _bn_ref(x, mask, w, b, rm.clone(), rv.clone(), *flags)
     err = (y.float() - ref.float()).abs().max().item()
-    if not err <= BN_RTOL * ref.float().abs().max().item():
+    if lowp:
+        lowp_gaps = hold_lowp(torch, f"{name} [{n},{c}]", x, mask, w, b, train, relu, row_mask,
+                              y, mean, var, ref, rmean, rvar)
+    elif not err <= BN_RTOL * ref.float().abs().max().item():
         raise RuntimeError(f"masked_batch_norm {name} [{n},{c}]: max error {err}")
     grads = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
-                                  row_mask, need_params=train)
+                                  row_mask, need_params=train, lowp=lowp)
     refs = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
-                                     row_mask)
+                                     row_mask, lowp)
     bwd_err = 0.0
     for got, r, tol in zip(grads, refs, (BN_RTOL, BN_PARAM_GRAD_RTOL, BN_PARAM_GRAD_RTOL)):
         if got is None:
@@ -832,15 +886,15 @@ def bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, relu, row_ma
         bwd_err = max(bwd_err, e)
     y2 = _bn_forward(x, mask, w, b, rm.clone(), rv.clone(), *flags)[0]
     again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
-                                  row_mask, need_params=train)
+                                  row_mask, need_params=train, lowp=lowp)
     if not (torch.equal(y, y2) and all(p is None or torch.equal(p, q)
                                        for p, q in zip(grads, again))):
         raise RuntimeError(f"masked_batch_norm {name} [{n},{c}]: a repeat is not bit-identical")
 
     sets = l2_cold(torch, (x, mask, gout, rm.clone(), rv.clone()))
     new_f = in_turn(lambda a, m, _g, r1, r2: masked_batch_norm(
-        a, m, w, b, r1, r2, train, momentum, relu=relu, row_mask=row_mask, out_dtype=dt),
-        sets)
+        a, m, w, b, r1, r2, train, momentum, relu=relu, row_mask=row_mask, out_dtype=dt,
+        lowp=lowp), sets)
     if prev_bn is None:
         t, t_prev, t_prev_dev = cuda_ms(new_f), None, None
     else:
@@ -849,7 +903,8 @@ def bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, relu, row_ma
         t, t_prev = abba_ms(new_f, old_f)
         t_prev_dev = device_ms(old_f, 20)
     split_f, split_b = {}, {}
-    fwd_kernels = {"stats_kernel": 1, "apply_kernel": 1} if train else {"apply_kernel": 1}
+    fwd_kernels = {"stats_kernel": 2 if lowp else 1, "apply_kernel": 1} if train else {
+        "apply_kernel": 1}
     t_dev = device_ms(new_f, 20, kernels=fwd_kernels, by_kernel=split_f)
     t_plain = cuda_ms(in_turn(lambda a, m, _g, r1, r2: _bn_ref(a, m, w, b, r1, r2, *flags)[0],
                               sets), iters=5)
@@ -860,7 +915,7 @@ def bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, relu, row_ma
         xg = a.detach().requires_grad_(True)
         leaves = (xg, wg, bg) if train else (xg,)
         yn = masked_batch_norm(xg, m, wg, bg, r1, r2, train, momentum, relu=relu,
-                               row_mask=row_mask, out_dtype=dt)
+                               row_mask=row_mask, out_dtype=dt, lowp=lowp)
         graphs_new.append((yn, leaves, gg))
         if prev_bn is not None:
             yo = prev_bn(xg, m, wg, bg, r1, r2, train, relu, row_mask, dt)
@@ -877,13 +932,14 @@ def bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, relu, row_ma
         bold = in_turn(backward, graphs_old)
         tb_fn, tb_prev = abba_ms(bnew, bold)
     wrap = in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd(
-        gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask, need_params=train), wrapped)
+        gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask, need_params=train, lowp=lowp),
+        wrapped)
     tb = cuda_ms(wrap)
     bwd_kernels = {"bwd_reduce_kernel": 1, "dx_kernel": 1} if train else {"dx_kernel": 1}
     tb_dev = device_ms(wrap, 20, kernels=bwd_kernels, by_kernel=split_b)
     tb_prev_dev = None if prev_bn is None else device_ms(bold, 20)
     tb_plain = cuda_ms(in_turn(lambda gg, a, m, mn, vr, cn: masked_batch_norm_bwd_ref(
-        gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask), wrapped), iters=5)
+        gg, a, m, w, b, mn, vr, cn, 1e-3, train, relu, row_mask, lowp), wrapped), iters=5)
     del graphs_new, graphs_old, wrapped, sets
 
     # bound_ms counts the bytes this data needs: x (and g) on
@@ -905,13 +961,48 @@ def bn_case(torch, name, count, x, mask, w, b, rm, rv, gout, train, relu, row_ma
                      device_ms=t_dev, prev_device_ms=t_prev_dev, plain_ms=t_plain,
                      library_ms=None, bound_ms=fb, bound_by=fby,
                      bound_two_pass_ms=f_two / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-                     device_kernels=split_f))
+                     device_kernels=split_f, **({"lowp": lowp_gaps} if lowp else {})))
     rows.append(dict(common, kernel="masked_batch_norm_bwd", ms=tb, autograd_ms=tb_fn,
                      prev_ms=tb_prev, device_ms=tb_dev, prev_device_ms=tb_prev_dev,
                      plain_ms=tb_plain, library_ms=None, bound_ms=bb, bound_by=bby,
                      bound_two_pass_ms=b_two / HBM_BYTES_PER_S * 1e3, max_abs_err=bwd_err,
                      device_kernels=split_b))
     return rows
+
+
+def hold_lowp(torch, label, x, mask, w, b, train, relu, row_mask, y, mean, var, ref, rmean,
+              rvar):
+    """K2's bfloat16-read forward (y and the statistics it normalised with)
+    against the plain version's (ref, rmean, rvar) at the LOWP_* bounds,
+    which the float32-read results on the same x must miss; returns the
+    gaps, raises past a bound."""
+    from robustpointclouds_tpu_torch.kernels.masked_stats import bn_apply_ref, masked_stats_ref
+
+    eps = 1e-3
+    gaps = {}
+    if train:
+        f32_var = masked_stats_ref(x.float(), mask)[1]
+        gaps.update(
+            mean=(mean - rmean).abs().max().item() / max(rmean.abs().max().item(), 1e-6),
+            var=((var - rvar).abs() / rvar.clamp(min=1e-30)).max().item(),
+            f32_read_var=((f32_var - rvar).abs() / rvar.clamp(min=1e-30)).max().item())
+    args = (x, mask, mean, var, w, b, eps, relu, row_mask, x.dtype)
+    plain = bn_apply_ref(*args, True)
+    gaps["y_mismatch"] = (y != plain).float().mean().item()
+    gaps["f32_read_y_differs"] = (bn_apply_ref(*args, False) != plain).float().mean().item()
+    r = torch.rsqrt(rvar + eps)
+    a = (r * w).to(x.dtype).float()
+    sh = (b - rmean * r * w).to(x.dtype).float()
+    scale = (x.float() * a).abs() + sh.abs()
+    gaps["y_steps"] = ((y.float() - ref.float()).abs() / scale.clamp(min=1e-30)).max().item()
+    ok = (gaps["y_mismatch"] <= LOWP_Y_MISMATCH and gaps["f32_read_y_differs"] >= LOWP_Y_DIFFERS
+          and gaps["y_steps"] <= LOWP_Y_STEPS)
+    if train:
+        ok = ok and (gaps["mean"] <= LOWP_MEAN_RTOL and gaps["var"] <= LOWP_VAR_RTOL
+                     and gaps["f32_read_var"] >= LOWP_VAR_SEP * LOWP_VAR_RTOL)
+    if not ok:
+        raise RuntimeError(f"masked_batch_norm lowp {label}: {gaps}")
+    return gaps
 
 
 def mean_row(rows):
@@ -1664,7 +1755,7 @@ class PlainVersionCalls:
     none."""
 
     NAMES = ("masked_stats_ref", "masked_stats_bwd_ref", "_bn_ref", "_bn_stats_ref",
-             "bn_apply_ref", "masked_batch_norm_bwd_ref")
+             "bn_apply_ref", "masked_batch_norm_bwd_ref", "masked_stats_lowp_ref")
     K1_NAMES = ("sparse_conv_ref", "sparse_conv_wgrad_ref")
 
     def __init__(self, k1: bool = False):
@@ -4451,6 +4542,582 @@ def run_convergence(dev, card: str, seed: int, zero_counts, read_counts, expect_
     return out
 
 
+# ---- phase 16: the JAX package's env-gated variants (run_variants)
+
+VR_EPOCH = 3  # every family's adversary is on from epoch 3
+VR_TURN_STEPS = 2  # bf16 steps a turn when the two adversary forms are timed (p, c, c, p)
+VR_STAGE_ITERS = 10  # calls a profile of the adversary stage
+VR_DIAG_STEPS = 3  # tools/diag_centerpoint_nan's DIAG_STEPS here
+VR_CHILD_STEPS = 2  # train steps of the child process that sets the gates in its environment
+# compact vs padded in float32 at full width (compute_dtype float32, the
+# adversary float32): the same multiset of rows summed in another order.
+# Losses within VR_LOG_RTOL (the CPU test's bounds from the JAX package's
+# own compact test: 1e-4 / 2e-4); head outputs of the attack forward within
+# E2E_F32_RTOL of their largest; each gradient tensor's largest entry gap
+# within VR_GRAD_RTOL of its largest entry and its difference's norm within
+# VR_GRAD_RTOL of its norm (TRAIN_GRAD_FLOOR of the model's largest where
+# smaller). The worst tensors are BatchNorm biases, sums of a cotangent
+# that nearly cancels over 10^5-10^6 positions, where the reordered rows'
+# float32 rounding shows most (measured on the H100: 6.3e-3 of the largest
+# entry, 4.5e-3 in norm; losses 6.9e-7, head outputs 0 to 4.4e-6)
+VR_LOG_RTOL = 2e-4
+VR_GRAD_RTOL = 1e-2
+# the full-width bf16 SECOND step in the bfloat16-read mode beside the
+# float32-read step from one state and plan: other roundings in 17 BNs,
+# grown through the depth (tests/test_torch_bf16_parity.py: a module
+# group's bf16 gradient keeps a cosine of 0.53-0.96 with its float32 one).
+# Losses within VR_LOWP_LOSS_RTOL (measured 8.5e-3), the whole gradient's
+# cosine with the float32-read one at least VR_LOWP_COS
+VR_LOWP_LOSS_RTOL = 5e-2
+VR_LOWP_COS = 0.5
+# the env child: the four gates set in the environment, as a user sets them;
+# the port reads two (RPC_DENSE_GATHER and RPC_FPN_D2S are held by tests)
+VR_CHILD_ENV = {"RPC_COMPACT_PERT": "1", "RPC_DENSE_GATHER": "1", "RPC_BN_BF16_STATS": "1",
+                "RPC_FPN_D2S": "1"}
+# K2 launches of a full-width bf16 SECOND train step in the bfloat16-read
+# mode, by kernel: its 17 bf16 BNs (the adversary's 5, the encoder's 12)
+# take the mode (2 statistics launches and 1 apply each); the perturber's
+# float32 statistics (std normalisation, regulariser) do not
+VR_LOWP_LAUNCHES = {"stats_kernel_lowp": 34, "apply_kernel_lowp": 17, "stats_kernel": 2,
+                    "apply_kernel": 0, "bwd_reduce_kernel": 17, "dx_kernel": 17,
+                    "vjp_kernel": 1}
+
+_VR_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+from robustpointclouds_tpu_torch.kernels import masked_stats as ms
+from robustpointclouds_tpu_torch.models import voxelnet as vx
+from robustpointclouds_tpu_torch.nn import layers
+from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+seed, steps = int(sys.argv[2]), int(sys.argv[3])
+gates = {"RPC_COMPACT_PERT": vx.COMPACT_PERT, "RPC_BN_BF16_STATS": layers.BN_BF16_STATS}
+calls = {"adversary_rows": []}
+cfg = vx.VoxelNetConfig()
+tr = Trainer(cfg, TrainConfig(), device="cuda")
+tr.init_state(seed)
+tr.model.adversary.register_forward_pre_hook(
+    lambda m, a: calls["adversary_rows"].append(int(a[0].shape[0])))
+rng = np.random.RandomState(seed + 160)
+builder = tr.make_plan_builder()
+out = []
+for i in range(steps):
+    b = synthetic_kitti_batch(rng, batch_size=6, num_points=20000, max_gt=20, num_objects=8,
+                              point_range=cfg.voxelizer.point_cloud_range)
+    plan = builder(b.points, b.points_mask, b.gt_boxes, b.gt_labels, b.gt_mask)
+    ms.KERNEL_LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = {k: float(v) for k, v in tr.train_step(b, 3, plan).items()}
+    torch.cuda.synchronize()
+    launches = {}
+    for (k, c), n in ms.KERNEL_LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + n
+    out.append({"step_ms": (time.perf_counter() - t0) * 1e3, "loss": logs["loss"],
+                "l2": logs["perturbation_l2_norm"], "finite": bool(np.isfinite(
+                    list(logs.values())).all()), "launches": launches})
+att = tr.forward_eval(plan, attack=True, batch=b)
+print(json.dumps({"gates": gates, "calls": calls, "steps": out,
+                  "attack_finite": bool(torch.isfinite(att.cls_scores).all())}))
+"""
+
+
+def _grad_gap(got, ref, top: int = 3):
+    """How far two gradient dicts are apart, each tensor against its own
+    reference: the largest entry's gap over the tensor's largest entry
+    (TRAIN_GRAD_FLOOR of the model's largest where smaller), and the norm of
+    the difference over the tensor's norm (the same floor); each with the
+    `top` worst tensors. A NaN gap is the worst."""
+    gmax = max(v.abs().max().item() for v in ref.values())
+    nmax = max(v.float().norm().item() for v in ref.values())
+    entry, norm = [], []
+    for k, r in ref.items():
+        d = got[k].float() - r.float()
+        scale = max(r.abs().max().item(), TRAIN_GRAD_FLOOR * gmax / TRAIN_GRAD_RTOL)
+        nscale = max(r.float().norm().item(), TRAIN_GRAD_FLOOR * nmax / TRAIN_GRAD_RTOL)
+        entry.append((d.abs().max().item() / scale, k))
+        norm.append((d.norm().item() / nscale, k))
+
+    def worst(v):
+        v.sort(key=lambda t: -t[0] if t[0] == t[0] else -float("inf"))
+        nan = [t for t in v if t[0] != t[0]]
+        return nan + [t for t in v if t[0] == t[0]]
+    entry, norm = worst(entry)[:top], worst(norm)[:top]
+    return {"entry": entry[0][0], "entry_worst": entry, "norm": norm[0][0], "norm_worst": norm}
+
+
+def _out_gap(a, b):
+    """The largest gap of two head outputs over the reference's largest entry."""
+    import torch
+
+    ta = [t for t in (a if isinstance(a, (list, tuple)) else [a]) if isinstance(t, torch.Tensor)]
+    tb = [t for t in (b if isinstance(b, (list, tuple)) else [b]) if isinstance(t, torch.Tensor)]
+    return max((x.float() - y.float()).abs().max().item() / max(y.float().abs().max().item(),
+                                                                 1e-6) for x, y in zip(ta, tb))
+
+
+def _heads(out):
+    """The head tensors of a family's outputs (anchor heads: cls, bbox, dir;
+    CenterPoint: every task's maps)."""
+    if hasattr(out, "task_preds"):
+        return [t for task in out.task_preds for t in task.values()]
+    return list(out[:3])
+
+
+def run_variants(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_kernels):
+    """Phase 16: the JAX package's env-gated variants on the card (module
+    docstring). Returns the kernels line's rows of this phase."""
+    import numpy as np
+    import torch
+
+    import robustpointclouds_tpu_torch.nn.perturber as perturber
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.data.synthetic import PointCloudBatch, synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.kernels.masked_stats import (
+        KERNEL_LAUNCHES, KERNEL_ROW_LAUNCHES, masked_batch_norm)
+    from robustpointclouds_tpu_torch.models import centerpoint as mcp
+    from robustpointclouds_tpu_torch.models import pointpillars as mpp
+    from robustpointclouds_tpu_torch.models import voxelnet as mvn
+    from robustpointclouds_tpu_torch.nn import layers, sparse_encoder
+    from robustpointclouds_tpu_torch.nn.layers import MaskedBatchNorm
+    from robustpointclouds_tpu_torch.ops import sparse
+    from robustpointclouds_tpu_torch.tools import diag_centerpoint_nan
+    from robustpointclouds_tpu_torch.tools.probe_gather import device_ms
+    from robustpointclouds_tpu_torch.train.centerpoint_loop import CenterPointTrainer
+    from robustpointclouds_tpu_torch.train.loop import TrainConfig, Trainer
+
+    t_phase = time.time()
+    rng = np.random.RandomState(seed + 16)
+    rows = []
+    problems = []  # every failed check, raised together at the end of the phase
+
+    def kitti(cfg):
+        b = synthetic_kitti_batch(rng, batch_size=IN_BATCH, num_points=IN_POINTS, max_gt=20,
+                                  num_objects=8, point_range=cfg.voxelizer.point_cloud_range)
+        return PointCloudBatch(*(np.asarray(x) for x in b)), None
+
+    def nus(cfg):
+        b, vel = synthetic_nuscenes_batch(rng, batch_size=CP_BATCH, num_points=CP_POINTS,
+                                          max_gt=cfg.head.max_objs,
+                                          point_range=cfg.voxelizer.point_cloud_range)
+        return PointCloudBatch(*(np.asarray(x) for x in b)), np.asarray(vel)
+
+    def trainer_of(cfg):
+        if isinstance(cfg, mcp.CenterPointConfig):
+            return CenterPointTrainer(cfg, device=dev)
+        return Trainer(cfg, TrainConfig(), device=dev)
+
+    def host_plan(tr, b, vel):
+        args = (b.points, b.points_mask, b.gt_boxes, b.gt_labels, b.gt_mask)
+        return tr.make_plan_builder()(*args, *(() if vel is None else (vel,)))
+
+    def card_plan(cfg, b, vel):
+        """The plan the inline step builds, on the card (the anchor
+        assignment left to the loss, as the inline step leaves it)."""
+        p, m = torch.as_tensor(b.points, device=dev), torch.as_tensor(b.points_mask, device=dev)
+        if isinstance(cfg, mcp.CenterPointConfig):
+            return mcp.build_centerpoint_plan(p, m, cfg, b.gt_boxes, b.gt_labels, b.gt_mask, vel)
+        if isinstance(cfg, mpp.PointPillarsConfig):
+            return mpp.build_pillar_plan(p, m, cfg)
+        return mvn.build_plan(p, m, cfg.voxelizer)
+
+    def step(tr, b, vel, plan):
+        return tr.train_step(b, VR_EPOCH, plan, **({} if vel is None else {"gt_vel": vel}))
+
+    def grads_of(tr):
+        return {k: p.grad.detach().clone() for k, p in tr.model.named_parameters()}
+
+    families = {"second": (mvn.VoxelNetConfig(), kitti),
+                "pointpillars": (mpp.PointPillarsConfig(), kitti),
+                "centerpoint": (mcp.CenterPointConfig(), nus)}
+
+    # (a) the compact adversary, each family
+    compact = {}
+    for fam, (cfg, frames) in families.items():
+        b, vel = frames(cfg)
+        res = compact[fam] = {"points": int(b.points_mask.sum()),
+                              "rows_compact": b.points.shape[0] * b.points.shape[1]}
+        # float32: compact vs padded from one state on one host plan
+        cfg32 = cfg._replace(compute_dtype="float32")
+        perturber.PERT_BF16 = False
+        tr = trainer_of(cfg32)
+        tr.init_state(seed)
+        sd = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        plan = host_plan(tr, b, vel)
+        res["rows_padded"] = int(np.prod(plan["point_mask"].shape))
+        res["kept"] = int(plan["point_mask"].sum())
+        got = {}
+        for form in (False, True):
+            mvn.COMPACT_PERT = form
+            tr.init_state(state_dict=sd)
+            logs = {k: float(v) for k, v in step(tr, b, vel, plan).items()}
+            g = grads_of(tr)
+            tr.model.load_state_dict(sd)
+            out = _heads(tr.forward_eval(plan, attack=True, batch=b))
+            got[form] = (logs, g, out)
+        mvn.COMPACT_PERT = False
+        perturber.PERT_BF16 = True
+        (l0, g0, o0), (l1, g1, o1) = got[False], got[True]
+        log_gap = max(abs(l1[k] - l0[k]) / max(abs(l0[k]), 1e-6) for k in l0)
+        grad_gap = _grad_gap(g1, g0)
+        out_gap = max(_out_gap(x, y) for x, y in zip(o1, o0))
+        res.update(float32_log_gap=log_gap, log_tol=VR_LOG_RTOL, float32_grad_gap=grad_gap,
+                   grad_tol=VR_GRAD_RTOL,
+                   float32_attack_out_gap=out_gap, out_tol=E2E_F32_RTOL)
+        if not (log_gap <= VR_LOG_RTOL and grad_gap["entry"] <= VR_GRAD_RTOL
+                and grad_gap["norm"] <= VR_GRAD_RTOL
+                and out_gap <= E2E_F32_RTOL) or l1["perturbation_l2_norm"] <= 0:
+            problems.append(f"phase 16 (a) {fam}: compact vs padded in float32: {res}")
+        del tr, got, g0, g1
+
+        # bf16, the main path: the adversary stage alone, then steps in turns
+        tr = trainer_of(cfg)
+        tr.init_state(seed)
+        sd = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        plan_t = mvn.plan_to_device(host_plan(tr, b, vel), dev)
+        pts = torch.as_tensor(b.points, dtype=torch.float32, device=dev)
+        adv = tr.model.adversary
+        tr.model.train()
+        bn_rows = []
+        hooks = [m.register_forward_pre_hook(lambda m, a: bn_rows.append(int(a[0].shape[0])))
+                 for m in adv.modules() if isinstance(m, MaskedBatchNorm)]
+        gout = torch.randn(plan_t["voxels"].shape, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+        params = [p for p in adv.parameters()]
+
+        def stage():
+            out, aux = mvn.apply_voxel_adversary(adv, pts, plan_t["voxels"], plan_t, False,
+                                                 VR_EPOCH, cfg.adversary_start_epoch, -1.0)
+            loss = (out * gout).sum() + sum(aux.values())
+            return torch.autograd.grad(loss, params, allow_unused=True)
+
+        for form in (False, True):
+            mvn.COMPACT_PERT = form
+            tag = "compact" if form else "padded"
+            zero_counts()
+            bn_rows.clear()
+            stage()
+            torch.cuda.synchronize()
+            k2 = {}
+            for (k, c), n in KERNEL_LAUNCHES.items():
+                k2[f"{k}@{c}"] = n
+            res[f"{tag}_stage_k2_launches"] = k2
+            res[f"{tag}_stage_bn_rows"] = sorted(set(bn_rows))
+            res[f"{tag}_stage_ms"] = cuda_ms(stage, iters=VR_STAGE_ITERS, warmup=1)
+            res[f"{tag}_stage_device_ms"] = device_ms(stage, VR_STAGE_ITERS)
+        for h in hooks:
+            h.remove()
+        rows_want = {False: res["rows_padded"], True: res["rows_compact"]}
+        for form, tag in ((False, "padded"), (True, "compact")):
+            if res[f"{tag}_stage_bn_rows"] != [rows_want[form]]:
+                problems.append(f"phase 16 (a) {fam} {tag}: the adversary's BNs ran at rows "
+                                   f"{res[f'{tag}_stage_bn_rows']}, expected {rows_want[form]}")
+        # train steps in turns: padded, compact, compact, padded
+        times = {False: [], True: []}
+        for form in (False, True, True, False):
+            mvn.COMPACT_PERT = form
+            for _ in range(VR_TURN_STEPS):
+                _, ms_, _ = _timed(lambda: {k: float(v) for k, v in step(tr, b, vel, plan_t)
+                                            .items()}, False)
+                times[form].append(ms_)
+        res["padded_step_ms"] = statistics.median(times[False])
+        res["compact_step_ms"] = statistics.median(times[True])
+        # one compact train step's K2 launches at the compact row count: the
+        # adversary stage's, where no other BN of the family runs at those rows
+        mvn.COMPACT_PERT = True
+        zero_counts()
+        step(tr, b, vel, plan_t)
+        torch.cuda.synchronize()
+        at_rows = {}
+        for (k, c, n), cnt in KERNEL_ROW_LAUNCHES.items():
+            if n == res["rows_compact"]:
+                at_rows[f"{k}@{c}"] = cnt
+        mvn.COMPACT_PERT = False
+        res["compact_step_k2_launches_at_rows"] = at_rows
+        if fam == "pointpillars" and at_rows != res["compact_stage_k2_launches"]:
+            problems.append(f"phase 16 (a) {fam}: the compact step's K2 launches at "
+                            f"{res['rows_compact']} rows {at_rows} are not the adversary "
+                            f"stage's {res['compact_stage_k2_launches']}")
+        # plan-fed compact vs inline compact from one state: bit for bit
+        mvn.COMPACT_PERT = True
+        cplan = card_plan(cfg, b, vel)
+        out = []
+        for plan_in in (cplan, None, None):
+            tr.init_state(state_dict=sd)
+            logs = step(tr, b, vel, plan_in)
+            out.append((logs, grads_of(tr), {k: v.clone() for k, v in
+                                             tr.model.state_dict().items()}))
+        mvn.COMPACT_PERT = False
+        res["inline_repeat_bitwise"] = outputs_equal(out[1], out[2])
+        res["plan_fed_vs_inline_bitwise"] = outputs_equal(out[0], out[1])
+        if not res["plan_fed_vs_inline_bitwise"]:
+            problems.append(f"phase 16 (a) {fam}: the plan-fed compact step is not bit-equal "
+                               f"to the inline compact step (inline repeat bit-equal: "
+                               f"{res['inline_repeat_bitwise']})")
+        expect_bf16_kernels(f"phase 16 {fam} compact")
+        print(f"phase 16 (a) {fam} compact adversary: " + json.dumps(res) + f" [{card}]",
+              flush=True)
+        del tr, out, plan_t, cplan
+
+    # the pillar adversary's K2 at the compact rows (a real kept-point count)
+    pp_cfg = families["pointpillars"][0]
+    n_c = compact["pointpillars"]["rows_compact"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    x4 = torch.randn(n_c, 4, device=dev, generator=gen) * 3 + 1
+    keep = torch.rand(n_c, device=dev, generator=gen) < (
+        compact["pointpillars"]["kept"] / n_c)
+    pp_stats = stats_case(torch, x4, keep, None)
+    widths = list(pp_cfg.adversary["hidden_channels"])
+    widths = widths + widths[-2::-1]
+    pp_bn = []
+    for c in sorted(set(widths)):
+        x = (torch.randn(n_c, c, device=dev, generator=gen) * 3 + 1).to(torch.bfloat16)
+        w = 0.5 + torch.rand(c, device=dev, generator=gen)
+        bb = torch.randn(c, device=dev, generator=gen)
+        rm = torch.randn(c, device=dev, generator=gen)
+        rv = 0.5 + torch.rand(c, device=dev, generator=gen)
+        g = torch.randn(n_c, c, device=dev, generator=gen).to(torch.bfloat16)
+        pp_bn += bn_case(torch, "pillar adversary compact", widths.count(c), x, keep, w, bb, rm,
+                         rv, g, True, True, False, None)
+    for r in (pp_stats, *pp_bn):
+        print("phase 16 (a) pointpillars compact K2 " + json.dumps(r) + f" [{card}]", flush=True)
+
+    # (b) the JAX package's gather-form densify, which the port holds by
+    # tests and does not run (ops/sparse.py): SECOND's conv_out rows
+    # (RPC_DENSE_GATHER) and the pillar BEV (JAX's plan-fed default),
+    # replayed here beside the port's scatter on the same rows
+    second_cfg = families["second"][0]
+    sb, _ = kitti(second_cfg)
+    pb, _ = kitti(pp_cfg)
+    st = card_plan(second_cfg, sb, None)["enc"]["out"]
+    shape = (IN_BATCH,) + tuple(second_cfg.voxelizer.sparse_shape)
+    for i in range(1, 4):
+        shape = sparse_encoder._down_shape(shape, *sparse_encoder._down_geom(4, i))
+    shape = sparse_encoder._down_shape(shape, *sparse_encoder._OUT_GEOM)
+    pplan = card_plan(pp_cfg, pb, None)
+    nx, ny, _ = pp_cfg.voxelizer.grid_size
+    dens = {}
+    for name, grid, c in (
+            ("second conv_out", sparse.SparseGrid(st["ids"], st["coords"], st["mask"], shape), 128),
+            ("pillar BEV", sparse.SparseGrid(pplan["grid_ids"], pplan["grid_coords"],
+                                             pplan["grid_mask"], (IN_BATCH, ny, nx)),
+             pp_cfg.pfn_channels)):
+        n = grid.flat_ids.shape[0]
+        size = int(np.prod(grid.spatial_shape))
+        # JAX's dense_gather_map: each cell's row (n where empty); each row's cell
+        pos = torch.where(grid.mask, grid.flat_ids.long(), torch.full_like(grid.flat_ids.long(),
+                                                                           size))
+        dmap = torch.full((size + 1,), n, dtype=torch.long, device=dev)
+        dmap[pos] = torch.arange(n, device=dev)
+        dmap = dmap[:size]
+        f = torch.randn(n, c, device=dev, generator=gen).to(torch.bfloat16)
+        g = torch.randn(grid.spatial_shape + (c,), device=dev, generator=gen).to(torch.bfloat16)
+        zero = f.new_zeros((1, c))
+
+        def gather_fwd(x):
+            return torch.cat([x, zero]).index_select(0, dmap).reshape(g.shape)
+
+        def gather_bwd(gg):
+            return torch.cat([gg.reshape(size, c), zero]).index_select(0, pos)
+
+        def scatter_fwd_bwd():
+            xx = f.detach().requires_grad_(True)
+            return torch.autograd.grad(sparse.scatter_to_dense(xx, grid), xx, g)
+
+        y_s = sparse.scatter_to_dense(f, grid)
+        (dx_s,) = scatter_fwd_bwd()
+        ok = torch.equal(y_s, gather_fwd(f)) and torch.equal(dx_s, gather_bwd(g))
+        dens[name] = {"rows": n, "c": c, "cells": size, "bitwise": ok,
+                      "scatter_fwd_device_ms": device_ms(lambda: sparse.scatter_to_dense(f, grid),
+                                                         10),
+                      "gather_fwd_device_ms": device_ms(lambda: gather_fwd(f), 10),
+                      "scatter_fwd_bwd_device_ms": device_ms(scatter_fwd_bwd, 10),
+                      "gather_fwd_bwd_device_ms": device_ms(lambda: (gather_fwd(f), gather_bwd(g)),
+                                                            10)}
+        if not ok:
+            problems.append(f"phase 16 (b) {name}: the gather form differs from the scatter")
+        print(f"phase 16 (b) densify {name}, the port's scatter vs JAX's gather form: "
+              + json.dumps(dens[name]) + f" [{card}]", flush=True)
+        del dmap, pos, f, g, y_s, dx_s
+
+    # (c) K2's bfloat16-read mode at every bf16 BN shape of a SECOND step and the PFN's
+    def f32_read(a, m, w, b_, r1, r2, train, relu, row_mask, dt):
+        return masked_batch_norm(a, m, w, b_, r1, r2, train, 0.1, relu=relu, row_mask=row_mask,
+                                 out_dtype=dt)
+    lowp_rows = []
+    for name, n, c, count in BN_TRAIN_SHAPES + [("pfn", PP_BATCH * 16000 * 32, 64, 1)]:
+        x = (torch.randn(n, c, device=dev, generator=gen) * 3 + 1).to(torch.bfloat16)
+        mask = torch.rand(n, device=dev, generator=gen) > 0.75
+        w = 0.5 + torch.rand(c, device=dev, generator=gen)
+        bb = torch.randn(c, device=dev, generator=gen)
+        rm = torch.randn(c, device=dev, generator=gen)
+        rv = 0.5 + torch.rand(c, device=dev, generator=gen)
+        g = torch.randn(n, c, device=dev, generator=gen).to(torch.bfloat16)
+        lowp_rows += bn_case(torch, name, count if name != "pfn" else 0, x, mask, w, bb, rm, rv,
+                             g, True, True, name == "encoder", f32_read,
+                             momentum=0.01 if name == "pfn" else 0.1, lowp=True)
+        del x, mask, g
+    for r in lowp_rows:
+        print("phase 16 (c) masked_batch_norm lowp " + json.dumps(r) + f" [{card}]", flush=True)
+    lowp_tot = {k: bn_step_total(lowp_rows, k) for k in ("masked_batch_norm",
+                                                          "masked_batch_norm_bwd")}
+    for k, tot in lowp_tot.items():
+        print(f"phase 16 (c) {k} lowp over the 17 BNs of a train step: {tot['ms']:.4f} ms "
+              f"(device {_fmt(tot['device_ms'])}), the float32-read mode on the same inputs "
+              f"{tot['prev_ms']:.4f} ms (device {_fmt(tot['prev_device_ms'])}), bound "
+              f"{tot['bound_ms']:.4f} ms [{card}]", flush=True)
+    # a full-width SECOND step with the mode on against the float32-read step
+    tr = Trainer(second_cfg, TrainConfig(), device=dev)
+    tr.init_state(seed)
+    sd = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    splan_h = host_plan(tr, sb, None)
+    got = {}
+    for mode in (False, True):
+        layers.BN_BF16_STATS = mode
+        tr.init_state(state_dict=sd)
+        zero_counts()
+        logs = {k: float(v) for k, v in step(tr, sb, None, splan_h).items()}
+        launches = {}
+        for (k, c), n in KERNEL_LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + n
+        got[mode] = (logs, grads_of(tr), launches)
+    layers.BN_BF16_STATS = False
+    (l0, g0, _), (l1, g1, lowp_launches) = got[False], got[True]
+    want = {k: v for k, v in VR_LOWP_LAUNCHES.items() if v}
+    if lowp_launches != want:
+        problems.append(f"phase 16 (c) lowp step K2 launches {lowp_launches}, expected {want}")
+    flat0 = torch.cat([v.float().reshape(-1) for v in g0.values()])
+    flat1 = torch.cat([g1[k].float().reshape(-1) for k in g0])
+    lowp_gap = {"loss_gap": abs(l1["loss"] - l0["loss"]) / abs(l0["loss"]),
+                "loss_tol": VR_LOWP_LOSS_RTOL,
+                "log_gap": max(abs(l1[k] - l0[k]) / max(abs(l0[k]), 1e-6) for k in l0),
+                "grad_cos": float(torch.nn.functional.cosine_similarity(flat0, flat1, dim=0)),
+                "grad_cos_min": VR_LOWP_COS,
+                "grad_norm_ratio": float(flat1.norm() / flat0.norm()),
+                "grad_gap": _grad_gap(g1, g0),
+                "finite": bool(np.isfinite(list(l1.values())).all()),
+                "loss": [l1["loss"], l0["loss"]], "launches": lowp_launches}
+    if not (lowp_gap["finite"] and lowp_gap["loss_gap"] <= VR_LOWP_LOSS_RTOL
+            and lowp_gap["grad_cos"] >= VR_LOWP_COS):
+        problems.append(f"phase 16 (c) lowp step: {lowp_gap}")
+    print("phase 16 (c) full-width SECOND step, bfloat16-read mode vs float32 read (same state "
+          "and plan): " + json.dumps(lowp_gap) + f" [{card}]", flush=True)
+    del got, g0, g1
+
+    # (d) the JAX package's FPN depth-to-space (RPC_FPN_D2S), which the port
+    # holds by tests and does not run (nn/second.py): its stride-2 deblock
+    # replayed beside the port's ConvTranspose2d on the bf16 SECOND neck's input
+    tr.init_state(state_dict=sd)
+    tr.model.eval()
+    plan_t = mvn.plan_to_device(splan_h, dev)
+    feats = {}
+    neck_in = tr.model.neck.register_forward_pre_hook(
+        lambda m, a: feats.__setitem__("x", tuple(t.detach() for t in a[0])))
+    with torch.no_grad():
+        tr.model(None, None, False, 100, False, -1.0, plan_t)
+        neck_in.remove()
+        deblock = tr.model.neck.deblocks[1][0]
+        s_ = deblock.stride[0]
+        x2 = feats["x"][1].to(tr.model.neck.dtype)
+        w2 = deblock.weight.to(x2.dtype)
+
+        def d2s():  # JAX's _DeconvD2S on the port's weight layout (no flip)
+            b_, cin, h, w_ = x2.shape
+            cout = w2.shape[1]
+            k2 = w2.permute(0, 2, 3, 1).reshape(cin, s_ * s_ * cout)
+            y = torch.matmul(x2.permute(0, 2, 3, 1), k2).reshape(b_, h, w_, s_, s_, cout)
+            return y.permute(0, 5, 1, 3, 2, 4).reshape(b_, cout, h * s_, w_ * s_)
+
+        ref = deblock(x2)
+        d2s_gap = (d2s().float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+        d2s_res = {"deblock_in": list(x2.shape), "out_gap": d2s_gap, "tol": SPARSE_CONV_RTOL,
+                   "deblock_device_ms_conv_transpose": device_ms(lambda: deblock(x2), 10),
+                   "deblock_device_ms_d2s": device_ms(d2s, 10),
+                   "neck_device_ms": device_ms(lambda: tr.model.neck(feats["x"]), 10)}
+    if not d2s_gap <= SPARSE_CONV_RTOL:
+        problems.append(f"phase 16 (d) FPN D2S: {d2s_res}")
+    print("phase 16 (d) SECOND bf16 stride-2 deblock, the port's ConvTranspose2d vs JAX's "
+          "depth-to-space: " + json.dumps(d2s_res) + f" [{card}]", flush=True)
+    del tr, plan_t, feats, x2
+
+    # (e) tools/diag_centerpoint_nan through its entry point, adversary on and off
+    diag = {}
+    for noadv in ("0", "1"):
+        os.environ.update(DIAG_STEPS=str(VR_DIAG_STEPS), DIAG_NOADV=noadv)
+        try:
+            recs = diag_centerpoint_nan.main([])
+        finally:
+            for k in ("DIAG_STEPS", "DIAG_NOADV"):
+                os.environ.pop(k, None)
+        if len(recs) != VR_DIAG_STEPS or any(set(r) != {
+                "step", "loss", "nonfinite_grad_leaves", "n_nonfinite", "is_nan_flag",
+                "top_grad_mag"} for r in recs):
+            problems.append(f"phase 16 (e) diag_centerpoint_nan DIAG_NOADV={noadv}: {recs}")
+        diag[noadv] = [r["n_nonfinite"] for r in recs]
+    print(f"phase 16 (e) diag_centerpoint_nan at DIAG_STEPS={VR_DIAG_STEPS}: non-finite "
+          f"gradient leaves a step, adversary on {diag['0']}, off {diag['1']} [{card}]",
+          flush=True)
+
+    # the gates through the environment: a child process that sets all four
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", _VR_CHILD, REPO, str(seed), str(VR_CHILD_STEPS)],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, **VR_CHILD_ENV))
+    child = None
+    if proc.returncode != 0:
+        problems.append(f"phase 16 env child failed:\n{proc.stdout[-3000:]}\n"
+                        f"{proc.stderr[-3000:]}")
+    else:
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+    n_fwd = VR_CHILD_STEPS + 1  # the steps' forwards and the attack request
+    ok = child is not None and (
+        all(child["gates"].values()) and child["attack_finite"]
+        and child["calls"]["adversary_rows"] == [IN_BATCH * IN_POINTS] * n_fwd
+        and all(s["finite"] and s["launches"] == {k: v for k, v in VR_LOWP_LAUNCHES.items() if v}
+                for s in child["steps"]))
+    if not ok:
+        problems.append(f"phase 16 env child: {child}")
+    print(f"phase 16 env child ({' '.join(f'{k}={v}' for k, v in VR_CHILD_ENV.items())}): "
+          + json.dumps(child) + f", {time.time() - t0:.1f} s [{card}]", flush=True)
+    print(f"phase 16: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+    if problems:
+        raise RuntimeError("phase 16 failed: " + " | ".join(problems))
+
+    k2_src = "robustpointclouds_tpu_torch/csrc/masked_stats.cu"
+    k2_tpu = "robustpointclouds_tpu/kernels/masked_stats.py"
+
+    def row(name, line, n_launches, r, prev_is):
+        out = {"name": name, "route": "cuda", "source": k2_src, "replaces": f"{k2_tpu}:{line}",
+               "launches": n_launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
+               "library_ms": r.get("library_ms")}
+        if r.get("prev_ms") is not None:
+            out.update(prev_ms=r["prev_ms"], prev_device_ms=r["prev_device_ms"], prev=prev_is)
+        return out
+    f32_read_prev = "the float32-read mode on the same inputs"
+    # launches from one compact PointPillars train step, at the compact rows
+    pp_step = compact["pointpillars"]["compact_step_k2_launches_at_rows"]
+    rows += [
+        row("masked_batch_norm_lowp", 63, lowp_launches["apply_kernel_lowp"],
+            lowp_tot["masked_batch_norm"], f32_read_prev),
+        row("masked_batch_norm_bwd_lowp", 102, lowp_launches["dx_kernel"],
+            lowp_tot["masked_batch_norm_bwd"], f32_read_prev),
+        dict(row("masked_stats_compact_pillars", 113, pp_step.get("stats_kernel@4", 0),
+                 pp_stats, None), shape=[n_c, 4]),
+        dict(row("masked_batch_norm_compact_pillars", 63,
+                 sum(v for k, v in pp_step.items() if k.startswith("apply_kernel")),
+                 bn_step_total(pp_bn, "masked_batch_norm"), None), rows=n_c),
+        dict(row("masked_batch_norm_bwd_compact_pillars", 102,
+                 sum(v for k, v in pp_step.items() if k.startswith("dx_kernel")),
+                 bn_step_total(pp_bn, "masked_batch_norm_bwd"), None), rows=n_c),
+    ]
+    return rows
+
+
 def bn_step_total(rows, kernel):
     """One train step's sum over its 17 MaskedBatchNorms (count x each
     shape); a device time that one shape did not measure leaves the sum not
@@ -4494,7 +5161,7 @@ def main() -> int:
     from robustpointclouds_tpu_torch.kernels.gather import (
         gather_elems, gather_onehot, gather_row_loop, gather_rows)
     from robustpointclouds_tpu_torch.kernels.masked_stats import (
-        KERNEL_LAUNCHES, masked_batch_norm, masked_batch_norm_bwd, masked_stats,
+        KERNEL_LAUNCHES, KERNEL_ROW_LAUNCHES, masked_batch_norm, masked_batch_norm_bwd, masked_stats,
         masked_stats_bwd)
     from robustpointclouds_tpu_torch.kernels.sparse_conv import (
         sparse_conv, sparse_conv_dgrad, sparse_conv_wgrad)
@@ -4521,6 +5188,7 @@ def main() -> int:
         for fn in (*counters.values(), *gather_counters.values()):
             fn.launches = 0
         KERNEL_LAUNCHES.clear()
+        KERNEL_ROW_LAUNCHES.clear()
         for fn in conv_counters.values():
             fn.tf32_launches = 0
         masked_batch_norm_bwd.reduce_launches = 0
@@ -5030,6 +5698,9 @@ def main() -> int:
     # ---- phase 15: the convergence run, the plain-block CenterPoint encoder, --amp
     p15 = run_convergence(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels)
 
+    # ---- phase 16: the JAX package's env-gated variants
+    vr_rows = run_variants(dev, card, args.seed, zero_counts, read_counts, expect_bf16_kernels)
+
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
     tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
@@ -5111,6 +5782,7 @@ def main() -> int:
     kernels.extend(cp_rows)
     kernels.extend(pp_rows)
     kernels.extend(st_rows)
+    kernels.extend(vr_rows)
     for row in (*kernels, *(r["scale"] for r in kernels if "scale" in r)):
         for key in ("device_ms", "prev_device_ms"):
             if key in row and row[key] is None:  # the profiles did not hold their set

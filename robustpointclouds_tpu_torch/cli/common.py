@@ -560,7 +560,7 @@ def run_evaluation(trainer: Trainer, batches, attack: bool = False,
             # runs clean (the perturbation is already in the input)
             outs = trainer.forward_eval(attack_fn(batch, plan), attack=False)
         else:
-            outs = trainer.forward_eval(plan, attack=attack)
+            outs = trainer.forward_eval(plan, attack=attack, batch=batch)
         with torch.no_grad():
             dets = anchor_head_predict(outs.cls_scores, outs.bbox_preds, outs.dir_preds,
                                        trainer.anchors, cfg.head)

@@ -183,7 +183,7 @@ def evaluate_centerpoint(trainer, batches, attack: bool = False,
         t0 = time.perf_counter()
         plan = plan_builder(batch.points, batch.points_mask)
         t1 = time.perf_counter()
-        outs = trainer.forward_eval(plan, attack=attack)
+        outs = trainer.forward_eval(plan, attack=attack, batch=batch)
         with torch.no_grad():
             boxes, scores, labels, mask = (t.cpu().numpy() for t in
                                            centerpoint_decode(outs.task_preds, head))

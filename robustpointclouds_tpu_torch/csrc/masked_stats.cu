@@ -8,7 +8,7 @@
 // MaskedBatchNorm (robustpointclouds_tpu/nn/layers.py:45; the port's
 // nn/layers.py), ReLU and the row mask of SparseConvBlock.
 //
-// Five kernels, each one launch of one ctypes call (kernels/masked_stats.py):
+// Five kernels, each launch one ctypes call (kernels/masked_stats.py):
 //  * stats_kernel: (mean, biased var, count) over the rows where mask is set.
 //    Each thread keeps (count, mean, M2) of its channels in registers, merging
 //    each batch of rows into it with Chan's formula; the block merges its
@@ -23,14 +23,24 @@
 //    and count, updates the running statistics in place when asked (as
 //    nn/layers.py does: momentum m, the biased var, rm * (1 - m) + m * mean
 //    with each product and the sum rounded once), and resets the ticket.
+//    Its bfloat16-read mode (the JAX package's RPC_BN_BF16_STATS, nn/layers.py
+//    :68-94) is two launches of it (PASS 1, 2): the first sums x over the
+//    valid rows in float32, mean = sum / max(count, 1); the second sums
+//    bf16(d * d), d = bf16(x - bf16(mean)), var = sum / max(count, 1), and
+//    updates the running statistics. The variance is centred on the rounded
+//    mean, which Chan's one-pass merge cannot give, hence the second pass.
 //  * apply_kernel: y = ((x - mean) * rsqrt(var + eps)) * gamma + beta in
 //    float32, in the order of the eager composition, with no FMA contraction,
-//    then ReLU and the row mask when asked, stored in the output's type.
+//    then ReLU and the row mask when asked, stored in the output's type. In
+//    the bfloat16-read mode (LOWP, bfloat16 x): a = bf16(r * gamma), b =
+//    bf16(beta - mean * r * gamma), y = bf16(bf16(x * a) + b), as JAX's
+//    lowp path rounds them.
 //  * bwd_reduce_kernel: recomputes xhat and y from x (no activation is
-//    saved), gates g_eff = g * [y > 0] * [row kept] and sums over all rows
+//    saved; in the bfloat16-read mode, LOWP, the ReLU gate reads the y that
+//    mode's forward rounded), gates g_eff = g * [y > 0] * [row kept] and sums over all rows
 //    S1 = sum g_eff (d beta) and S2 = sum g_eff * xhat (d gamma), with the
 //    stats kernel's ticketed, fixed-order last-block merge.
-//  * dx_kernel: train mode dx = gamma r (g_eff - m (S1 + xhat S2) / n),
+//  * dx_kernel (the same gate): train mode dx = gamma r (g_eff - m (S1 + xhat S2) / n),
 //    r = rsqrt(var + eps), n = max(count, 1) (rows with m = 0 get
 //    gamma r g_eff); eval mode dx = gamma r g_eff. dx in x's type.
 //  * vjp_kernel: the statistics' own VJP, dx = m (g_mean + 2 g_var (x - mean))
@@ -54,7 +64,7 @@
 // blocks (a whole batch of rows a thread), so fewer partials to merge.
 //
 // Contract: x [N, C] row-major, N >= 1, C a power of two in [4, 256], float32
-// or bfloat16; mask [N] bytes 0/1; statistics, parameters and running
+// or bfloat16 (the bfloat16-read mode: bfloat16 only); mask [N] bytes 0/1; statistics, parameters and running
 // statistics float32. The workspace and ticket belong to one (device,
 // stream): the port runs on one stream, so two reductions never share them
 // at once, and each leaves the ticket at 0 for the next. Every entry point
@@ -64,6 +74,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -155,6 +167,11 @@ __device__ __forceinline__ void zero(float (&v)[VEC]) {
   for (int j = 0; j < VEC; ++j) v[j] = 0.0f;
 }
 
+// v rounded to the nearest bfloat16 (even on ties), as a float32
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // ---- the row walk: thread (slot, lane) owns channels lane*VEC.. of rows
 // slot + k * step (step = gridDim.x * rows a block). U rows are loaded before
 // any is used, the last ones too: load(u, row, in) sees rows past the end
@@ -216,6 +233,13 @@ struct Affine {
   }
   __device__ __forceinline__ float y(float xh, int j) const {
     return __fadd_rn(__fmul_rn(xh, ga[j]), be[j]);
+  }
+  // the bfloat16-read mode's y of x: bf16(bf16(x * a) + b), a = bf16(r gamma)
+  // and b = bf16(beta - mean r gamma) (loop invariants the compiler hoists)
+  __device__ __forceinline__ float lowp_y(float x, int j) const {
+    const float sa = bf16_round(__fmul_rn(r[j], ga[j]));
+    const float sb = bf16_round(__fsub_rn(be[j], __fmul_rn(__fmul_rn(mu[j], r[j]), ga[j])));
+    return bf16_round(__fadd_rn(bf16_round(__fmul_rn(x, sa)), sb));
   }
 };
 
@@ -300,16 +324,50 @@ __device__ __forceinline__ void slice_tree(float* s, int c) {
 
 // ---- 1. statistics
 
-template <typename T, int VEC>
+// The bfloat16-read mode's per-row accumulation: PASS 1 adds x, PASS 2 the
+// rounded square bf16(d * d) of d = bf16(x - mub), mub the bf16 mean, each
+// over the rows held in registers that the mask keeps, into plain float32
+// sums (`sum`, and the thread's row count n)
+template <int PASS, int U, int VEC>
+__device__ __forceinline__ void sum_rows(float& n, float (&sum)[VEC], const float (&v)[U][VEC],
+                                         const bool (&m)[U], const float (&mub)[VEC]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (!m[u]) continue;
+    n += 1.0f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if constexpr (PASS == 1) {
+        sum[j] += v[u][j];
+      } else {
+        const float d = bf16_round(__fsub_rn(v[u][j], mub[j]));
+        sum[j] += bf16_round(__fmul_rn(d, d));
+      }
+    }
+  }
+}
+
+// PASS 0: Chan's one-pass (mean, var, count). PASS 1 and 2, the bfloat16-read
+// mode's two launches: the float32 sum of x (mean = sum / max(count, 1), and
+// the count), then of bf16(d * d) about the bf16 mean that PASS 1 left in
+// out[0, C) (var = sum / max(count, 1), and the running statistics). One
+// walk, block merge, ticket and last-block merge serve all three: the
+// passes' thread and block partials are plain sums where PASS 0 keeps
+// means, and they skip PASS 0's M2 stages.
+template <typename T, int VEC, int PASS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask, float* __restrict__ out,
              float* __restrict__ ws, unsigned int* __restrict__ ticket,
              float* __restrict__ running_mean, float* __restrict__ running_var, float momentum,
              float keep, int64_t n_rows, int c) {
+  constexpr bool kChan = PASS == 0;
   const Layout l = layout<VEC>(c);
-  float n = 0.0f, mean[VEC], m2[VEC];
+  // mean: PASS 0's running mean, the passes' running sum
+  float n = 0.0f, mean[VEC], m2[VEC], mub[VEC];
   zero(mean);
   zero(m2);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) mub[j] = PASS == 2 ? bf16_round(out[l.lane * VEC + j]) : 0.0f;
   for (int64_t row = l.row0; row < n_rows; row += kStatsUnroll * l.step) {
     float v[kStatsUnroll][VEC];
     bool m[kStatsUnroll];
@@ -322,12 +380,16 @@ stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask, float* _
       else
         zero(v[u]);
     }
-    merge_rows(n, mean, m2, v, m);
+    if constexpr (kChan)
+      merge_rows(n, mean, m2, v, m);
+    else
+      sum_rows<PASS>(n, mean, v, m, mub);
   }
 
   // the block: Chan's k-way form over its threads, as sums in a fixed order:
   // first the count and the count-weighted means, then the M2s plus
-  // n_t (mean_t - mean)^2 about the block's mean
+  // n_t (mean_t - mean)^2 about the block's mean (the passes: the count and
+  // the sums)
   __shared__ float s_cnt[kWarps];
   __shared__ float s_sum[kWarps][kMaxC];
   __shared__ float s_mu[kMaxC];
@@ -335,7 +397,7 @@ stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask, float* _
   float t[VEC];
   const float cw = warp_rows_sum(n, l.lanes);  // every channel group counts the same rows
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) t[j] = warp_rows_sum(n * mean[j], l.lanes);
+  for (int j = 0; j < VEC; ++j) t[j] = warp_rows_sum(kChan ? n * mean[j] : mean[j], l.lanes);
   if (wl < l.lanes) {
     if (wl == 0) s_cnt[warp] = cw;
 #pragma unroll
@@ -347,32 +409,36 @@ stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask, float* _
   if (threadIdx.x < c) {
     float sum = 0.0f;
     for (int w = 0; w < kWarps; ++w) sum += s_sum[w][threadIdx.x];
-    s_mu[threadIdx.x] = n_blk > 0.0f ? sum / n_blk : 0.0f;
+    s_mu[threadIdx.x] = !kChan ? sum : n_blk > 0.0f ? sum / n_blk : 0.0f;
   }
   __syncthreads();
+  if constexpr (kChan) {
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    const float d = mean[j] - s_mu[l.lane * VEC + j];
-    t[j] = warp_rows_sum(m2[j] + n * d * d, l.lanes);
-  }
-  if (wl < l.lanes) {
+    for (int j = 0; j < VEC; ++j) {
+      const float d = mean[j] - s_mu[l.lane * VEC + j];
+      t[j] = warp_rows_sum(m2[j] + n * d * d, l.lanes);
+    }
+    if (wl < l.lanes) {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) s_sum[warp][wl * VEC + j] = t[j];
+      for (int j = 0; j < VEC; ++j) s_sum[warp][wl * VEC + j] = t[j];
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const int stride = 2 * c + 1;  // a partial: count, mean [C], M2 [C]
+  const int stride = 2 * c + 1;  // a partial: count, mean (the passes: sum) [C], M2 [C]
   if (threadIdx.x < c) {
-    float q = 0.0f;
-    for (int w = 0; w < kWarps; ++w) q += s_sum[w][threadIdx.x];
     float* p = ws + static_cast<int64_t>(blockIdx.x) * stride;
     if (threadIdx.x == 0) p[0] = n_blk;
     p[1 + threadIdx.x] = s_mu[threadIdx.x];
-    p[1 + c + threadIdx.x] = q;
+    if constexpr (kChan) {
+      float q = 0.0f;
+      for (int w = 0; w < kWarps; ++w) q += s_sum[w][threadIdx.x];
+      p[1 + c + threadIdx.x] = q;
+    }
   }
   if (!last_block(ticket)) return;
 
-  // the last block: Chan's k-way merge of the partials, block order within
-  // each slice, slices summed by a fixed tree
+  // the last block: Chan's k-way merge of the partials (the passes: their
+  // sums), block order within each slice, slices summed by a fixed tree
   __shared__ float s_a[kThreads];
   __shared__ float s_b[kThreads];
   const int ch = threadIdx.x % c, sl = threadIdx.x / c, slices = kThreads / c;
@@ -390,7 +456,7 @@ stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask, float* _
 #pragma unroll
     for (int i = 0; i < kMerge; ++i) {
       cnt += nb[i];
-      sum = fmaf(nb[i], mb[i], sum);
+      sum = kChan ? fmaf(nb[i], mb[i], sum) : sum + mb[i];
     }
   }
   s_a[threadIdx.x] = cnt;
@@ -398,34 +464,39 @@ stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask, float* _
   slice_tree(s_a, c);
   slice_tree(s_b, c);
   const float total = s_a[ch];
-  const float mu = s_b[ch] / fmaxf(total, 1.0f);
-  __syncthreads();
-  float q = 0.0f;
-  for (int b0 = sl; b0 < nb_blocks; b0 += kMerge * slices) {
-    float nb[kMerge], mb[kMerge], qb[kMerge];
+  const float mu = s_b[ch] / fmaxf(total, 1.0f);  // PASS 2: the variance
+  float var = mu;
+  if constexpr (kChan) {
+    __syncthreads();
+    float q = 0.0f;
+    for (int b0 = sl; b0 < nb_blocks; b0 += kMerge * slices) {
+      float nb[kMerge], mb[kMerge], qb[kMerge];
 #pragma unroll
-    for (int i = 0; i < kMerge; ++i) {
-      const int b = b0 + i * slices;
-      const float* p = ws + static_cast<int64_t>(b) * stride;
-      nb[i] = b < nb_blocks ? __ldcg(p) : 0.0f;
-      mb[i] = b < nb_blocks ? __ldcg(p + 1 + ch) : mu;
-      qb[i] = b < nb_blocks ? __ldcg(p + 1 + c + ch) : 0.0f;
-    }
+      for (int i = 0; i < kMerge; ++i) {
+        const int b = b0 + i * slices;
+        const float* p = ws + static_cast<int64_t>(b) * stride;
+        nb[i] = b < nb_blocks ? __ldcg(p) : 0.0f;
+        mb[i] = b < nb_blocks ? __ldcg(p + 1 + ch) : mu;
+        qb[i] = b < nb_blocks ? __ldcg(p + 1 + c + ch) : 0.0f;
+      }
 #pragma unroll
-    for (int i = 0; i < kMerge; ++i) {
-      const float d = mb[i] - mu;
-      q += qb[i] + nb[i] * d * d;
+      for (int i = 0; i < kMerge; ++i) {
+        const float d = mb[i] - mu;
+        q += qb[i] + nb[i] * d * d;
+      }
     }
+    s_a[threadIdx.x] = q;
+    slice_tree(s_a, c);
+    var = total > 0.0f ? s_a[ch] / total : 0.0f;
   }
-  s_a[threadIdx.x] = q;
-  slice_tree(s_a, c);
   if (sl == 0) {
-    const float var = total > 0.0f ? s_a[ch] / total : 0.0f;
-    out[ch] = mu;
-    out[c + ch] = var;
-    if (ch == 0) out[2 * c] = total;
-    if (running_mean != nullptr) {
-      running_mean[ch] = __fadd_rn(__fmul_rn(running_mean[ch], keep), __fmul_rn(momentum, mu));
+    const float mean_out = PASS == 2 ? out[ch] : mu;
+    if (PASS != 2) out[ch] = mu;
+    if (PASS != 1) out[c + ch] = var;
+    if (ch == 0 && PASS != 2) out[2 * c] = total;
+    if (PASS != 1 && running_mean != nullptr) {
+      running_mean[ch] =
+          __fadd_rn(__fmul_rn(running_mean[ch], keep), __fmul_rn(momentum, mean_out));
       running_var[ch] = __fadd_rn(__fmul_rn(running_var[ch], keep), __fmul_rn(momentum, var));
     }
   }
@@ -434,7 +505,7 @@ stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask, float* _
 
 // ---- 2. normalise + affine (+ ReLU, + row mask)
 
-template <typename Tin, typename Tout, int VEC>
+template <typename Tin, typename Tout, int VEC, bool LOWP>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 apply_kernel(const Tin* __restrict__ x, const uint8_t* __restrict__ mask,
              const float* __restrict__ mean, const float* __restrict__ var,
@@ -454,7 +525,7 @@ apply_kernel(const Tin* __restrict__ x, const uint8_t* __restrict__ mask,
         float o[VEC];
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          float t = a.y(a.xhat(v[u][j], j), j);
+          float t = LOWP ? a.lowp_y(v[u][j], j) : a.y(a.xhat(v[u][j], j), j);
           if (relu && t < 0.0f) t = 0.0f;  // a NaN stays NaN, as torch.relu keeps it
           o[j] = m[u] ? t : 0.0f;
         }
@@ -464,7 +535,7 @@ apply_kernel(const Tin* __restrict__ x, const uint8_t* __restrict__ mask,
 
 // ---- 3. the backward's two per-channel sums
 
-template <typename Tin, typename Tg, int VEC>
+template <typename Tin, typename Tg, int VEC, bool LOWP>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 bwd_reduce_kernel(const Tin* __restrict__ x, const Tg* __restrict__ g,
                   const uint8_t* __restrict__ mask, const float* __restrict__ mean,
@@ -494,7 +565,8 @@ bwd_reduce_kernel(const Tin* __restrict__ x, const Tg* __restrict__ g,
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           const float xh = a.xhat(v[u][j], j);
-          const float ge = gate(gv[u][j], a.y(xh, j), relu, false);
+          const float ge =
+              gate(gv[u][j], LOWP ? a.lowp_y(v[u][j], j) : a.y(xh, j), relu, false);
           s1[j] += ge;
           s2[j] = fmaf(ge, xh, s2[j]);
         }
@@ -564,7 +636,7 @@ bwd_reduce_kernel(const Tin* __restrict__ x, const Tg* __restrict__ g,
 
 // ---- 4. dx
 
-template <typename Tin, typename Tg, int VEC>
+template <typename Tin, typename Tg, int VEC, bool LOWP>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dx_kernel(const Tin* __restrict__ x, const Tg* __restrict__ g, const uint8_t* __restrict__ mask,
           const float* __restrict__ mean, const float* __restrict__ var,
@@ -602,7 +674,8 @@ dx_kernel(const Tin* __restrict__ x, const Tg* __restrict__ g, const uint8_t* __
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           const float xh = a.xhat(v[u][j], j);
-          float t = gate(gv[u][j], a.y(xh, j), relu, row_mask && !m[u]);
+          float t = gate(gv[u][j], LOWP ? a.lowp_y(v[u][j], j) : a.y(xh, j), relu,
+                         row_mask && !m[u]);
           if (train && m[u]) t = t - (c1[j] + xh * c2[j]);
           o[j] = k[j] * t;
         }
@@ -697,48 +770,87 @@ extern "C" {
 
 // out [2C + 1]: mean, var, count. ws: blocks * (2C + 1) floats; ticket 0 on
 // entry (and on exit). running_mean / running_var may be null (no update).
+// pass: 0 the statistics in one launch; 1 then 2 the bfloat16-read mode's
+// two launches (bfloat16 x only; 2 reads the mean that 1 wrote to out).
 int rpc_masked_stats(const void* x, const uint8_t* mask, float* out, float* ws,
                      unsigned int* ticket, float* running_mean, float* running_var,
                      float momentum, float keep, int64_t n_rows, int c, int dtype, int vec,
-                     int blocks, void* stream) {
-  if (bad_shape(n_rows, c, dtype, vec, blocks) || (running_mean == nullptr) != (running_var == nullptr))
+                     int blocks, int pass, void* stream) {
+  if (bad_shape(n_rows, c, dtype, vec, blocks) || (running_mean == nullptr) != (running_var == nullptr)
+      || pass < 0 || pass > 2 || (pass != 0 && dtype != 1))
     return static_cast<int>(invalid());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RPC_STATS_LAUNCH(P)                                                             \
+  stats_kernel<Tin, VEC, P><<<blocks, kThreads, 0, s>>>(                              \
+      static_cast<const Tin*>(x), mask, out, ws, ticket, running_mean, running_var, \
+      momentum, keep, n_rows, c)
   IN_CASES(dtype, vec,
-           stats_kernel<Tin, VEC><<<blocks, kThreads, 0, s>>>(
-               static_cast<const Tin*>(x), mask, out, ws, ticket, running_mean, running_var,
-               momentum, keep, n_rows, c))
+           if constexpr (std::is_same<Tin, __nv_bfloat16>::value) {
+             if (pass == 1)
+               RPC_STATS_LAUNCH(1);
+             else if (pass == 2)
+               RPC_STATS_LAUNCH(2);
+             else
+               RPC_STATS_LAUNCH(0);
+           } else {
+             RPC_STATS_LAUNCH(0);
+           })
+#undef RPC_STATS_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
-// y [N, C] in out_dtype.
+// y [N, C] in out_dtype. lowp: the bfloat16-read mode's rounding (bfloat16 x
+// only).
 int rpc_masked_bn_apply(const void* x, const uint8_t* mask, const float* mean, const float* var,
                         const float* gamma, const float* beta, void* y, int64_t n_rows, int c,
                         float eps, int dtype, int out_dtype, int vec, int relu, int row_mask,
-                        int blocks, void* stream) {
-  if (bad_shape(n_rows, c, dtype, vec, blocks)) return static_cast<int>(invalid());
+                        int blocks, int lowp, void* stream) {
+  if (bad_shape(n_rows, c, dtype, vec, blocks) || (lowp != 0 && dtype != 1))
+    return static_cast<int>(invalid());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RPC_APPLY_LAUNCH(L)                                             \
+  apply_kernel<Tin, To, VEC, L><<<blocks, kThreads, 0, s>>>(            \
+      static_cast<const Tin*>(x), mask, mean, var, gamma, beta,         \
+      static_cast<To*>(y), n_rows, c, eps, relu, row_mask)
   IN_CASES(dtype, vec,
            OUT_CASES(out_dtype,
-                     apply_kernel<Tin, To, VEC><<<blocks, kThreads, 0, s>>>(
-                         static_cast<const Tin*>(x), mask, mean, var, gamma, beta,
-                         static_cast<To*>(y), n_rows, c, eps, relu, row_mask)))
+                     if constexpr (std::is_same<Tin, __nv_bfloat16>::value) {
+                       if (lowp)
+                         RPC_APPLY_LAUNCH(true);
+                       else
+                         RPC_APPLY_LAUNCH(false);
+                     } else {
+                       RPC_APPLY_LAUNCH(false);
+                     }))
+#undef RPC_APPLY_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
 // out [2C]: S1 (d beta), S2 (d gamma). g [N, C] in g_dtype; ws: blocks * 2C.
+// lowp: the bfloat16-read mode's ReLU gate (bfloat16 x only).
 int rpc_masked_bn_bwd_reduce(const void* x, const void* g, const uint8_t* mask, const float* mean,
                              const float* var, const float* gamma, const float* beta, float* out,
                              float* ws, unsigned int* ticket, int64_t n_rows, int c, float eps,
                              int dtype, int g_dtype, int vec, int relu, int row_mask, int blocks,
-                             void* stream) {
-  if (bad_shape(n_rows, c, dtype, vec, blocks)) return static_cast<int>(invalid());
+                             int lowp, void* stream) {
+  if (bad_shape(n_rows, c, dtype, vec, blocks) || (lowp != 0 && dtype != 1))
+    return static_cast<int>(invalid());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RPC_REDUCE_LAUNCH(L)                                                          \
+  bwd_reduce_kernel<Tin, To, VEC, L><<<blocks, kThreads, 0, s>>>(                     \
+      static_cast<const Tin*>(x), static_cast<const To*>(g), mask, mean, var, gamma, \
+      beta, out, ws, ticket, n_rows, c, eps, relu, row_mask)
   IN_CASES(dtype, vec,
            OUT_CASES(g_dtype,
-                     bwd_reduce_kernel<Tin, To, VEC><<<blocks, kThreads, 0, s>>>(
-                         static_cast<const Tin*>(x), static_cast<const To*>(g), mask, mean, var,
-                         gamma, beta, out, ws, ticket, n_rows, c, eps, relu, row_mask)))
+                     if constexpr (std::is_same<Tin, __nv_bfloat16>::value) {
+                       if (lowp)
+                         RPC_REDUCE_LAUNCH(true);
+                       else
+                         RPC_REDUCE_LAUNCH(false);
+                     } else {
+                       RPC_REDUCE_LAUNCH(false);
+                     }))
+#undef RPC_REDUCE_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -748,16 +860,26 @@ int rpc_masked_bn_dx(const void* x, const void* g, const uint8_t* mask, const fl
                      const float* var, const float* count, const float* gamma, const float* beta,
                      const float* sums, void* dx, int64_t n_rows, int c, float eps, int dtype,
                      int g_dtype, int vec, int relu, int row_mask, int train, int blocks,
-                     void* stream) {
-  if (bad_shape(n_rows, c, dtype, vec, blocks) || (train && (count == nullptr || sums == nullptr)))
+                     int lowp, void* stream) {
+  if (bad_shape(n_rows, c, dtype, vec, blocks) || (train && (count == nullptr || sums == nullptr))
+      || (lowp != 0 && dtype != 1))
     return static_cast<int>(invalid());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RPC_DX_LAUNCH(L)                                                                     \
+  dx_kernel<Tin, To, VEC, L><<<blocks, kThreads, 0, s>>>(                                   \
+      static_cast<const Tin*>(x), static_cast<const To*>(g), mask, mean, var, count, gamma, \
+      beta, sums, static_cast<Tin*>(dx), n_rows, c, eps, relu, row_mask, train)
   IN_CASES(dtype, vec,
            OUT_CASES(g_dtype,
-                     dx_kernel<Tin, To, VEC><<<blocks, kThreads, 0, s>>>(
-                         static_cast<const Tin*>(x), static_cast<const To*>(g), mask, mean, var,
-                         count, gamma, beta, sums, static_cast<Tin*>(dx), n_rows, c, eps, relu,
-                         row_mask, train)))
+                     if constexpr (std::is_same<Tin, __nv_bfloat16>::value) {
+                       if (lowp)
+                         RPC_DX_LAUNCH(true);
+                       else
+                         RPC_DX_LAUNCH(false);
+                     } else {
+                       RPC_DX_LAUNCH(false);
+                     }))
+#undef RPC_DX_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

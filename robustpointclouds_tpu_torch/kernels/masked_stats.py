@@ -36,8 +36,25 @@ and drops the pad columns of the result. The statistics are per channel,
 so the padding is exact. Each wrapper counts its
 launches (`.launches`); `masked_batch_norm_bwd.reduce_launches` counts the
 backward calls that ran `bwd_reduce`; `KERNEL_LAUNCHES` counts every launch
-of the five kernels by (kernel, C), C the width the kernel ran at. The launch plan (`row_plan`) is plain
+of the five kernels by (kernel, C), C the width the kernel ran at, and
+`KERNEL_ROW_LAUNCHES` by (kernel, C, N), N its rows. The launch plan (`row_plan`) is plain
 Python, checked on the CPU.
+
+The bfloat16-read mode (`lowp=True`, the JAX package's RPC_BN_BF16_STATS,
+robustpointclouds_tpu/nn/layers.py:68-94; bfloat16 x only) rounds as JAX's
+lowp path does: mean = sum(x) / max(cnt, 1) summed in float32; d = bf16(x -
+bf16(mean)); var = sum(bf16(d * d)) / max(cnt, 1); then a = bf16(r gamma),
+b = bf16(beta - mean r gamma) and y = bf16(bf16(x a) + b). On the card the
+statistics are two launches of the statistics kernel (the variance is
+centred on the rounded mean, so it needs its own pass over x) and the
+apply kernel takes the mode as a flag; the plain versions are
+`masked_stats_lowp_ref` and `bn_apply_ref(..., lowp=True)`. The backward is
+the analytic one above on the lowp statistics (tests/test_torch_bn_bf16_stats.py
+holds it to JAX's autodiff of the lowp path at a bfloat16 tolerance), with
+one change: its ReLU gate reads the y the lowp forward rounded, not the
+float32 y, as JAX's autodiff gates on the y it computed (on the float32 y a
+gate at a y within bfloat16 rounding of 0 flips, and moved single dx
+entries by up to 63% of dx's largest, measured on the CPU at C = 64).
 
 The apply kernel is the operator `rpc::masked_bn_apply` (torch.library),
 whose CPU version is `bn_apply_ref`: torch.export records it as one node
@@ -67,6 +84,12 @@ _BLOCKS_PER_SM = 2  # csrc kMinBlocks: every grid is one wave of resident blocks
 _REDUCE_ROWS = 8  # rows a reduction's thread takes at least (csrc kStatsUnroll)
 _VEC4_MAX_C = 128  # float32 rows up to this width load one float4 a thread (csrc kVec4MaxC)
 KERNEL_LAUNCHES: Counter = Counter()  # (kernel name in csrc, C) -> launches
+KERNEL_ROW_LAUNCHES: Counter = Counter()  # (kernel name in csrc, C, N) -> launches
+
+
+def _count(kernel: str, c: int, n: int, launches: int = 1) -> None:
+    KERNEL_LAUNCHES[kernel, c] += launches
+    KERNEL_ROW_LAUNCHES[kernel, c, n] += launches
 
 
 class RowPlan(NamedTuple):
@@ -125,12 +148,31 @@ def masked_stats_bwd_ref(x: torch.Tensor, mask: torch.Tensor, mean: torch.Tensor
     return (m * d / torch.clamp(cnt, min=1.0)).to(x.dtype)
 
 
-def _bn_stats_ref(x, mask, running_mean, running_var, training, momentum):
+def masked_stats_lowp_ref(x: torch.Tensor, mask: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the bfloat16-read statistics (bfloat16 x):
+    the float32 sum of x over the valid rows / max(cnt, 1), then the
+    float32 sum of bf16(d * d), d = bf16(x - bf16(mean)), / max(cnt, 1)."""
+    m = mask[:, None].to(x.dtype)
+    cnt = mask.to(torch.float32).sum()
+    safe = torch.clamp(cnt, min=1.0)
+    mean = (x * m).sum(0, dtype=torch.float32) / safe
+    d = x - mean.to(x.dtype)
+    var = (d * d * m).sum(0, dtype=torch.float32) / safe
+    return mean, var, cnt
+
+
+def _check_lowp(name: str, x: torch.Tensor, lowp: bool) -> None:
+    if lowp and x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the bfloat16-read mode takes bfloat16 x, got {x.dtype}")
+
+
+def _bn_stats_ref(x, mask, running_mean, running_var, training, momentum, lowp=False):
     """(mean, var, count or None) a BN normalises with: the batch's, with the
     running statistics updated in place, in training; the running ones in eval."""
     if not training:
         return running_mean, running_var, None
-    mu, var, cnt = masked_stats_ref(x, mask)
+    mu, var, cnt = masked_stats_lowp_ref(x, mask) if lowp else masked_stats_ref(x, mask)
     with torch.no_grad():
         running_mean.mul_(1.0 - momentum).add_(momentum * mu)
         running_var.mul_(1.0 - momentum).add_(momentum * var)
@@ -139,11 +181,19 @@ def _bn_stats_ref(x, mask, running_mean, running_var, training, momentum):
 
 def bn_apply_ref(x: torch.Tensor, mask: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                  weight: torch.Tensor, bias: torch.Tensor, eps: float, relu: bool,
-                 row_mask: bool, out_dtype: torch.dtype) -> torch.Tensor:
+                 row_mask: bool, out_dtype: torch.dtype, lowp: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the apply kernel: normalise with the given
-    statistics, affine, cast, ReLU, row mask (differentiable by autograd)."""
-    y = (x.float() - mean) * torch.rsqrt(var + eps)
-    y = (y * weight + bias).to(out_dtype)
+    statistics, affine, cast, ReLU, row mask (differentiable by autograd).
+    `lowp`: the bfloat16-read mode's y = x * a + b in x's type, a and b the
+    per-channel scale and shift rounded to it."""
+    if lowp:
+        r = torch.rsqrt(var + eps)
+        a = (r * weight).to(x.dtype)
+        b = (bias - mean * r * weight).to(x.dtype)
+        y = (x * a + b).to(out_dtype)
+    else:
+        y = (x.float() - mean) * torch.rsqrt(var + eps)
+        y = (y * weight + bias).to(out_dtype)
     if relu:
         y = torch.relu(y)
     if row_mask:
@@ -152,35 +202,42 @@ def bn_apply_ref(x: torch.Tensor, mask: torch.Tensor, mean: torch.Tensor, var: t
 
 
 def _bn_ref(x, mask, weight, bias, running_mean, running_var, training, momentum, eps, relu,
-            row_mask, out_dtype):
+            row_mask, out_dtype, lowp=False):
     """masked_batch_norm_ref and the statistics it normalised with."""
-    mu, var, cnt = _bn_stats_ref(x, mask, running_mean, running_var, training, momentum)
-    return bn_apply_ref(x, mask, mu, var, weight, bias, eps, relu, row_mask, out_dtype), mu, var, cnt
+    mu, var, cnt = _bn_stats_ref(x, mask, running_mean, running_var, training, momentum, lowp)
+    return (bn_apply_ref(x, mask, mu, var, weight, bias, eps, relu, row_mask, out_dtype, lowp),
+            mu, var, cnt)
 
 
 def masked_batch_norm_ref(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
                           bias: torch.Tensor, running_mean: torch.Tensor,
                           running_var: torch.Tensor, training: bool, momentum: float = 0.1,
                           eps: float = 1e-3, relu: bool = False, row_mask: bool = False,
-                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                          out_dtype: Optional[torch.dtype] = None,
+                          lowp: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the fused forward (differentiable by autograd);
     updates the running statistics in place in training."""
+    _check_lowp("masked_batch_norm", x, lowp)
     return _bn_ref(x, mask, weight, bias, running_mean, running_var, training, momentum, eps,
-                   relu, row_mask, out_dtype or x.dtype)[0]
+                   relu, row_mask, out_dtype or x.dtype, lowp)[0]
 
 
 def masked_batch_norm_bwd_ref(g: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                               weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
                               var: torch.Tensor, cnt: Optional[torch.Tensor], eps: float,
-                              training: bool, relu: bool = False, row_mask: bool = False
+                              training: bool, relu: bool = False, row_mask: bool = False,
+                              lowp: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the analytic backward: (dx in x's dtype,
-    d gamma, d beta); mean/var are the statistics the forward normalised with."""
+    d gamma, d beta); mean/var are the statistics the forward normalised with.
+    `lowp`: the ReLU gate reads the bfloat16-read mode's y."""
     r = torch.rsqrt(var + eps)
     xh = (x.float() - mean) * r
     ge = g.float()
     if relu:  # a NaN y passes, as torch.relu's backward lets it
-        ge = ge.masked_fill(xh * weight + bias <= 0, 0.0)
+        y = (bn_apply_ref(x, mask, mean, var, weight, bias, eps, False, False, x.dtype, True)
+             if lowp else xh * weight + bias)
+        ge = ge.masked_fill(y <= 0, 0.0)
     if row_mask:
         ge = torch.where(mask[:, None], ge, torch.zeros_like(ge))
     s1 = ge.sum(0)
@@ -202,11 +259,11 @@ def bind(lib: ctypes.CDLL) -> Dict[str, object]:
     """The five entry points of a build of csrc/masked_stats.cu, typed."""
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     args = {  # pointers and the stream must not pass as 32-bit ints
-        "rpc_masked_stats": [p, p, p, p, p, p, p, f, f, i64, i, i, i, i, p],
-        "rpc_masked_bn_apply": [p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i, i, p],
+        "rpc_masked_stats": [p, p, p, p, p, p, p, f, f, i64, i, i, i, i, i, p],
+        "rpc_masked_bn_apply": [p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i, i, i, p],
         "rpc_masked_bn_bwd_reduce": [p, p, p, p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i,
-                                     i, p],
-        "rpc_masked_bn_dx": [p, p, p, p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i, i, i, p],
+                                     i, i, p],
+        "rpc_masked_bn_dx": [p, p, p, p, p, p, p, p, p, p, i64, i, f, i, i, i, i, i, i, i, i, p],
         "rpc_masked_stats_vjp": [p, p, p, p, p, p, p, i64, i, i, i, i, p],
     }
     fns = {}
@@ -283,18 +340,21 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch_stats(name: str, x: torch.Tensor, mask: torch.Tensor, stream: int,
                   running_mean: Optional[torch.Tensor] = None,
-                  running_var: Optional[torch.Tensor] = None, momentum: float = 0.1):
-    """One launch of the statistics kernel on checked inputs: (mean, var,
-    count), views of one [2C + 1] buffer."""
+                  running_var: Optional[torch.Tensor] = None, momentum: float = 0.1,
+                  lowp: bool = False):
+    """The statistics kernel on checked inputs: (mean, var, count), views of
+    one [2C + 1] buffer. One launch; the bfloat16-read mode (`lowp`) two,
+    its passes 1 and 2."""
     n, c = x.shape
     plan = row_plan(n, c, x.dtype, reduce=True)
     out = torch.empty(2 * c + 1, dtype=torch.float32, device=x.device)
     ws, ticket = _workspace(x.device, stream, plan.workspace_floats)
-    _rc(name, _fn("rpc_masked_stats")(
-        x.data_ptr(), mask.data_ptr(), out.data_ptr(), ws, ticket, _ptr(running_mean),
-        _ptr(running_var), momentum, 1.0 - momentum, n, c, _DTYPE_CODES[x.dtype], plan.vec,
-        plan.blocks, stream))
-    KERNEL_LAUNCHES["stats_kernel", c] += 1
+    for pass_ in ((1, 2) if lowp else (0,)):
+        _rc(name, _fn("rpc_masked_stats")(
+            x.data_ptr(), mask.data_ptr(), out.data_ptr(), ws, ticket, _ptr(running_mean),
+            _ptr(running_var), momentum, 1.0 - momentum, n, c, _DTYPE_CODES[x.dtype], plan.vec,
+            plan.blocks, pass_, stream))
+    _count("stats_kernel_lowp" if lowp else "stats_kernel", c, n, 2 if lowp else 1)
     return out[:c], out[c:2 * c], out[2 * c]
 
 
@@ -366,7 +426,7 @@ def _launch_stats_vjp(x, mask, mean, cnt, g_mean, g_var) -> torch.Tensor:
         x.data_ptr(), mask.data_ptr(), mean.data_ptr(), cnt.data_ptr(), _ptr(g_mean),
         _ptr(g_var), dx.data_ptr(), n, c, _DTYPE_CODES[x.dtype], plan.vec, plan.blocks,
         _stream(x.device)))
-    KERNEL_LAUNCHES["vjp_kernel", c] += 1
+    _count("vjp_kernel", c, n)
     return dx
 
 
@@ -400,22 +460,29 @@ def masked_stats(x: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, tor
 # Registered through torch.library's low-level API, as rpc::sparse_conv_fwd
 # is (kernels/sparse_conv.py says why): it runs only with gradients off
 # (MaskedBatchNormFunction.forward, or a call that needs none).
+# `lowp` (the bfloat16-read mode) comes last with a default, so artifacts
+# exported before it existed, whose nodes do not name it, still load.
 torch.library.define("rpc::masked_bn_apply",
                      "(Tensor x, Tensor mask, Tensor mean, Tensor var, Tensor weight, Tensor bias, "
-                     "float eps, bool relu, bool row_mask, ScalarType out_dtype) -> Tensor")
+                     "float eps, bool relu, bool row_mask, ScalarType out_dtype, "
+                     "bool lowp=False) -> Tensor")
 
 
-def _masked_bn_apply_cpu(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype):
+def _masked_bn_apply_cpu(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype,
+                         lowp=False):
     # looked up per call: a wrapper of it counts
-    return bn_apply_ref(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype)
+    _check_lowp("masked_batch_norm", x, lowp)
+    return bn_apply_ref(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype, lowp)
 
 
-def _masked_bn_apply_cuda(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype):
+def _masked_bn_apply_cuda(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype,
+                          lowp=False):
     # checks, the stream and the counts live here: a traced call reaches only
     # the fake below, so it launches and counts nothing
     name = "masked_batch_norm"
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: output dtype {out_dtype} is not float32/bfloat16")
+    _check_lowp(name, x, lowp)
     _check_rows(name, x, mask)
     n, c = x.shape
     _check_channels(name, c, x.device, mean, var, weight, bias)
@@ -424,13 +491,14 @@ def _masked_bn_apply_cuda(x, mask, mean, var, weight, bias, eps, relu, row_mask,
     _rc(name, _fn("rpc_masked_bn_apply")(
         x.data_ptr(), mask.data_ptr(), mean.data_ptr(), var.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), y.data_ptr(), n, c, eps, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
-        plan.vec, int(relu), int(row_mask), plan.blocks, _stream(x.device)))
-    KERNEL_LAUNCHES["apply_kernel", c] += 1
+        plan.vec, int(relu), int(row_mask), plan.blocks, int(lowp), _stream(x.device)))
+    _count("apply_kernel_lowp" if lowp else "apply_kernel", c, n)
     masked_batch_norm.launches += 1
     return y
 
 
-def _masked_bn_apply_fake(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype):
+def _masked_bn_apply_fake(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype,
+                          lowp=False):
     return x.new_empty(x.shape, dtype=out_dtype)
 
 
@@ -446,20 +514,27 @@ masked_bn_apply = torch.ops.rpc.masked_bn_apply.default
 
 
 def _bn_forward(x, mask, weight, bias, running_mean, running_var, training, momentum, eps, relu,
-                row_mask, out_dtype):
+                row_mask, out_dtype, lowp=False):
     """(y, mean, var, count or None): the train mode's batch statistics or the
     eval mode's running ones, as the backward needs them. Eval mode touches
-    no data pointer outside the apply operator, so it traces."""
+    no data pointer outside the apply operator, so it traces. `lowp`: the
+    bfloat16-read mode (statistics and apply; the apply operator refuses it
+    on float32 x)."""
     if x.device.type == "cpu":
-        mean, var, cnt = _bn_stats_ref(x, mask, running_mean, running_var, training, momentum)
+        mean, var, cnt = _bn_stats_ref(x, mask, running_mean, running_var, training, momentum,
+                                       lowp)
     elif training:
         _check_rows("masked_batch_norm", x, mask)
         _check_channels("masked_batch_norm", x.shape[1], x.device, running_mean, running_var)
         mean, var, cnt = _launch_stats("masked_batch_norm", x, mask, _stream(x.device),
-                                       running_mean, running_var, momentum)
+                                       running_mean, running_var, momentum, lowp)
     else:
         mean, var, cnt = running_mean, running_var, None
-    y = masked_bn_apply(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype)
+    if lowp:
+        y = masked_bn_apply(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype,
+                            True)
+    else:  # the node an artifact exported before the mode existed holds
+        y = masked_bn_apply(x, mask, mean, var, weight, bias, eps, relu, row_mask, out_dtype)
     return y, mean, var, cnt
 
 
@@ -467,14 +542,16 @@ def masked_batch_norm_bwd(g: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                           weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
                           var: torch.Tensor, cnt: Optional[torch.Tensor], eps: float,
                           training: bool, relu: bool = False, row_mask: bool = False,
-                          need_dx: bool = True, need_params: bool = True):
+                          need_dx: bool = True, need_params: bool = True, lowp: bool = False):
     """(dx or None, d gamma or None, d beta or None) of the fused forward.
 
     `bwd_reduce` runs when the parameters need their gradient or train-mode
-    dx needs the sums; `dx` when x needs its gradient."""
+    dx needs the sums; `dx` when x needs its gradient. `lowp`: the forward
+    ran the bfloat16-read mode, whose y the ReLU gate reads."""
+    _check_lowp("masked_batch_norm_bwd", x, lowp)
     if x.device.type == "cpu":
         dx, dw, db = masked_batch_norm_bwd_ref(g, x, mask, weight, bias, mean, var, cnt, eps,
-                                               training, relu, row_mask)
+                                               training, relu, row_mask, lowp)
         return (dx if need_dx else None,) + ((dw, db) if need_params else (None, None))
     n, c = x.shape
     g = g.contiguous()
@@ -494,8 +571,8 @@ def masked_batch_norm_bwd(g: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
             x.data_ptr(), g.data_ptr(), mask.data_ptr(), mean.data_ptr(), var.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), sums.data_ptr(), ws, ticket, n, c, eps,
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[g.dtype], plan.vec, int(relu), int(row_mask),
-            plan.blocks, stream))
-        KERNEL_LAUNCHES["bwd_reduce_kernel", c] += 1
+            plan.blocks, int(lowp), stream))
+        _count("bwd_reduce_kernel", c, n)
         masked_batch_norm_bwd.reduce_launches += 1
         if need_params:
             db, dw = sums[:c], sums[c:]
@@ -506,8 +583,8 @@ def masked_batch_norm_bwd(g: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
             x.data_ptr(), g.data_ptr(), mask.data_ptr(), mean.data_ptr(), var.data_ptr(),
             _ptr(cnt) if training else None, weight.data_ptr(), bias.data_ptr(), _ptr(sums),
             dx.data_ptr(), n, c, eps, _DTYPE_CODES[x.dtype], _DTYPE_CODES[g.dtype], plan.vec,
-            int(relu), int(row_mask), int(training), plan.blocks, stream))
-        KERNEL_LAUNCHES["dx_kernel", c] += 1
+            int(relu), int(row_mask), int(training), plan.blocks, int(lowp), stream))
+        _count("dx_kernel", c, n)
     masked_batch_norm_bwd.launches += 1
     return dx, dw, db
 
@@ -517,43 +594,45 @@ class MaskedBatchNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mask, weight, bias, running, training, momentum, eps, relu, row_mask,
-                out_dtype):
+                out_dtype, lowp):
         # running: the (mean, var) buffers as a tuple, which autograd does not
         # take for inputs: the statistics kernel updates them in place
         y, mean, var, cnt = _bn_forward(x, mask, weight, bias, *running, training, momentum, eps,
-                                        relu, row_mask, out_dtype)
+                                        relu, row_mask, out_dtype, lowp)
         ctx.save_for_backward(x, mask, weight, bias, mean, var, cnt)
-        ctx.cfg = (eps, training, relu, row_mask)
+        ctx.cfg = (eps, training, relu, row_mask, lowp)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, mask, weight, bias, mean, var, cnt = ctx.saved_tensors
-        eps, training, relu, row_mask = ctx.cfg
+        eps, training, relu, row_mask, lowp = ctx.cfg
         need = ctx.needs_input_grad
         dx, dw, db = masked_batch_norm_bwd(g, x, mask, weight, bias, mean, var, cnt, eps,
                                            training, relu, row_mask, need_dx=need[0],
-                                           need_params=need[2] or need[3])
-        return dx, None, dw, db, None, None, None, None, None, None, None
+                                           need_params=need[2] or need[3], lowp=lowp)
+        return dx, None, dw, db, None, None, None, None, None, None, None, None
 
 
 def masked_batch_norm(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Tensor,
                       training: bool, momentum: float = 0.1, eps: float = 1e-3,
                       relu: bool = False, row_mask: bool = False,
-                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                      out_dtype: Optional[torch.dtype] = None, lowp: bool = False) -> torch.Tensor:
     """MaskedBatchNorm of x [N, C] over the rows where mask [N] is set: batch
     statistics in training (running statistics updated in place), running
     ones in eval; then ReLU and zeroed masked rows when asked; y in
-    `out_dtype` (x's dtype by default). Differentiable in x, weight and bias;
-    a call that needs no gradient launches the kernels directly."""
+    `out_dtype` (x's dtype by default). `lowp`: the bfloat16-read mode
+    (bfloat16 x). Differentiable in x, weight and bias; a call that needs no
+    gradient launches the kernels directly."""
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
         return MaskedBatchNormFunction.apply(x, mask, weight, bias, (running_mean, running_var),
-                                             training, momentum, eps, relu, row_mask, out_dtype)
+                                             training, momentum, eps, relu, row_mask, out_dtype,
+                                             lowp)
     return _bn_forward(x, mask, weight, bias, running_mean, running_var, training, momentum, eps,
-                       relu, row_mask, out_dtype)[0]
+                       relu, row_mask, out_dtype, lowp)[0]
 
 
 for _f in (masked_stats, masked_stats_bwd, masked_batch_norm, masked_batch_norm_bwd):

@@ -35,7 +35,8 @@ from ..nn.vfe import HardSimpleVFE
 from ..ops.sparse import SparseGrid
 from ..ops.voxelize import VoxelizerConfig
 from .center_detection import CenterHeadConfig, centerpoint_targets
-from .voxelnet import _ADV_AUX_KEYS, apply_voxel_adversary, inline_inputs, sparse_plan_core
+from .voxelnet import (_ADV_AUX_KEYS, adversary_reads_points, apply_voxel_adversary,
+                       inline_inputs, sparse_plan_core)
 
 NUSCENES_CLASSES = tuple(c for task in NUSCENES_TASKS for c in task)
 
@@ -90,6 +91,8 @@ class AdversarialCenterPoint(nn.Module):
     are mmdet3d's (`pts_middle_encoder`, `pts_backbone`, `pts_neck`,
     `pts_bbox_head`)."""
 
+    reads_points = property(adversary_reads_points)
+
     def __init__(self, cfg: CenterPointConfig = CenterPointConfig()):
         super().__init__()
         self.cfg = cfg
@@ -114,10 +117,10 @@ class AdversarialCenterPoint(nn.Module):
                 adv_grad_scale: float = -1.0, plan: Dict[str, Any] = None) -> CenterPointOutputs:
         """Forward, as AdversarialVoxelNet's: `plan` the host plan
         (train/centerpoint_loop.CenterPointPlanBuilder) on the device
-        (`plan_to_device`; points and points_mask are then not read and may
-        be None), or None: built inline from points [B, P, 5] on their
-        device by `build_centerpoint_plan`. `train` sets the
-        module's mode; `attack=True` applies the adversary with its
+        (`plan_to_device`; points and points_mask may then be None; only the
+        compact adversary reads the points), or None: built inline from
+        points [B, P, 5] on their device by `build_centerpoint_plan`. `train`
+        sets the module's mode; `attack=True` applies the adversary with its
         evaluation-attack bounds; `adv_grad_scale` scales the perturbation
         delta's gradient."""
         if plan is None:
@@ -134,7 +137,7 @@ class AdversarialCenterPoint(nn.Module):
         adv_aux = {k: zero for k in _ADV_AUX_KEYS}
         if self.adversary is not None and (train or attack):
             voxels, adv_aux = apply_voxel_adversary(
-                self.adversary, voxels, point_mask, attack, epoch,
+                self.adversary, points, voxels, plan, attack, epoch,
                 self.cfg.adversary_start_epoch, adv_grad_scale)
         feats = HardSimpleVFE(voxels, point_mask)
         feats = feats.reshape(-1, feats.shape[-1])[plan["order"].long()]

@@ -6,9 +6,12 @@ host, or `build_pillar_plan` in torch ops on the points' device when
 -> (learned VoxelPerturber on the raw pillar points behind the gradient-reversal
 `grad_scale`) -> PillarFeatureNet (9 decorated features -> Linear ->
 MaskedBatchNorm + ReLU -> masked max over the pillar) -> BEV scatter
-(ops/sparse.scatter_to_dense, as SECOND's encoder output) -> SECONDBackbone
--> SECONDFPN -> Anchor3DHead. No sparse convolution: the pillar network is
-dense 2D work apart from K2 under the PFN's BatchNorm and the adversary.
+(ops/sparse.scatter_to_dense, as SECOND's encoder output; JAX's plan-fed
+forward gathers through the plan's cell -> row map `dense` instead, equal
+bit for bit and slower on the H100, ops/sparse.py says more) ->
+SECONDBackbone -> SECONDFPN -> Anchor3DHead. No sparse convolution: the
+pillar network is dense 2D work apart from K2 under the PFN's BatchNorm and
+the adversary.
 
 Geometry follows mmdet3d's pointpillars_hv_secfpn_8xb6-160e_kitti-3d-3class:
 0.16 m pillars over [0, -39.68, -3, 69.12, 39.68, 1], 32 points a pillar,
@@ -38,7 +41,8 @@ from ..ops import sparse
 from ..ops.sparse import SparseGrid, scatter_to_dense, with_batch_axis
 from ..ops.voxelize import VoxelizerConfig, voxelize_batch
 from .detection import AnchorHeadConfig
-from .voxelnet import _ADV_AUX_KEYS, ModelOutputs, apply_voxel_adversary, inline_inputs
+from .voxelnet import (_ADV_AUX_KEYS, ModelOutputs, adversary_reads_points, apply_voxel_adversary,
+                       inline_inputs)
 
 
 class PointPillarsConfig(NamedTuple):
@@ -180,6 +184,8 @@ def build_pillar_plan(points: torch.Tensor, points_mask: torch.Tensor,
 class AdversarialPointPillars(nn.Module):
     """PointPillars with the pre-encoder voxel adversary of AdversarialVoxelNet."""
 
+    reads_points = property(adversary_reads_points)
+
     def __init__(self, cfg: PointPillarsConfig = PointPillarsConfig()):
         super().__init__()
         self.cfg = cfg
@@ -208,8 +214,9 @@ class AdversarialPointPillars(nn.Module):
                 adv_grad_scale: float = -1.0, plan: Dict[str, Any] = None) -> ModelOutputs:
         """AdversarialVoxelNet's contract on a pillar plan (the host's,
         data/native_plan.build_pillar_plan_native, on the device; points and
-        points_mask are then not read and may be None), or with plan=None on
-        the plan `build_pillar_plan` builds from the points on their device."""
+        points_mask may then be None; only the compact adversary reads the
+        points), or with plan=None on the plan `build_pillar_plan` builds
+        from the points on their device."""
         if plan is None:
             points, points_mask = inline_inputs(points, points_mask, self)
             plan = build_pillar_plan(points, points_mask, self.cfg)
@@ -221,7 +228,7 @@ class AdversarialPointPillars(nn.Module):
         adv_aux = {k: zero for k in _ADV_AUX_KEYS}
         if self.adversary is not None and (train or attack):
             voxels, adv_aux = apply_voxel_adversary(
-                self.adversary, voxels, point_mask, attack, epoch,
+                self.adversary, points, voxels, plan, attack, epoch,
                 self.cfg.adversary_start_epoch, adv_grad_scale)
         feats = self.voxel_encoder(voxels, point_mask, plan["vox_coords"])  # [B, V, C]
         nx, ny, _ = self.cfg.voxelizer.grid_size

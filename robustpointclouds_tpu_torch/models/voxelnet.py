@@ -17,6 +17,7 @@ adversary's own loss terms, added to the single train scalar).
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +33,7 @@ from ..nn.sparse_encoder import SparseConv3d, SparseEncoder, encoder_plan
 from ..nn.vfe import HardSimpleVFE
 from ..ops import anchors as anchor_ops
 from ..ops.grad import grad_scale
+from ..ops import sparse
 from ..ops.sparse import SparseGrid, with_batch_axis
 from ..ops.voxelize import VoxelizerConfig, voxelize_batch
 from ..ops import assigner
@@ -98,26 +100,73 @@ class ModelOutputs(NamedTuple):
     adv_aux: Dict[str, torch.Tensor]  # perturbation loss terms (zeros if no adversary)
 
 
+# Run the voxel adversary over the compact point list instead of the padded
+# voxel slots (RPC_COMPACT_PERT, off by default, as in the JAX package):
+# B*P rows instead of B*V*T, the same numbers up to float32 reduction order.
+COMPACT_PERT = os.environ.get("RPC_COMPACT_PERT", "0") == "1"
+
+def adversary_reads_points(model: nn.Module) -> bool:
+    """Whether a plan-fed forward of a voxel-adversary model reads the
+    points beside its plan: the compact adversary (COMPACT_PERT) runs over
+    them. Each such model exposes it as its `reads_points` property."""
+    return COMPACT_PERT and model.adversary is not None
+
+
 _ADV_AUX_KEYS = ("l2_norm", "l2_percentage", "intensity_loss", "bias_loss",
                  "imbalance_loss", "max_perturbation", "mean_perturbation",
                  "std_perturbation")
 
 
-def apply_voxel_adversary(adversary: VoxelPerturber, voxels: torch.Tensor,
-                          point_mask: torch.Tensor, attack: bool, epoch: float,
-                          start_epoch: int, adv_grad_scale: float):
-    """Pre-encoder raw-voxel perturbation over the padded slots [B*V*T, F].
+def apply_voxel_adversary(adversary: VoxelPerturber, points: Optional[torch.Tensor],
+                          voxels: torch.Tensor, plan: Dict[str, Any], attack: bool,
+                          epoch: float, start_epoch: int, adv_grad_scale: float):
+    """Pre-encoder raw-voxel perturbation, shared by SECOND, CenterPoint and
+    PointPillars (the strong family perturbs its post-VFE voxel rows
+    instead, so COMPACT_PERT does not reach it).
 
     Reference semantics (adversarial_voxelnet.py:135-146): perturb the padded
     voxel features before the VFE, gated until epoch >= start (attack mode
-    bypasses the gate), deltas through gradient reversal. The JAX package's
-    compact-point variant (RPC_COMPACT_PERT, off by default) is not ported.
-    Returns (voxels, gate-scaled aux loss dict).
+    bypasses the gate), deltas through gradient reversal. By default the
+    adversary runs over the padded slots [B*V*T, F] with the plan's
+    `point_mask`. With COMPACT_PERT (RPC_COMPACT_PERT=1) it runs over the
+    compact point list points[..., :F] as [B*P, F], masked by the points
+    that survived voxelisation (`point_slot` < V*T), and the bounded deltas
+    are gathered into the slots through `slot_point` (a zero row for empty
+    slots): the surviving points are in bijection with the valid slots, so
+    the masked statistics see the same multiset of rows and the result is
+    the padded form's up to float32 reduction order. Every surviving point
+    owns one slot, so the gather's backward is a gather back through
+    `point_slot` (ops/sparse.bijective_gather), no scatter-add.
+    The compact form needs the points [B, P, >=F] the plan was built from
+    (a model's `reads_points` says so to its caller) and raises without
+    them. Returns (voxels, gate-scaled aux loss dict).
     """
     b, v, t, f = voxels.shape
     gate = 1.0 if (attack or epoch >= start_epoch) else 0.0
+    if COMPACT_PERT:
+        slot_point, point_slot = plan.get("slot_point"), plan.get("point_slot")
+        if points is None or slot_point is None or point_slot is None:
+            raise ValueError("RPC_COMPACT_PERT: the compact adversary needs the points the "
+                             "plan was built from and the plan's slot_point / point_slot")
+        points = torch.as_tensor(points, dtype=torch.float32, device=voxels.device)
+        p_cnt = points.shape[1]
+        pts = points[..., :f].reshape(b * p_cnt, f)
+        survived = (point_slot < v * t).reshape(b * p_cnt)
+        perturbed, aux = adversary(pts, survived, attack)
+        delta_pts = grad_scale(perturbed - pts, adv_grad_scale)
+        # slot -> point row (B*P: an empty slot) and point -> slot row
+        # (B*V*T: a dropped point), each offset by its frame
+        sp = slot_point.reshape(b, v * t).long()
+        ps = point_slot.long()
+        gidx = torch.where(sp < p_cnt, sp + torch.arange(b, device=sp.device)[:, None] * p_cnt,
+                           torch.full_like(sp, b * p_cnt))
+        pidx = torch.where(ps < v * t, ps + torch.arange(b, device=ps.device)[:, None] * (v * t),
+                           torch.full_like(ps, b * v * t))
+        delta = sparse.bijective_gather(delta_pts.contiguous(), gidx.reshape(-1),
+                                        pidx.reshape(-1)).reshape(b, v, t, f)
+        return voxels + gate * delta, {k: gate * val for k, val in aux.items()}
     flat = voxels.reshape(b * v * t, f)
-    perturbed, aux = adversary(flat, point_mask.reshape(b * v * t), attack)
+    perturbed, aux = adversary(flat, plan["point_mask"].reshape(b * v * t), attack)
     delta = grad_scale(perturbed.reshape(b, v, t, f) - voxels, adv_grad_scale)
     return voxels + gate * delta, {k: gate * val for k, val in aux.items()}
 
@@ -126,6 +175,8 @@ def apply_voxel_adversary(adversary: VoxelPerturber, voxels: torch.Tensor,
 @MODELS.register_module(name="VoxelNet")
 class AdversarialVoxelNet(nn.Module):
     """SECOND detector with an optional pre-encoder voxel adversary."""
+
+    reads_points = property(adversary_reads_points)
 
     def __init__(self, cfg: VoxelNetConfig = VoxelNetConfig()):
         super().__init__()
@@ -153,7 +204,8 @@ class AdversarialVoxelNet(nn.Module):
                 adv_grad_scale: float = -1.0, plan: Dict[str, Any] = None) -> ModelOutputs:
         """Forward on `plan`: the host plan of data/native_plan.build_plan_native
         on the device (`plan_to_device`), whose voxels stand for the points
-        (points/points_mask are not read and may be None), or None: the
+        (points/points_mask may be None; only the compact adversary,
+        COMPACT_PERT, reads the points), or None: the
         inline path builds it from points [B, P, >=4] / points_mask [B, P]
         on the points' device (`build_plan`).
 
@@ -163,14 +215,16 @@ class AdversarialVoxelNet(nn.Module):
         profile regardless of `train`; `adv_grad_scale` is the gradient
         reversal factor on the perturbation delta.
         """
-        plan = self._plan(points, points_mask, plan)
+        if plan is None:
+            points, points_mask = inline_inputs(points, points_mask, self)
+            plan = build_plan(points, points_mask, self.voxelizer)
         grid = self._grid(plan, train)
         voxels = plan["voxels"]
         zero = voxels.new_zeros(())
         adv_aux = {k: zero for k in _ADV_AUX_KEYS}
         if self.adversary is not None and (train or attack):
             voxels, adv_aux = apply_voxel_adversary(
-                self.adversary, voxels, plan["point_mask"], attack, epoch,
+                self.adversary, points, voxels, plan, attack, epoch,
                 self.cfg.adversary_start_epoch, adv_grad_scale,
             )
         feats = self._vfe(voxels, plan)

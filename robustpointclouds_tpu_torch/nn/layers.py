@@ -8,12 +8,21 @@ the row mask that follow it) go through the masked-stats kernels
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 from torch import nn
 
 from ..kernels.masked_stats import masked_batch_norm, masked_stats
+
+# Normalise a bfloat16 input in the bfloat16-read mode (RPC_BN_BF16_STATS,
+# off by default, as in the JAX package): the statistics summed in float32
+# over bfloat16 terms, the variance centred on the bfloat16 mean, and the
+# output x * a + b in bfloat16 with the folded scale and shift rounded to
+# it (kernels/masked_stats.py). Statistics, running statistics and
+# parameters stay float32. A float32 input is not affected.
+BN_BF16_STATS = os.environ.get("RPC_BN_BF16_STATS", "0") == "1"
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -44,4 +53,5 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         then ReLU (`relu`) and zeroed rows outside the mask (`row_mask`)."""
         return masked_batch_norm(x, mask, self.weight, self.bias, self.running_mean,
                                  self.running_var, self.training, self.momentum, self.eps,
-                                 relu=relu, row_mask=row_mask, out_dtype=out_dtype or self.dtype)
+                                 relu=relu, row_mask=row_mask, out_dtype=out_dtype or self.dtype,
+                                 lowp=BN_BF16_STATS and x.dtype == torch.bfloat16)

@@ -18,6 +18,7 @@ to one.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -31,11 +32,11 @@ from ..kernels.masked_stats import masked_stats
 from .layers import MaskedBatchNorm
 
 # Run the adversary MLP (Linear/BN/ReLU stack) in bfloat16, as the JAX
-# package does by default. Parameters, BN statistics, the bound math and the
-# regulariser losses stay float32; the perturbation deltas are bounded at
-# +-0.2 m, so bf16 on the delta is below sensor noise. Tests pin it to False
-# for float32 parity.
-PERT_BF16 = True
+# package does by default (RPC_PERT_BF16, on unless set to 0). Parameters,
+# BN statistics, the bound math and the regulariser losses stay float32;
+# the perturbation deltas are bounded at +-0.2 m, so bf16 on the delta is
+# below sensor noise. Tests pin it to False for float32 parity.
+PERT_BF16 = os.environ.get("RPC_PERT_BF16", "1") == "1"
 
 
 def _bound_profile(num_features: int, sensor_error_bound: float,

@@ -8,8 +8,12 @@ float32. Module names follow the mmdet3d state_dict (`blocks.s.j`,
 
 Padding follows the JAX package (flax 'SAME'): a stride-2 3x3 conv over an
 even extent pads 0 before and 1 after, where mmdet3d pads 1 on both sides.
-The stride-1 deblock is a 1x1 ConvTranspose2d, as mmdet3d builds it; the
-JAX package's depth-to-space variant (`_DeconvD2S`) is not ported.
+The stride-1 deblock is a 1x1 ConvTranspose2d, as mmdet3d builds it. The
+JAX package's depth-to-space form of a stride-s deblock (`_DeconvD2S`,
+RPC_FPN_D2S, off by default) sums the same products in another order; the
+port keeps ConvTranspose2d, which tests/test_torch_fpn_d2s.py holds to
+`_DeconvD2S` and which is the faster of the two on the H100 (chip_smoke.py
+phase 16 (b)).
 """
 from __future__ import annotations
 

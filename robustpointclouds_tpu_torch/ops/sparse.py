@@ -14,8 +14,10 @@ Two uses:
     sorted ids. Every scatter goes through :func:`scatter_set`: dropped
     items go to one scratch row that is sliced away, and no other target
     repeats, so no output depends on which duplicate a scatter keeps. The
-    merge-path rank variant (RPC_MP_RANKS, off by default in JAX) is not
-    ported.
+    JAX package's merge-path rank variant (RPC_MP_RANKS, off by default)
+    replaces its packed-key sort by a compare-reduce to the same ranks;
+    `searchsorted` gives them too, and tests/test_torch_k1_variants.py holds
+    the inline encoder plan bit-equal to JAX's with the flag on.
   * the conversions of the plan-fed path. The plan carries every neighbour
     relation of the encoder in one of three layouts, fixed per level as
     the native plan keeps them (data/native_plan.py): x-window
@@ -24,6 +26,14 @@ Two uses:
     serves all convs, so each layout becomes the dense forward index
     `idx [M, K]`: tap order of :func:`kernel_offsets`, miss = the input row
     count N (which reads a zero row).
+  * the densification of sparse rows into a dense grid: a scatter
+    (:func:`scatter_to_dense`) on every path. The JAX package gathers
+    through a plan-carried cell -> row map instead (its plan-fed
+    PointPillars by default, SECOND's encoder with RPC_DENSE_GATHER),
+    because the TPU serialises scatters. The two agree bit for bit
+    (tests/test_torch_pointpillars.py and tests/test_torch_dense_gather.py
+    hold the scatter to JAX's gather form), and on the H100 the gather form
+    is the slower one (chip_smoke.py phase 16 (b)), so the port scatters.
 """
 from __future__ import annotations
 
@@ -528,3 +538,31 @@ def scatter_to_dense(features: torch.Tensor, grid: SparseGrid) -> torch.Tensor:
     dense = torch.zeros((size + 1, c), dtype=features.dtype, device=features.device)
     dense.index_copy_(0, flat, features)
     return dense[:size].reshape(shape + (c,))
+
+
+class _BijectiveGather(torch.autograd.Function):
+    """out = [rows; 0][index]; d_rows = [g; 0][inverse]: each kept row feeds
+    one target and `inverse` names it, so the gradient is a gather too."""
+
+    @staticmethod
+    def forward(ctx, rows, index, inverse):
+        ctx.save_for_backward(inverse)
+        pad = torch.cat([rows, rows.new_zeros((1,) + rows.shape[1:])], 0)
+        return pad.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inverse,) = ctx.saved_tensors
+        g_pad = torch.cat([g, g.new_zeros((1,) + g.shape[1:])], 0)
+        return g_pad.index_select(0, inverse), None, None
+
+
+def bijective_gather(rows: torch.Tensor, index: torch.Tensor,
+                     inverse: torch.Tensor) -> torch.Tensor:
+    """rows [N, C] gathered into [M, C] targets through `index` [M] int64 (N:
+    the target is 0), differentiable in rows with the backward a gather
+    through `inverse` [N] int64 (each row's target, M where it has none):
+    for a map that sends each kept row to one target, equal bit for bit to
+    the scatter-add that autograd of `rows[index]` would run, without its
+    atomics (which pile up on the zero row)."""
+    return _BijectiveGather.apply(rows, index, inverse)

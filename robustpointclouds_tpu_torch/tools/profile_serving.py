@@ -71,8 +71,9 @@ def main() -> int:
         events.clear()
         mark("start")
         plan_t = plan_to_device(plan, dev)
+        pts = torch.as_tensor(b.points, device=dev) if model.reads_points else None
         mark("uploaded")
-        outs = model(None, None, False, 100, attack, -1.0, plan_t)
+        outs = model(pts, None, False, 100, attack, -1.0, plan_t)
         mark("model")
         anchor_head_predict(outs.cls_scores, outs.bbox_preds, outs.dir_preds, anchors, cfg.head)
         mark("end")

@@ -93,7 +93,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     paths = []
     for i, batch in enumerate(batches):
         outs = trainer.forward_eval(plan_builder(batch.points, batch.points_mask),
-                                    attack=args.attack)
+                                    attack=args.attack, batch=batch)
         with torch.no_grad():
             boxes, scores, _, mask = (t.cpu().numpy() for t in anchor_head_predict(
                 outs.cls_scores, outs.bbox_preds, outs.dir_preds, trainer.anchors,

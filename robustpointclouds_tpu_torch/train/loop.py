@@ -250,6 +250,9 @@ class Trainer:
 
     state_cls = TrainState  # what a checkpoint's train state is read back as
     group = None  # the data-parallel step's process group (compile_sharded)
+    # called as grad_probe(grads, is_nan) with the step's gradients before
+    # the NaN sanitation (tools/diag_centerpoint_nan reads them there)
+    grad_probe: Optional[Callable[[Dict[str, torch.Tensor], torch.Tensor], None]] = None
 
     def __init__(self, model_cfg: Union[VoxelNetConfig, PointPillarsConfig] = VoxelNetConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
@@ -356,8 +359,11 @@ class Trainer:
 
     def _points(self, batch, plan) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
         """The batch's points and mask on the device for the inline path
-        (plan None); (None, None) for a plan-fed call, which reads only the plan."""
-        if plan is not None:
+        (plan None) and for a model that reads them beside its plan
+        (`reads_points`: the compact voxel adversary, which raises if a call
+        that runs it gets none); else (None, None): a plan-fed call reads
+        only the plan."""
+        if plan is not None and (batch is None or not getattr(self.model, "reads_points", False)):
             return None, None
         if batch is None:
             raise ValueError("plan=None (the inline path) needs the batch's points")
@@ -399,6 +405,8 @@ class Trainer:
         total.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in self.model.named_parameters()}
+        if self.grad_probe is not None:
+            self.grad_probe(grads, is_nan)
         finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
         for g in grads.values():
             torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
@@ -486,7 +494,8 @@ class Trainer:
         """Inference forward on a host plan, or inline (plan=None) on the
         points of `batch`, the plan built on the device (eval-mode BN;
         `attack` applies the learned adversary with the evaluation-attack
-        bounds)."""
+        bounds). With a host plan, `batch` gives the compact adversary
+        (COMPACT_PERT) its points."""
         self.model.eval()
         plan_t = None if plan is None else plan_to_device(plan, self.device)
         return self.model(*self._points(batch, plan_t), False, 100, attack, -1.0, plan_t)

@@ -77,6 +77,10 @@ _EXPECTED = {
     # the convergence run (M16) and the dryrun_multichip counterpart
     "robustpointclouds_tpu_torch.tools.convergence_run",
     "robustpointclouds_tpu_torch.parallel.dryrun",
+    # the JAX package's env-gated variants (nn.layers: RPC_BN_BF16_STATS;
+    # nn.second, whose RPC_FPN_D2S tests hold) and the CenterPoint NaN diagnosis
+    "robustpointclouds_tpu_torch.nn.layers", "robustpointclouds_tpu_torch.nn.second",
+    "robustpointclouds_tpu_torch.tools.diag_centerpoint_nan",
 }
 
 

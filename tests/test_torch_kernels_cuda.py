@@ -997,6 +997,71 @@ def test_masked_batch_norm_matches_plain_version(cuda_device, c, dtype, train, r
     assert torch.equal(y2, y) and all(torch.equal(p, q) for p, q in zip(again, (dx, dw, db)))
 
 
+# K2's bfloat16-read mode against its plain version, at bounds that a kernel
+# which ignores the mode in either launch misses (chip_smoke.py's hold_lowp
+# says why each is what it is): the mean within LOWP_MEAN_RTOL of its
+# largest entry, each channel's variance within LOWP_VAR_RTOL of its own, a
+# bound the float32-read variance misses LOWP_VAR_SEP times over; the apply
+# on the kernel's statistics bit-equal on all but LOWP_Y_MISMATCH of y's
+# entries, where the float32-read apply differs on LOWP_Y_DIFFERS or more;
+# each entry of y within LOWP_Y_STEPS of |x a| + |b| of the plain forward's
+LOWP_MEAN_RTOL = 1e-5
+LOWP_VAR_RTOL = 2e-5
+LOWP_VAR_SEP = 10.0
+LOWP_Y_MISMATCH = 1e-3
+LOWP_Y_DIFFERS = 2e-2
+LOWP_Y_STEPS = 2.0 ** -6
+
+
+@pytest.mark.parametrize("c", masked_stats_module.WIDTHS)
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("relu,row_mask", EPILOGUES)
+def test_masked_batch_norm_lowp_matches_plain_version(cuda_device, c, train, relu, row_mask):
+    """The bfloat16-read mode (RPC_BN_BF16_STATS): the statistics' two
+    passes, the apply with the mode's rounding, bwd_reduce and dx with its
+    ReLU gate, against the plain versions of the mode; repeats
+    bit-identical; KERNEL_LAUNCHES counts 2 statistics launches and 1 apply
+    of the mode."""
+    n = 4097
+    dtype = torch.bfloat16
+    x, mask, w, b, rm, rv, gout = _bn_inputs(cuda_device, n, c, dtype, seed=c)
+    rm_ref, rv_ref = rm.clone(), rv.clone()
+    k = masked_stats_module.KERNEL_LAUNCHES
+    before = (k["stats_kernel_lowp", c], k["apply_kernel_lowp", c], k["stats_kernel", c])
+    y, mean, var, cnt = masked_stats_module._bn_forward(x, mask, w, b, rm, rv, train, 0.1, 1e-3,
+                                                        relu, row_mask, dtype, lowp=True)
+    ref, rmean, rvar, rcnt = masked_stats_module._bn_ref(x, mask, w, b, rm_ref, rv_ref, train,
+                                                         0.1, 1e-3, relu, row_mask, dtype, True)
+    assert (k["stats_kernel_lowp", c] - before[0], k["apply_kernel_lowp", c] - before[1],
+            k["stats_kernel", c] - before[2]) == ((2, 1, 0) if train else (0, 1, 0))
+    if train:
+        rel = lambda a, r: ((a - r).abs() / r.abs().clamp(min=1e-30)).max().item()
+        f32_var = masked_stats_module.masked_stats_ref(x.float(), mask)[1]
+        assert _close(mean, rmean, LOWP_MEAN_RTOL) and rel(var, rvar) <= LOWP_VAR_RTOL
+        assert rel(f32_var, rvar) >= LOWP_VAR_SEP * LOWP_VAR_RTOL
+        assert cnt.item() == rcnt.item()
+        assert _close(rm, rm_ref, LOWP_MEAN_RTOL) and rel(rv, rv_ref) <= LOWP_VAR_RTOL
+    args = (x, mask, mean, var, w, b, 1e-3, relu, row_mask, dtype)
+    plain = masked_stats_module.bn_apply_ref(*args, True)
+    assert (y != plain).float().mean().item() <= LOWP_Y_MISMATCH
+    assert (masked_stats_module.bn_apply_ref(*args, False) != plain).float().mean().item() >= \
+        LOWP_Y_DIFFERS
+    r = torch.rsqrt(rvar + 1e-3)
+    scale = (x.float() * (r * w).to(dtype).float()).abs() + (b - rmean * r * w).to(dtype).float().abs()
+    assert y.dtype == dtype and ((y.float() - ref.float()).abs()
+                                 <= LOWP_Y_STEPS * scale).all()
+    dx, dw, db = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                       row_mask, lowp=True)
+    rdx, rdw, rdb = masked_batch_norm_bwd_ref(gout, x, mask, w, b, mean, var, cnt, 1e-3, train,
+                                              relu, row_mask, True)
+    assert _close(dw, rdw, 1e-4) and _close(db, rdb, 1e-4) and _close(dx, rdx, 1e-2)
+    y2 = masked_stats_module._bn_forward(x, mask, w, b, rm.clone(), rv.clone(), train, 0.1, 1e-3,
+                                         relu, row_mask, dtype, lowp=True)[0]
+    again = masked_batch_norm_bwd(gout, x, mask, w, b, mean, var, cnt, 1e-3, train, relu,
+                                  row_mask, lowp=True)
+    assert torch.equal(y2, y) and all(torch.equal(p, q) for p, q in zip(again, (dx, dw, db)))
+
+
 # the strong adversary's 256-wide BatchNorms (enc_bn_2, dec_bn_1) at B = 1 and B = 6
 STRONG_ROWS = [16000, 96000]
 
