@@ -1,0 +1,8 @@
+"""The device operations (kernels, copies, sets) a step or a batch launched
+while the host was in the self time of the decode and rotated NMS
+(`rpc.decode`), in the traced steps."""
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.stage_ops(ctx, "decode")

@@ -1,0 +1,8 @@
+"""The self time of the VFE and the sparse encoder on K1 / K2 (`rpc.encoder`),
+ms a step or a batch on the trace's host clock: the span's duration less the
+spans nested in it, in the traced steps."""
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.stage_ms(ctx, "encoder")

@@ -2761,12 +2761,14 @@ def profile_launches(fn):
     torch.profiler: kernels, copies and memsets on the card."""
     import torch
 
+    from robustpointclouds_tpu_torch.core.spans import device_entries
+
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev = device_entries(prof.key_averages())
     n = sum(e.count for e in ev)
     return (n, sum(e.self_device_time_total for e in ev) / 1e3) if n else (None, None)
 
@@ -2777,16 +2779,16 @@ def profile_host(fn):
     (aten::, rpc::) and the CUDA runtime calls (cudaLaunchKernel, ...)."""
     import torch
 
+    from robustpointclouds_tpu_torch.core.spans import device_entries
+
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev_ev, host = [], {}
+    dev_ev, host = device_entries(prof.key_averages()), {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_ev.append(e)
-        else:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
             host[e.key] = [e.count, e.self_cpu_time_total / 1e3]
     n = sum(e.count for e in dev_ev)
     return n, sum(e.self_device_time_total for e in dev_ev) / 1e3, host
@@ -5417,6 +5419,7 @@ def main() -> int:
     from robustpointclouds_tpu_torch.cli.common import (
         prefetch_iterator, run_evaluation, synthetic_loader, with_plans)
     from robustpointclouds_tpu_torch.cli.export import export_serving
+    from robustpointclouds_tpu_torch.core.spans import device_entries
     from robustpointclouds_tpu_torch.data.native_plan import build_plan_native
     from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
     from robustpointclouds_tpu_torch.kernels import _build
@@ -5920,8 +5923,8 @@ def main() -> int:
             run_evaluation(etr, [ebatch], **kw)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy_ms = sum(e.self_device_time_total
+                      for e in device_entries(prof.key_averages())) / 1e3
         print(f"eval {name} under torch.profiler (one B=6 batch): device busy {busy_ms:.3f} ms "
               f"of {wall_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}", flush=True)
     del etr

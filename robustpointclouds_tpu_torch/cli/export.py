@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..core.spans import span
 from ..data.native_plan import build_pillar_plan_native, build_plan_native
 from ..models.center_detection import CenterHeadConfig, centerpoint_decode
 from ..models.centerpoint import AdversarialCenterPoint
@@ -73,10 +74,11 @@ class ServingModule(nn.Module):
     def forward(self, points: Optional[torch.Tensor], mask: Optional[torch.Tensor],
                 plan: Optional[Dict[str, Any]] = None, attack: bool = False):
         outs = self.model(points, mask, False, 100, attack, -1.0, plan)
-        if self.centerpoint:
-            return centerpoint_decode(outs.task_preds, self.head)
-        return anchor_head_predict(outs.cls_scores, outs.bbox_preds, outs.dir_preds,
-                                   self.anchors, self.head)
+        with span("rpc.decode"):
+            if self.centerpoint:
+                return centerpoint_decode(outs.task_preds, self.head)
+            return anchor_head_predict(outs.cls_scores, outs.bbox_preds, outs.dir_preds,
+                                       self.anchors, self.head)
 
 
 def export_serving(model: Model, state_dict: Optional[Dict[str, torch.Tensor]],
@@ -98,11 +100,12 @@ def export_serving(model: Model, state_dict: Optional[Dict[str, torch.Tensor]],
     def serve(points, mask, plan=None, attack: bool = False):
         """`plan`: the native host plan's dict (numpy or on the device), or
         None: the plan is built from `points` / `mask` on the device."""
-        if plan is None:
-            points = torch.as_tensor(points, device=dev)
-            mask = torch.as_tensor(mask, device=dev)
-        plan_t = None if plan is None else plan_to_device(plan, dev)
-        return module(points, mask, plan_t, attack=attack)
+        with span("rpc.serve"):
+            if plan is None:
+                points = torch.as_tensor(points, device=dev)
+                mask = torch.as_tensor(mask, device=dev)
+            plan_t = None if plan is None else plan_to_device(plan, dev)
+            return module(points, mask, plan_t, attack=attack)
 
     return serve
 

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..core.registry import MODELS
+from ..core.spans import span
 from ..nn.anchor_head import Anchor3DHead
 from ..nn.deform_conv import DeformConv2d
 from ..nn.perturber import VoxelPerturber
@@ -215,20 +216,25 @@ class AdversarialVoxelNet(nn.Module):
         profile regardless of `train`; `adv_grad_scale` is the gradient
         reversal factor on the perturbation delta.
         """
-        if plan is None:
-            points, points_mask = inline_inputs(points, points_mask, self)
-            plan = build_plan(points, points_mask, self.voxelizer)
-        grid = self._grid(plan, train)
+        with span("rpc.plan"):
+            if plan is None:
+                points, points_mask = inline_inputs(points, points_mask, self)
+                plan = build_plan(points, points_mask, self.voxelizer)
+            grid = self._grid(plan, train)
         voxels = plan["voxels"]
         zero = voxels.new_zeros(())
         adv_aux = {k: zero for k in _ADV_AUX_KEYS}
         if self.adversary is not None and (train or attack):
-            voxels, adv_aux = apply_voxel_adversary(
-                self.adversary, points, voxels, plan, attack, epoch,
-                self.cfg.adversary_start_epoch, adv_grad_scale,
-            )
-        feats = self._vfe(voxels, plan)
-        return ModelOutputs(*self._detect(feats, grid, plan), adv_aux)
+            with span("rpc.adversary"):
+                voxels, adv_aux = apply_voxel_adversary(
+                    self.adversary, points, voxels, plan, attack, epoch,
+                    self.cfg.adversary_start_epoch, adv_grad_scale,
+                )
+        with span("rpc.encoder"):
+            bev = self.middle_encoder(self._vfe(voxels, plan), grid, plan["enc"])
+        with span("rpc.dense"):
+            heads = self.bbox_head(self.neck(self.backbone(bev)))
+        return ModelOutputs(*heads, adv_aux)
 
     def _plan(self, points, points_mask, plan: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         """`plan`, or the inline plan of the points, built on their device."""

@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from ..core.device import resolve_device
+from ..core.spans import device_entries
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates without
 # sparsity, at the card's 700 W limit): the one definition that every bound
@@ -261,8 +262,7 @@ def profile_window(fn: Callable[[], Any], dev: torch.device, calls: int,
         prof.export_chrome_trace(trace_path)
     out = {"profiled_ms": window_ms / calls, "device_busy_ms": None, "device_ops": None}
     if dev.type == "cuda":
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = device_entries(prof.key_averages())
         n = sum(e.count for e in ev)
         if n:
             out["device_busy_ms"] = sum(e.self_device_time_total for e in ev) / 1e3 / calls

@@ -14,14 +14,20 @@ Two layouts:
     and by bucket (K1 / K2 / K3 by their symbols in the port's csrc/*.cu,
     cuDNN convolutions, GEMMs, elementwise, copies, other); `idle(trace,
     top)` the idle share of the device window and its longest idle gaps,
-    each labelled by the innermost host operation running where it starts.
+    each labelled by the innermost host operation running where it starts;
+    `stages(trace, steps)` the port's stage spans (core/spans.py) a step:
+    each span's self ms, the device operations launched in it, their
+    device ms, the device's idle ms while the host was in it, and the host
+    syncs it made.
 
 Usage: python -m robustpointclouds_tpu_torch.tools.parse_trace TRACE [topk]
        python -m robustpointclouds_tpu_torch.tools.parse_trace breakdown TRACE [steps]
        python -m robustpointclouds_tpu_torch.tools.parse_trace idle TRACE [top]
+       python -m robustpointclouds_tpu_torch.tools.parse_trace stages TRACE [steps]
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import glob
 import gzip
@@ -330,7 +336,150 @@ def idle(trace, top: int = 10) -> dict:
                      for g, s in gaps]}
 
 
+
+# ---- stage spans (core/spans.py): each device operation put down to the
+# stage whose own time holds its launch; benchmark/spans.py holds a copy
+
+_SPANS = ("rpc.train_step", "rpc.serve", "rpc.plan", "rpc.adversary", "rpc.encoder",
+          "rpc.dense", "rpc.loss", "rpc.backward", "rpc.optimizer", "rpc.decode")
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def _cut(s, e, cuts):
+    """[s, e) less the merged, sorted intervals `cuts`."""
+    out, cur = [], s
+    for a, b in cuts:
+        if a > cur:
+            out.append((cur, min(a, e)))
+        cur = max(cur, b)
+    if cur < e:
+        out.append((cur, e))
+    return out
+
+
+def _overlap(segments, busy):
+    """Microseconds of `segments` that the merged, sorted `busy` covers."""
+    starts = [b[0] for b in busy]
+    total = 0.0
+    for s, e in segments:
+        i = max(bisect.bisect_right(starts, s) - 1, 0)
+        while i < len(busy) and busy[i][0] < e:
+            total += max(min(e, busy[i][1]) - max(s, busy[i][0]), 0.0)
+            i += 1
+    return total
+
+
+def _stage_table(tr, window=None):
+    """By stage (a span's name less "rpc."): the spans' count, their self
+    us (each span's interval less those of the spans nested in it on its
+    thread), the device operations whose launch lies in that self time (the
+    launch found by the operation's correlation id; the innermost span on
+    any host thread, so the autograd thread's launches go to the main
+    thread's backward), the union of those operations' device us, the us
+    of the self time in which no device operation ran, and the host syncs
+    in the self time. Under None: the operations whose launch lies in no
+    span or is not in the trace. Spans and operations inside `window`
+    (trace us) when given."""
+    def inside(t):
+        return window is None or window[0] <= t < window[1]
+
+    threads = collections.defaultdict(list)
+    for e in tr.get("traceEvents", []):
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e.get("name") in _SPANS and inside(e["ts"])):
+            threads[(e.get("pid"), e.get("tid"))].append(
+                (float(e["ts"]), float(e["ts"] + e["dur"]), e["name"][4:]))
+    nodes = []
+    for spans in threads.values():
+        stack = []
+        for s, e, name in sorted(spans, key=lambda x: (x[0], -x[1])):
+            while stack and nodes[stack[-1]][1] <= s:
+                stack.pop()
+            if stack:
+                nodes[stack[-1]][3].append((s, e))
+            stack.append(len(nodes))
+            nodes.append((s, e, name, []))
+
+    def blank():
+        return {"spans": 0, "self_us": 0.0, "ops": 0, "device_us": 0.0, "idle_us": 0.0,
+                "syncs": 0}
+
+    table = {None: blank()}
+    segs = []
+    for s, e, name, children in nodes:
+        row = table.setdefault(name, blank())
+        row["spans"] += 1
+        for a, b in _cut(s, e, _merge(children)):
+            row["self_us"] += b - a
+            segs.append((a, b, s, name))
+    segs.sort()
+    seg_starts = [g[0] for g in segs]
+    reach, last = [], float("-inf")
+    for g in segs:
+        last = max(last, g[1])
+        reach.append(last)
+
+    def stage_at(t):
+        best = None
+        i = bisect.bisect_right(seg_starts, t) - 1
+        while i >= 0 and reach[i] > t:
+            if segs[i][1] > t and (best is None or segs[i][2] > best[2]):
+                best = segs[i]
+            i -= 1
+        return None if best is None else best[3]
+
+    launches, syncs = {}, []
+    for e in tr.get("traceEvents", []):
+        if e.get("ph") != "X" or not str(e.get("cat", "")).startswith("cuda_"):
+            continue  # not a call of the CUDA API
+        c = e.get("args", {}).get("correlation")
+        if c is not None:
+            launches[c] = float(e["ts"])
+        if e.get("name") in _SYNC_CALLS:
+            syncs.append(float(e["ts"]))
+    devs = [e for e in _device_events(tr) if inside(e["ts"])]
+    mine = collections.defaultdict(list)
+    for e in devs:
+        t = launches.get(e.get("args", {}).get("correlation"))
+        stage = None if t is None else stage_at(t)
+        table[stage]["ops"] += 1
+        mine[stage].append((e["ts"], e["ts"] + e["dur"]))
+    for stage, ivs in mine.items():
+        table[stage]["device_us"] = sum(b - a for a, b in _merge(ivs))
+    for t in syncs:
+        if inside(t):
+            table[stage_at(t)]["syncs"] += 1
+    busy = _merge((e["ts"], e["ts"] + e["dur"]) for e in devs)
+    for stage, row in table.items():
+        if stage is not None:
+            own = [(a, b) for a, b, _, name in segs if name == stage]
+            row["idle_us"] = row["self_us"] - _overlap(own, busy)
+    return table
+
+
+def stages(trace, steps: int = 1) -> dict:
+    """The port's stage spans over a whole torch.profiler trace, a step:
+    {stage: {"spans", "self_ms", "ops", "device_ms", "idle_ms", "syncs"}},
+    the stages in the order of core/spans.STAGES, then None for the
+    operations launched outside every span; printed as a table too."""
+    table = _stage_table(load_trace(trace))
+    order = [n[4:] for n in _SPANS if n[4:] in table] + [None]
+    out = {k: {"spans": table[k]["spans"] / steps, "self_ms": table[k]["self_us"] / 1e3 / steps,
+               "ops": table[k]["ops"] / steps, "device_ms": table[k]["device_us"] / 1e3 / steps,
+               "idle_ms": table[k]["idle_us"] / 1e3 / steps, "syncs": table[k]["syncs"] / steps}
+           for k in order}
+    print(f"{'stage':<12} {'self ms':>9} {'ops':>8} {'device ms':>9} {'idle ms':>9} "
+          f"{'syncs':>6}  ({steps} steps)")
+    for k, r in out.items():
+        print(f"{k or '(no span)':<12} {r['self_ms']:9.3f} {r['ops']:8.1f} {r['device_ms']:9.3f} "
+              f"{r['idle_ms']:9.3f} {r['syncs']:6.1f}")
+    return out
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "stages":
+        stages(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 1)
+        raise SystemExit(0)
     if len(sys.argv) > 1 and sys.argv[1] == "breakdown":
         d = sys.argv[2] if len(sys.argv) > 2 else "work_dirs/trace_plan_base"
         steps = int(sys.argv[3]) if len(sys.argv) > 3 else 10

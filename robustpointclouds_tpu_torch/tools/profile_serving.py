@@ -24,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.spans import device_entries
 from ..data.native_plan import build_plan_native
 from ..data.synthetic import synthetic_kitti_batch
 from ..models.detection import anchor_head_predict
@@ -102,7 +103,7 @@ def main() -> int:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             _, wall_ms, _ = request(attack)
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_entries(prof.key_averages())
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         print(json.dumps({"attack": attack, "profiled_request_ms": wall_ms,
                           "device_busy_ms": busy_ms,

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..cli.common import synthetic_loader
+from ..core.spans import device_entries
 from ..models.voxelnet import VoxelNetConfig, plan_to_device
 from ..train.loop import TrainConfig, Trainer
 
@@ -134,7 +135,7 @@ def main() -> int:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, wall_ms, _, _ = step()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_entries(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(json.dumps({"profiled_step_ms": wall_ms, "device_busy_ms": busy_ms,
                       "device_idle_share": 1.0 - busy_ms / wall_ms,

@@ -64,6 +64,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..core.spans import span
 from ..data.native_plan import build_pillar_plan_native, build_plan_native
 from ..models.detection import anchor_head_loss
 from ..models.pointpillars import AdversarialPointPillars, PointPillarsConfig
@@ -377,21 +378,22 @@ class Trainer:
         adv_enabled = self.state.adversary_enabled
         outs = self.model(*points, True, epoch, False,
                           -self.train_cfg.adversarial_loss_weight * adv_enabled, plan)
-        gt_boxes, gt_labels, gt_mask = gt
-        det = anchor_head_loss(outs.cls_scores, outs.bbox_preds, outs.dir_preds,
-                               self.anchors, self.anchor_cls, gt_boxes, gt_labels, gt_mask,
-                               self.model_cfg.head,
-                               assign=None if plan is None else plan.get("assign"))
-        det_total = det["loss_cls"] + det["loss_bbox"] + det["loss_dir"]
-        adv_total, adv_logs = adversary_direct_terms(det, outs.adv_aux, epoch,
-                                                     self.train_cfg.regularization_weight)
-        total = det_total + adv_enabled * adv_total
-        is_nan = ~torch.isfinite(total)
-        total = torch.where(is_nan, torch.zeros_like(total), total)
-        logs = {"loss": det_total.detach(), "loss_cls": det["loss_cls"].detach(),
-                "loss_bbox": det["loss_bbox"].detach(), "loss_dir": det["loss_dir"].detach(),
-                "num_pos": det["num_pos"].detach(),
-                **{k: v.detach() for k, v in adv_logs.items()}}
+        with span("rpc.loss"):
+            gt_boxes, gt_labels, gt_mask = gt
+            det = anchor_head_loss(outs.cls_scores, outs.bbox_preds, outs.dir_preds,
+                                   self.anchors, self.anchor_cls, gt_boxes, gt_labels, gt_mask,
+                                   self.model_cfg.head,
+                                   assign=None if plan is None else plan.get("assign"))
+            det_total = det["loss_cls"] + det["loss_bbox"] + det["loss_dir"]
+            adv_total, adv_logs = adversary_direct_terms(det, outs.adv_aux, epoch,
+                                                         self.train_cfg.regularization_weight)
+            total = det_total + adv_enabled * adv_total
+            is_nan = ~torch.isfinite(total)
+            total = torch.where(is_nan, torch.zeros_like(total), total)
+            logs = {"loss": det_total.detach(), "loss_cls": det["loss_cls"].detach(),
+                    "loss_bbox": det["loss_bbox"].detach(), "loss_dir": det["loss_dir"].detach(),
+                    "num_pos": det["num_pos"].detach(),
+                    **{k: v.detach() for k, v in adv_logs.items()}}
         return total, logs, is_nan
 
     def _grads(self, gt, epoch: float, plan: Optional[Dict[str, Any]], points=(None, None)):
@@ -402,15 +404,16 @@ class Trainer:
         for p in self.model.parameters():
             p.grad = None
         total, logs, is_nan = self._loss_fn(gt, epoch, plan, points)
-        total.backward()
-        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for k, p in self.model.named_parameters()}
-        if self.grad_probe is not None:
-            self.grad_probe(grads, is_nan)
-        finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
-        for g in grads.values():
-            torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
-        return grads, logs, is_nan | ~finite
+        with span("rpc.backward"):
+            total.backward()
+            grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                     for k, p in self.model.named_parameters()}
+            if self.grad_probe is not None:
+                self.grad_probe(grads, is_nan)
+            finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+            for g in grads.values():
+                torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
+            return grads, logs, is_nan | ~finite
 
     @torch.no_grad()
     def _apply(self, grads: Dict[str, torch.Tensor], is_nan: torch.Tensor,
@@ -454,14 +457,17 @@ class Trainer:
         rank's rows and their plan, the logs the ranks' average."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
-        gt, plan_t = self._to_device(batch, plan)
-        plan_t = self._maybe_pgd(batch, plan_t)
-        old_stats = [b.clone() for b in self._bn_buffers()]
-        grads, logs, is_nan = self._grads(gt, float(epoch), plan_t, self._points(batch, plan_t))
-        if self.group is not None:
-            grads, logs, is_nan = self._average(grads, logs, is_nan)
-        self._apply(grads, is_nan, old_stats)
-        return logs
+        with span("rpc.train_step"):
+            gt, plan_t = self._to_device(batch, plan)
+            plan_t = self._maybe_pgd(batch, plan_t)
+            old_stats = [b.clone() for b in self._bn_buffers()]
+            grads, logs, is_nan = self._grads(gt, float(epoch), plan_t,
+                                              self._points(batch, plan_t))
+            if self.group is not None:
+                grads, logs, is_nan = self._average(grads, logs, is_nan)
+            with span("rpc.optimizer"):
+                self._apply(grads, is_nan, old_stats)
+            return logs
 
     def _maybe_pgd(self, batch, plan: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
         """PGD adversarial training: `plan` with its voxels attacked by a

@@ -166,3 +166,44 @@ def test_cpu_profiler_trace_has_no_device_time(tmp_path):
     assert pt.device_ms(path) is None
     assert pt.idle(path) is None
     assert pt.breakdown(path, steps=1)["device_ms"] is None
+
+
+def test_torch_stages_by_span(capsys):
+    """The stage spans' self time, the device operations put down to the
+    span whose self time holds their launch (the autograd thread's to the
+    main thread's backward, one launched outside every span to none), their
+    device ms, the idle ms in each span and its syncs, a step."""
+    def span(name, ts, dur, tid=1):
+        return {"ph": "X", "cat": "user_annotation", "name": name, "pid": 100, "tid": tid,
+                "ts": ts, "dur": dur}
+
+    def call(name, ts, corr=None, tid=1):
+        return {"ph": "X", "cat": "cuda_runtime", "name": name, "pid": 100, "tid": tid,
+                "ts": ts, "dur": 2, "args": {} if corr is None else {"correlation": corr}}
+
+    def dev(ts, dur, corr, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": "void stats_kernel<float>(x)", "pid": 0,
+                "tid": 7, "ts": ts, "dur": dur, "args": {"correlation": corr}}
+
+    tr = {"traceEvents": [
+        span("rpc.train_step", 0, 1000), span("rpc.plan", 100, 200),
+        span("rpc.backward", 400, 400),
+        call("cudaLaunchKernel", 50, 1), dev(60, 20, 1),                 # the root's own
+        call("cudaLaunchKernel", 150, 2), dev(160, 40, 2),               # plan
+        call("cudaLaunchKernel", 180, 3), dev(190, 40, 3),               # plan, overlapping
+        call("cudaLaunchKernel", 500, 4, tid=2), dev(510, 100, 4),       # backward, thread 2
+        call("cudaMemcpyAsync", 1100, 5), dev(1110, 10, 5, "gpu_memcpy"),  # no span
+        call("cudaStreamSynchronize", 600), call("cudaStreamSynchronize", 1200),
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "rpc.plan", "pid": 0, "tid": 8,
+         "ts": 160, "dur": 90},
+    ]}
+    out = pt.stages(tr, steps=2)
+    assert list(out) == ["train_step", "plan", "backward", None]
+    assert out["train_step"]["self_ms"] == pytest.approx(0.2)  # 1000 - 200 - 400 us
+    assert out["plan"]["self_ms"] == pytest.approx(0.1)
+    assert [out[k]["ops"] for k in out] == [0.5, 1.0, 0.5, 0.5]
+    assert out["plan"]["device_ms"] == pytest.approx(0.035)  # [160, 230) a step
+    assert out["plan"]["idle_ms"] == pytest.approx(0.065)  # 200 - 70 us
+    assert out["train_step"]["idle_ms"] == pytest.approx(0.19)  # 400 - 20 us
+    assert out["backward"]["syncs"] == 0.5 and out[None]["syncs"] == 0.5
+    assert "backward" in capsys.readouterr().out
