@@ -178,7 +178,10 @@ Phases (any failure exits non-zero and prints no result):
      strong forward_eval B=6 inline, clean and attack, each bit-equal to
      its plan-fed output with the same launches. No inline path may call
      a host builder (HostPlanCalls), a plain version of K1 or K2, or a
-     float32 sparse-conv kernel;
+     float32 sparse-conv kernel; the sparse plan is a replay of its CUDA
+     graph (models/voxelnet.PLAN_GRAPH_CALLS, printed beside (a)'s
+     lines): a timed request or step of (b) - (d) whose plan ran eager,
+     or did not replay, fails;
  12. the serving export (run_export, cli/export.py): K1's forward and K2's
      apply are the operators rpc::sparse_conv_fwd / rpc::masked_bn_apply,
      so torch.export records them and the loaded program launches the
@@ -2773,6 +2776,20 @@ def profile_launches(fn):
     return (n, sum(e.self_device_time_total for e in ev) / 1e3) if n else (None, None)
 
 
+def expect_plan_replays(tag: str, before: dict, calls: int) -> None:
+    """Raises where the card's inline plan ran eager since `before` (a copy
+    of models/voxelnet.PLAN_GRAPH_CALLS), or replayed its CUDA graph fewer
+    than `calls` times: every timed inline step or request on the card
+    replays one graph."""
+    from robustpointclouds_tpu_torch.models.voxelnet import PLAN_GRAPH_CALLS
+
+    eager = PLAN_GRAPH_CALLS["eager"] - before.get("eager", 0)
+    replays = PLAN_GRAPH_CALLS["replay"] - before.get("replay", 0)
+    if eager or replays < calls:
+        raise RuntimeError(f"phase 11 {tag}: the plan ran eager {eager} times and replayed "
+                           f"{replays} times in {calls} timed calls on the card")
+
+
 def profile_host(fn):
     """One call under torch.profiler: (device operations, their device ms,
     {host event: [count, self host ms]}); host events are the operators
@@ -3006,7 +3023,8 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
             row["targets_max_abs_diff"] = worst
         summary[name] = row
         print(f"phase 11 (a) plan {name}: bit-equal to the native host plan; "
-              + json.dumps(row) + f" [{card}]", flush=True)
+              + json.dumps(row) + f"; PLAN_GRAPH_CALLS {json.dumps(dict(mvn.PLAN_GRAPH_CALLS))}"
+              f" [{card}]", flush=True)
         del outs
     for name, flips in flips_all.items():
         print(f"phase 11 (a) assignment {name}: {len(flips)} anchors differ card vs host"
@@ -3020,6 +3038,7 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
     for b, attack in requests[:1] + requests[3:4]:  # warm-up
         serve(b.points, b.points_mask, attack=attack)
     serving = []
+    graph_calls = dict(mvn.PLAN_GRAPH_CALLS)
     with HostPlanCalls() as hp, PlainVersionCalls(k1=True) as plain:
         for b, attack in requests:
             zero_counts()
@@ -3047,6 +3066,7 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
             serving.append(dict(attack=attack, inline_serve_ms=in_ms, fed_serve_ms=fed_ms,
                                 host_plan_ms=plan_ms, valid=int(out_in[3].sum())))
     expect_bf16_kernels("inline serving")
+    expect_plan_replays("serving", graph_calls, len(requests))
     for r in serving:
         print("phase 11 (b) request " + json.dumps(r) + f" [{card}]", flush=True)
     del model, serve
@@ -3079,6 +3099,7 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = []
+    graph_calls = dict(mvn.PLAN_GRAPH_CALLS)
     with HostPlanCalls() as hp, PlainVersionCalls(k1=True) as plain:
         t_all = time.perf_counter()
         for b in batches:
@@ -3096,6 +3117,7 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
         raise RuntimeError(f"phase 11 inline training called {hp.calls} host builders and "
                            f"{plain.calls} plain versions")
     expect_bf16_kernels("inline training")
+    expect_plan_replays("training", graph_calls, len(batches))
     for k in names:
         if torch.equal(before[k], params[k].detach()):
             raise RuntimeError(f"phase 11: {k} did not move in inline training")
@@ -3117,10 +3139,13 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
         for attack in (False, True):
             srv(b.points, b.points_mask, attack=attack)  # warm-up
             zero_counts()
+            graph_calls = dict(mvn.PLAN_GRAPH_CALLS)
             with HostPlanCalls() as hp, PlainVersionCalls(k1=True) as plain:
                 out_in = srv(b.points, b.points_mask, attack=attack)
                 torch.cuda.synchronize()
             n_in = read_counts()
+            if not isinstance(model, mpp.AdversarialPointPillars):  # no sparse plan
+                expect_plan_replays(f"{tag} attack={attack}", graph_calls, 1)
             if hp.calls or plain.calls:
                 raise RuntimeError(f"phase 11 {tag}: {hp.calls} host builds, {plain.calls} "
                                    f"plain versions")
@@ -3148,10 +3173,12 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
     for attack in (False, True):
         st.forward_eval(None, attack, batch=sb)  # warm-up
         zero_counts()
+        graph_calls = dict(mvn.PLAN_GRAPH_CALLS)
         with HostPlanCalls() as hp, PlainVersionCalls(k1=True) as plain:
             out_in = st.forward_eval(None, attack, batch=sb)
             torch.cuda.synchronize()
         n_in = read_counts()
+        expect_plan_replays(f"strong forward_eval attack={attack}", graph_calls, 1)
         zero_counts()
         out_fed = st.forward_eval(splan, attack)
         if hp.calls or plain.calls or n_in != read_counts() or not outputs_equal(

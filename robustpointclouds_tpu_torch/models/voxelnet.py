@@ -5,7 +5,8 @@ behind the gradient-reversal `grad_scale`) -> HardSimpleVFE ->
 SparseEncoder -> SECONDBackbone -> SECONDFPN -> Anchor3DHead. The plan is
 the host's (data/native_plan.build_plan_native, moved to the device) or,
 with `plan=None`, built inline by `build_plan` in torch ops on the points'
-device (ops/voxelize.py, ops/sparse.py, nn/sparse_encoder.encoder_plan);
+device (ops/voxelize.py, ops/sparse.py, nn/sparse_encoder.encoder_plan;
+on the card one replay of a CUDA graph a shape, `sparse_plan_core`);
 the two are bit-equal, so the forwards are too. The adversary runs in
 training from `adversary_start_epoch` on, and always with `attack=True`
 (the evaluation-under-attack mode).
@@ -16,6 +17,7 @@ adversary's own loss terms, added to the single train scalar).
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import graphs
 from ..core.registry import MODELS
 from ..core.spans import span
 from ..nn.anchor_head import Anchor3DHead
@@ -274,8 +277,37 @@ def inline_inputs(points, points_mask, module: nn.Module):
     return points, points_mask.bool()
 
 
+# the inline plan's CUDA graphs, one a (device, shape, features, voxelizer)
+PLAN_GRAPHS = graphs.GraphCache(capacity=4)
+PLAN_GRAPH_CALLS = PLAN_GRAPHS.calls  # "capture" / "replay" / "eager" -> calls
+
+
+def plan_graph_key(points: torch.Tensor, points_mask: torch.Tensor, vz: VoxelizerConfig,
+                   num_features: int) -> tuple:
+    """What the plan's graph depends on, for `points` as the plan reads them
+    (`[..., :num_features]` in float32, whatever the caller's dtype)."""
+    return points.device, tuple(points.shape), num_features, tuple(points_mask.shape), vz
+
+
 def sparse_plan_core(points: torch.Tensor, points_mask: torch.Tensor, vz: VoxelizerConfig,
                      num_features: int) -> Dict[str, Any]:
+    """`sparse_plan_eager`'s plan. On the card it is one replay of a CUDA
+    graph captured on the first call of each input signature
+    (core/graphs.py; `PLAN_GRAPH_CALLS` counts captures and replays), with
+    fresh output tensors each call; on the CPU, under torch.compile or
+    torch.export, inside another capture, or where autograd records
+    through the points, the eager body runs (counted "eager")."""
+    pts, mask = points[..., :num_features].float(), points_mask.bool()
+    if not graphs.replayable(pts, mask):
+        PLAN_GRAPH_CALLS["eager"] += 1
+        return sparse_plan_eager(pts, mask, vz, num_features)
+    return PLAN_GRAPHS(plan_graph_key(pts, mask, vz, num_features),
+                       functools.partial(sparse_plan_eager, vz=vz, num_features=num_features),
+                       (pts, mask))
+
+
+def sparse_plan_eager(points: torch.Tensor, points_mask: torch.Tensor, vz: VoxelizerConfig,
+                      num_features: int) -> Dict[str, Any]:
     """Voxelise + batch merge + the encoder's index plan, in torch ops on the
     points' device: the dict of build_plan_native, key for key and bit for
     bit (int32 ids and indices, bool masks, float32 voxels). The model
