@@ -21,7 +21,10 @@ The spans, outermost first:
                   the adversary's own terms and the NaN guard
   rpc.backward    the backward and the gradients' NaN sanitation
   rpc.optimizer   the optimizer half of the step
-  rpc.decode      the serving decode and rotated NMS
+  rpc.decode      the serving decode and NMS
+  rpc.targets     CenterPoint's inline heatmap and regression targets,
+                  inside the train step's root
+  rpc.head        CenterPoint's CenterHead, inside rpc.dense
 
 Readers: tools/parse_trace.stages and the benchmark's stage metrics
 (benchmark/spans.py) put each device operation down to the innermost span
@@ -36,7 +39,8 @@ import torch
 from torch.autograd import profiler as _profiler
 
 STAGES = ("rpc.train_step", "rpc.serve", "rpc.plan", "rpc.adversary", "rpc.encoder",
-          "rpc.dense", "rpc.loss", "rpc.backward", "rpc.optimizer", "rpc.decode")
+          "rpc.dense", "rpc.loss", "rpc.backward", "rpc.optimizer", "rpc.decode",
+          "rpc.targets", "rpc.head")
 
 _OFF = contextlib.nullcontext()
 

@@ -13,17 +13,26 @@ inside its 3-sigma window, which holds every cell the JAX package's
 full-grid field leaves non-zero. The loss and the decode run on the
 device. Sorts are stable, so ties resolve to the lower index as `lax.top_k`
 and `jnp.argsort` do.
+
+`TARGET_CALLS` counts, on the host, the heatmap splats drawn ("splat") and
+the reads of a device value to the host they make ("host_read": whether
+any object is valid, the largest radius); on the card each read waits for
+the device.
 """
 from __future__ import annotations
 
+import collections
 import math
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core.device import device_constant
 from ..ops import losses as loss_ops
 from ..ops import nms as nms_ops
+
+TARGET_CALLS: collections.Counter = collections.Counter()
 
 
 class CenterHeadConfig(NamedTuple):
@@ -41,7 +50,10 @@ class CenterHeadConfig(NamedTuple):
     score_thr: float = 0.1
     nms_pre: int = 500
     max_per_task: int = 83
-    circle_radius: float = 4.0
+    # a float: suppress a centre closer than it to a kept one (the JAX
+    # package's rule); a tuple, one a task: mmdet3d's test_cfg `min_radius`,
+    # compared with the squared centre distance (suppress when d^2 <= r)
+    circle_radius: Union[float, Tuple[float, ...]] = 4.0
 
     @property
     def num_classes(self) -> int:
@@ -80,11 +92,14 @@ def _splat_heatmap(h: int, w: int, c: int, cx: torch.Tensor, cy: torch.Tensor,
     adds exp(-d^2 / (2 sigma^2)), sigma = max(r, 1) / 3, cut below exp(-4.5)
     (3 sigma: d <= max(r, 1)), in its class's channel; each is evaluated
     only on a window of half-width max(r, 1) + 1 cells around its centre."""
+    TARGET_CALLS["splat"] += 1
+    TARGET_CALLS["host_read"] += 1
     hm = torch.zeros(h * w * c, dtype=torch.float32, device=cx.device)
     if not bool(valid.any()):
         return hm.reshape(h, w, c)
     cx, cy, radius, cls = cx[valid], cy[valid], radius[valid], cls[valid].long()
     sigma = _div(torch.clamp(radius, min=1.0), 3.0)
+    TARGET_CALLS["host_read"] += 1
     half = int(torch.clamp(radius, min=1.0).max().item()) + 1
     off = torch.arange(-half, half + 1, dtype=torch.float32, device=cx.device)
     # the cells of each window: the integer cells around the truncated centre
@@ -208,7 +223,10 @@ def centerpoint_decode(preds: Sequence[Dict[str, torch.Tensor]], cfg: CenterHead
     """All tasks -> padded detections (boxes [B, K, 9] as (x, y, z, dx, dy,
     dz, yaw, vx, vy), scores, labels int32, valid), K = the tasks' summed
     min(max_per_task, nms_pre). Tasks of one top-k size share one circle-NMS
-    sweep."""
+    sweep; `cfg.circle_radius` a tuple gives each task its own radius."""
+    if not isinstance(cfg.circle_radius, (int, float)) and len(cfg.circle_radius) != len(preds):
+        raise ValueError(f"circle_radius gives {len(cfg.circle_radius)} radii for "
+                         f"{len(preds)} tasks")
     pcr = cfg.point_cloud_range
     vx, vy = cfg.voxel_size
     stride = cfg.out_factor
@@ -236,7 +254,11 @@ def centerpoint_decode(preds: Sequence[Dict[str, torch.Tensor]], cfg: CenterHead
         group = [t for t, (_, s, _) in enumerate(cand) if s.shape[-1] == k]
         centers = torch.stack([cand[t][0][..., :2] for t in group], 1)   # [B, T, k, 2]
         scores = torch.stack([cand[t][1] for t in group], 1)
-        keep = nms_ops.circle_nms(centers, scores > cfg.score_thr, cfg.circle_radius)
+        radius = cfg.circle_radius
+        if not isinstance(radius, (int, float)):
+            radius = device_constant([float(radius[t]) for t in group], torch.float32,
+                                     centers.device).expand(b, len(group))
+        keep = nms_ops.circle_nms(centers, scores > cfg.score_thr, radius)
         keeps.update({t: keep[:, i] for i, t in enumerate(group)})
     out_b, out_s, out_l, out_v = [], [], [], []
     for t, (boxes, scores, cls) in enumerate(cand):

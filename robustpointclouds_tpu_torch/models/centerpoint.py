@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..core.registry import MODELS
+from ..core.spans import span
 from ..nn.center_head import NUSCENES_TASKS, CenterHead
 from ..nn.perturber import VoxelPerturber
 from ..nn.second import SECONDFPN, SECONDBackbone
@@ -123,27 +124,32 @@ class AdversarialCenterPoint(nn.Module):
         sets the module's mode; `attack=True` applies the adversary with its
         evaluation-attack bounds; `adv_grad_scale` scales the perturbation
         delta's gradient."""
-        if plan is None:
-            points, points_mask = inline_inputs(points, points_mask, self)
-            plan = build_centerpoint_plan(points, points_mask, self.cfg)
-        if train != self.training:
-            self.train(train)
-        voxels = plan["voxels"]
-        point_mask = plan["point_mask"]
-        b = voxels.shape[0]
-        grid = SparseGrid(plan["grid_ids"], plan["grid_coords"], plan["grid_mask"],
-                          (b,) + tuple(self.cfg.voxelizer.sparse_shape))
+        with span("rpc.plan"):
+            if plan is None:
+                points, points_mask = inline_inputs(points, points_mask, self)
+                plan = build_centerpoint_plan(points, points_mask, self.cfg)
+            if train != self.training:
+                self.train(train)
+            voxels = plan["voxels"]
+            b = voxels.shape[0]
+            grid = SparseGrid(plan["grid_ids"], plan["grid_coords"], plan["grid_mask"],
+                              (b,) + tuple(self.cfg.voxelizer.sparse_shape))
         zero = voxels.new_zeros(())
         adv_aux = {k: zero for k in _ADV_AUX_KEYS}
         if self.adversary is not None and (train or attack):
-            voxels, adv_aux = apply_voxel_adversary(
-                self.adversary, points, voxels, plan, attack, epoch,
-                self.cfg.adversary_start_epoch, adv_grad_scale)
-        feats = HardSimpleVFE(voxels, point_mask)
-        feats = feats.reshape(-1, feats.shape[-1])[plan["order"].long()]
-        bev = self.pts_middle_encoder(feats, grid, plan["enc"])
-        fused = self.pts_neck(self.pts_backbone(bev))
-        return CenterPointOutputs(self.pts_bbox_head(fused), adv_aux)
+            with span("rpc.adversary"):
+                voxels, adv_aux = apply_voxel_adversary(
+                    self.adversary, points, voxels, plan, attack, epoch,
+                    self.cfg.adversary_start_epoch, adv_grad_scale)
+        with span("rpc.encoder"):
+            feats = HardSimpleVFE(voxels, plan["point_mask"])
+            feats = feats.reshape(-1, feats.shape[-1])[plan["order"].long()]
+            bev = self.pts_middle_encoder(feats, grid, plan["enc"])
+        with span("rpc.dense"):
+            fused = self.pts_neck(self.pts_backbone(bev))
+            with span("rpc.head"):
+                preds = self.pts_bbox_head(fused)
+        return CenterPointOutputs(preds, adv_aux)
 
 
 def build_centerpoint_plan(points: torch.Tensor, points_mask: torch.Tensor,

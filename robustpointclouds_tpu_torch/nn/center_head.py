@@ -20,9 +20,12 @@ Module names follow mmdet3d's state_dict: `shared_conv.{conv,bn}`,
 variant's `task_heads.{t}.feature_adapt_{cls,reg}.{dcn,bn}`,
 `task_heads.{t}.cls_head.{0.conv,0.bn,1}` and
 `task_heads.{t}.task_head.{reg,...}` (DCNSeparateHead's layout).
+`DCN_CALLS["adapt"]` counts the deformable adaptations run (a host-side
+program counter).
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -46,6 +49,8 @@ COMMON_HEADS: Tuple[Tuple[str, int], ...] = (
 )
 
 HEATMAP_BIAS = -4.595
+
+DCN_CALLS: collections.Counter = collections.Counter()
 
 
 class ConvModule(nn.Module):
@@ -76,6 +81,7 @@ class _DCNAdapt(nn.Module):
         self.bn = BatchNorm2d(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        DCN_CALLS["adapt"] += 1
         return torch.relu(self.bn(self.dcn(x)))
 
 

@@ -5,15 +5,19 @@ Counterpart of robustpointclouds_tpu/ops/nms.py (`rotated_nms`,
 (sample, class) under vmap; here one Python loop of N steps sweeps every
 leading row (sample, class or task) at once, so a request costs N small
 launches instead of B x classes x N. `top_k` is lax.top_k's order (ties to
-the lower index) through a stable sort.
+the lower index) through a stable sort. `CIRCLE_NMS_CALLS["sweep"]` counts
+the circle-NMS sweeps run (a host-side program counter).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import collections
+from typing import Tuple, Union
 
 import torch
 
 from . import boxes as box_ops
+
+CIRCLE_NMS_CALLS: collections.Counter = collections.Counter()
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -22,22 +26,25 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _suppression_sweep(affinity: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:
-    """Greedy keep-mask from a pairwise affinity [..., N, N].
-
-    Boxes are sorted by descending score along the last axis of `valid`
-    [..., N]; a box is suppressed when its affinity with an earlier *kept*
-    box exceeds `thr`.
-    """
-    n = affinity.shape[-1]
-    over = affinity > thr
-    idx = torch.arange(n, device=affinity.device)
+def _greedy_keep(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Greedy keep-mask from a pairwise suppression relation [..., N, N]:
+    boxes are sorted by descending score along the last axis of `valid`
+    [..., N]; box i is suppressed when over[..., j, i] holds for an earlier
+    *kept* box j."""
+    n = over.shape[-1]
+    idx = torch.arange(n, device=over.device)
     keep = torch.zeros_like(valid)
     for i in range(n):
         earlier = (idx < i) & keep
         suppressed = torch.any(earlier & over[..., :, i], dim=-1)
         keep[..., i] = valid[..., i] & ~suppressed
     return keep
+
+
+def _suppression_sweep(affinity: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:
+    """Greedy keep-mask from a pairwise affinity [..., N, N]: a box is
+    suppressed when its affinity with an earlier *kept* box exceeds `thr`."""
+    return _greedy_keep(affinity > thr, valid)
 
 
 def rotated_nms(
@@ -54,13 +61,18 @@ def rotated_nms(
     return _suppression_sweep(iou, valid, iou_threshold)
 
 
-def circle_nms(centers: torch.Tensor, valid: torch.Tensor, radius: float) -> torch.Tensor:
-    """Circle NMS (CenterPoint): a box is suppressed when its BEV centre lies
-    closer than `radius` to an earlier kept one. centers [..., N, 2] sorted by
-    descending score -> keep [..., N]."""
+def circle_nms(centers: torch.Tensor, valid: torch.Tensor,
+               radius: Union[float, torch.Tensor]) -> torch.Tensor:
+    """Circle NMS (CenterPoint): centers [..., N, 2] sorted by descending
+    score -> keep [..., N]. A float `radius` suppresses a box whose BEV
+    centre lies closer than it to an earlier kept one (d^2 < radius^2); a
+    tensor of valid's leading shape [...] is mmdet3d's per-row `min_radius`,
+    compared with the squared distance (suppressed when d^2 <= min_radius)."""
+    CIRCLE_NMS_CALLS["sweep"] += 1
     d2 = ((centers[..., :, None, :] - centers[..., None, :, :]) ** 2).sum(-1)
-    # affinity = -dist^2, threshold = -radius^2 (suppress when closer)
-    return _suppression_sweep(-d2, valid, -(radius ** 2))
+    if isinstance(radius, torch.Tensor):
+        return _greedy_keep(d2 <= radius.to(d2.dtype)[..., None, None], valid)
+    return _greedy_keep(d2 < radius ** 2, valid)
 
 
 def topk_nms_3d(boxes3d: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,

@@ -341,7 +341,8 @@ def idle(trace, top: int = 10) -> dict:
 # stage whose own time holds its launch; benchmark/spans.py holds a copy
 
 _SPANS = ("rpc.train_step", "rpc.serve", "rpc.plan", "rpc.adversary", "rpc.encoder",
-          "rpc.dense", "rpc.loss", "rpc.backward", "rpc.optimizer", "rpc.decode")
+          "rpc.dense", "rpc.loss", "rpc.backward", "rpc.optimizer", "rpc.decode",
+          "rpc.targets", "rpc.head")
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.spans import span
 from ..data.native_plan import build_plan_native
 from ..models.center_detection import centerpoint_loss, centerpoint_targets
 from ..models.centerpoint import (AdversarialCenterPoint, CenterPointConfig,
@@ -97,17 +98,19 @@ class CenterPointTrainer(Trainer):
         adv_enabled = self.state.adversary_enabled
         ramp = min(cfg.adversarial_loss_weight * epoch / 10.0, cfg.adversarial_loss_weight)
         outs = self.model(*points, True, epoch, False, -ramp * adv_enabled, plan)
-        targets = gt if plan is None else plan["targets"]
-        det = centerpoint_loss(outs.task_preds, targets, cfg.head)
-        det_total = det["loss_heatmap"] + det["loss_bbox"]
-        adv_direct, _, adv_logs = centerpoint_adversary_terms(
-            det, outs.adv_aux, epoch, cfg.adversarial_loss_weight, cfg.regularization_weight)
-        total = det_total + adv_enabled * adv_direct
-        is_nan = ~torch.isfinite(total)
-        total = torch.where(is_nan, torch.zeros_like(total), total)
-        logs = {"loss": det_total.detach(), "loss_heatmap": det["loss_heatmap"].detach(),
-                "loss_bbox": det["loss_bbox"].detach(),
-                **{k: v.detach() for k, v in adv_logs.items()}}
+        with span("rpc.loss"):
+            targets = gt if plan is None else plan["targets"]
+            det = centerpoint_loss(outs.task_preds, targets, cfg.head)
+            det_total = det["loss_heatmap"] + det["loss_bbox"]
+            adv_direct, _, adv_logs = centerpoint_adversary_terms(
+                det, outs.adv_aux, epoch, cfg.adversarial_loss_weight,
+                cfg.regularization_weight)
+            total = det_total + adv_enabled * adv_direct
+            is_nan = ~torch.isfinite(total)
+            total = torch.where(is_nan, torch.zeros_like(total), total)
+            logs = {"loss": det_total.detach(), "loss_heatmap": det["loss_heatmap"].detach(),
+                    "loss_bbox": det["loss_bbox"].detach(),
+                    **{k: v.detach() for k, v in adv_logs.items()}}
         return total, logs, is_nan
 
     def train_step(self, batch, epoch: float, plan: Optional[Dict[str, Any]] = None,
@@ -115,25 +118,22 @@ class CenterPointTrainer(Trainer):
         """One step on a host plan with "targets" (CenterPointPlanBuilder
         given the GTs; `batch` is then not read), or inline with plan=None:
         the plan from the batch's points and the targets from its GTs and
-        `gt_vel` [B, G, 2], both on the device. Returns the logs as device
-        scalars."""
-        if self.state is None:
-            raise RuntimeError("call init_state() first")
-        targets = None
-        if plan is None:
-            if gt_vel is None:
-                raise ValueError("the inline CenterPoint step (plan=None) needs gt_vel")
+        `gt_vel` [B, G, 2], both on the device (the targets under the span
+        `rpc.targets`). Train/loop.Trainer's step otherwise, spans included.
+        Returns the logs as device scalars."""
+        return self._step(batch, epoch, plan, lambda b, p: self._step_inputs(b, p, gt_vel))
+
+    def _step_inputs(self, batch, plan: Optional[Dict[str, Any]], gt_vel):
+        """(the inline step's targets or None, the plan on the device or None)."""
+        if plan is not None:
+            return None, plan_to_device(plan, self.device)
+        if gt_vel is None:
+            raise ValueError("the inline CenterPoint step (plan=None) needs gt_vel")
+        with span("rpc.targets"):
             gt, _ = self._to_device(batch, None)
-            targets = centerpoint_targets(*gt, self._tensor(gt_vel).float(),
-                                          self.model_cfg.bev_feature_size, self.model_cfg.head)
-        plan_t = None if plan is None else plan_to_device(plan, self.device)
-        old_stats = [b.clone() for b in self._bn_buffers()]
-        grads, logs, is_nan = self._grads(targets, float(epoch), plan_t,
-                                          self._points(batch, plan_t))
-        if self.group is not None:
-            grads, logs, is_nan = self._average(grads, logs, is_nan)
-        self._apply(grads, is_nan, old_stats)
-        return logs
+            return centerpoint_targets(*gt, self._tensor(gt_vel).float(),
+                                       self.model_cfg.bev_feature_size,
+                                       self.model_cfg.head), None
 
     def make_plan_builder(self) -> CenterPointPlanBuilder:
         return CenterPointPlanBuilder(self.model_cfg)

@@ -455,10 +455,16 @@ class Trainer:
         points). Returns the logs as device scalars; reading them waits for
         the step. Data parallel (compile_sharded): `batch` and `plan` are this
         rank's rows and their plan, the logs the ranks' average."""
+        return self._step(batch, epoch, plan, self._to_device)
+
+    def _step(self, batch, epoch: float, plan: Optional[Dict[str, Any]],
+              inputs: Callable) -> Dict[str, torch.Tensor]:
+        """The step under its spans; `inputs(batch, plan)` -> (the loss's
+        GTs, the plan on the device), the family's own."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
         with span("rpc.train_step"):
-            gt, plan_t = self._to_device(batch, plan)
+            gt, plan_t = inputs(batch, plan)
             plan_t = self._maybe_pgd(batch, plan_t)
             old_stats = [b.clone() for b in self._bn_buffers()]
             grads, logs, is_nan = self._grads(gt, float(epoch), plan_t,
