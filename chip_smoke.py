@@ -8,7 +8,8 @@ Phases (any failure exits non-zero and prints no result):
      sparse convs -- the bf16 tensor-core kernels, the float32 3xTF32
      tensor-core kernels and the first design's CUDA-core ones, kept as a
      yardstick --, the gather probes and the masked statistics / fused
-     MaskedBatchNorm with nvcc into build/torch_kernels/, one nvcc per
+     MaskedBatchNorm and the greedy NMS keep-mask with nvcc into
+     build/torch_kernels/, one nvcc per
      source, started together); the count of bf16 HMMA instructions in the
      bf16 library's SASS and of TF32 HMMA instructions in the float32
      library's (cuobjdump), neither of which may be 0;
@@ -310,7 +311,16 @@ Phases (any failure exits non-zero and prints no result):
      10% of the events' sum). Every record's times finite and positive,
      device busy <= the host-clock time, 0 <= idle share <= 1, 0 < mfu < 1,
      the K1 / K2 counters grown in every timed step (the tools raise
-     otherwise); the failed checks are raised together.
+     otherwise); the failed checks are raised together;
+ 18. the greedy NMS keep-mask (run_greedy_nms; rpc::greedy_keep,
+     csrc/greedy_nms.cu): one full-width CenterPoint B=4 serve (the six
+     tasks' circle NMS at [24, 500, 500]) and one SECOND B=6 serve (rotated
+     NMS at [18, 100, 100]), each sweep launching the kernel exactly once;
+     on the relations they swept and on random ones (N = 1, 65, 100, 500
+     and 2048, whose words go to the global scratch) the kernel's mask
+     bit-identical to the plain loop's on the card, each case synchronised,
+     with CUDA-event ms, device ms and launches of both; each serve's host
+     ms with the sweep on the kernel and on the plain loop, in turns.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -5422,6 +5432,171 @@ def bn_step_total(rows, kernel):
     return dict(tot, max_abs_err=err)
 
 
+# phase 18: the greedy NMS keep-mask (rpc::greedy_keep, csrc/greedy_nms.cu)
+# random relations (rows, N): the two serving shapes, one box, one word and a
+# bit, and 2048 boxes, whose words go to the global scratch (N > 612)
+GN_RANDOM = ((24, 500), (18, 100), (4, 1), (4, 65), (2, 2048))
+GN_SUPPRESSORS = 8.0  # boxes that suppress a given box in a random relation, on average
+GN_SERVES = 5  # serves a route in each turn of the serve timing
+# mmdet3d's per-task circle-NMS radii (min_radius, on the squared distance),
+# as the benchmark's CenterPoint configuration has them
+GN_CP_RADII = (4.0, 12.0, 10.0, 1.0, 0.85, 0.175)
+
+
+def run_greedy_nms(dev, card: str, seed: int):
+    """Phase 18: the keep-mask kernel against the plain loop on the card.
+    (a) One CenterPoint B=4 serve (30000-point frames, the six tasks at
+    nms_pre 500, per-task radii) and one SECOND B=6 serve (20000-point
+    frames, 3 classes at nms_pre 100), seeded random weights, score_thr 0:
+    each `ops/nms._greedy_keep` call launches the kernel exactly once and
+    never the plain loop, and the relation it swept is kept; (b) on those
+    relations and on random ones (GN_RANDOM, symmetric and not, a third of
+    the rows all invalid), the kernel's mask bit-identical to the plain
+    loop's, with CUDA-event ms of both, the device operations and device ms
+    of one call each (torch.profiler), and the byte bound; (c) each serve's
+    host-clock ms with the sweep on the kernel and on the plain loop, in
+    turns, the detections equal. Returns the kernels line's rows."""
+    import numpy as np
+    import torch
+
+    from robustpointclouds_tpu_torch.cli import export
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+    from robustpointclouds_tpu_torch.kernels import greedy_nms as gn
+    from robustpointclouds_tpu_torch.models import centerpoint as mcp
+    from robustpointclouds_tpu_torch.models import voxelnet as mvn
+    from robustpointclouds_tpu_torch.ops import nms as nms_ops
+
+    t_phase = time.time()
+    rng = np.random.RandomState(seed + 18)
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    fn_keep, fn_sweep = nms_ops.greedy_keep, nms_ops._greedy_keep
+    seen = {"sweeps": 0, "relations": []}
+
+    def capture(over, valid):
+        seen["relations"].append((over.clone(), valid.clone()))
+        return fn_keep(over, valid)
+
+    def counted_sweep(over, valid):
+        seen["sweeps"] += 1
+        return fn_sweep(over, valid)
+
+    cases, serve_ms = [], {}
+    families = (("centerpoint", mcp.CenterPointConfig(), mcp.AdversarialCenterPoint, CP_BATCH,
+                 CP_POINTS),
+                ("second", mvn.VoxelNetConfig(), mvn.AdversarialVoxelNet, IN_BATCH, IN_POINTS))
+    try:
+        for name, cfg, cls, batch, npts in families:
+            model = cls(cfg)
+            mvn.init_weights(model, torch.Generator().manual_seed(seed))
+            # one sweep of every (sample, task) or (sample, class) row at nms_pre:
+            # [24, 500] and [18, 100] at full width
+            if name == "centerpoint":
+                shape = (batch * len(cfg.head.tasks), cfg.head.nms_pre)
+                anchors, head = None, cfg.head._replace(score_thr=0.0, circle_radius=GN_CP_RADII)
+                b, _ = synthetic_nuscenes_batch(rng, batch_size=batch, num_points=npts,
+                                                max_gt=cfg.head.max_objs,
+                                                point_range=cfg.voxelizer.point_cloud_range)
+            else:
+                anchors, head = cfg.make_anchors()[0], cfg.head._replace(score_thr=0.0)
+                shape = (batch * cfg.head.num_classes, min(cfg.head.nms_pre, len(anchors)))
+                b = synthetic_kitti_batch(rng, batch_size=batch, num_points=npts, max_gt=20,
+                                          num_objects=8,
+                                          point_range=cfg.voxelizer.point_cloud_range)
+            pts = torch.from_numpy(np.asarray(b.points)).to(dev)
+            msk = torch.from_numpy(np.asarray(b.points_mask)).to(dev)
+            serve = export.export_serving(model, None, anchors, head)
+            serve(pts, msk)  # warm-up: the kernels' builds, the plan's graph
+            torch.cuda.synchronize()
+            gn.KERNEL_LAUNCHES.clear()
+            seen["sweeps"], seen["relations"] = 0, []
+            nms_ops.greedy_keep, nms_ops._greedy_keep = capture, counted_sweep
+            try:
+                want = serve(pts, msk)
+                torch.cuda.synchronize()
+            finally:
+                nms_ops.greedy_keep, nms_ops._greedy_keep = fn_keep, fn_sweep
+            launches = dict(gn.KERNEL_LAUNCHES)
+            if (seen["sweeps"] != 1 or launches != {"kernel": seen["sweeps"]}
+                    or len(seen["relations"]) != 1):
+                raise RuntimeError(f"phase 18 {name} serve: {seen['sweeps']} sweeps launched "
+                                   f"{launches}; every sweep must launch the kernel once")
+            over, valid = seen["relations"][0]
+            if tuple(valid.shape) != shape:
+                raise RuntimeError(f"phase 18 {name} serve swept {tuple(over.shape)}, "
+                                   f"not {shape}")
+            cases.append((f"{name} serve", over, valid))
+            # (c) the serve with the sweep on the kernel and on the plain loop, in turns
+            ms = {"kernel": [], "plain": []}
+            for which in ("kernel", "plain", "plain", "kernel"):
+                nms_ops.greedy_keep = fn_keep if which == "kernel" else gn.greedy_keep_ref
+                try:
+                    for _ in range(GN_SERVES):
+                        got, host_ms, _ = _timed(lambda: serve(pts, msk), False)
+                        ms[which].append(host_ms)
+                        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                            raise RuntimeError(f"phase 18 {name} serve on the {which} "
+                                               "route differs from the first serve")
+                finally:
+                    nms_ops.greedy_keep = fn_keep
+            serve_ms[name] = {k: statistics.median(v) for k, v in ms.items()}
+            serve_ms[name]["valid"] = int(valid.sum())
+            serve_ms[name]["kept"] = int(gn.greedy_keep(over, valid).sum())
+            print(f"phase 18 {name} B={batch} serve: sweep {tuple(over.shape)}, "
+                  f"{serve_ms[name]['valid']} valid, {serve_ms[name]['kept']} kept; host ms "
+                  f"(median of {2 * GN_SERVES}) kernel {serve_ms[name]['kernel']:.3f}, plain loop "
+                  f"{serve_ms[name]['plain']:.3f} [{card}]", flush=True)
+            del model, serve, want
+            torch.cuda.empty_cache()
+    finally:
+        nms_ops.greedy_keep, nms_ops._greedy_keep = fn_keep, fn_sweep
+
+    for rows, n in GN_RANDOM:
+        for symmetric in (True, False):
+            over = torch.rand(rows, n, n, device=dev, generator=gen) < GN_SUPPRESSORS / n
+            if symmetric:
+                over = over | over.transpose(1, 2)
+            valid = torch.rand(rows, n, device=dev, generator=gen) < 0.8
+            valid[1::3] = False
+            cases.append((f"random {'symmetric' if symmetric else 'asymmetric'}", over, valid))
+
+    out = []
+    for tag, over, valid in cases:
+        rows, n = valid.shape
+        before = gn.KERNEL_LAUNCHES["kernel"]
+        keep = gn.greedy_keep(over, valid)
+        torch.cuda.synchronize()
+        ref = gn.greedy_keep_ref(over, valid)
+        torch.cuda.synchronize()
+        if gn.KERNEL_LAUNCHES["kernel"] != before + 1 or not torch.equal(keep, ref):
+            raise RuntimeError(f"phase 18 {tag} [{rows}, {n}, {n}]: the kernel's mask differs "
+                               f"from the plain loop's in {int((keep != ref).sum())} boxes")
+        kernel_ms = cuda_ms(lambda: gn.greedy_keep(over, valid), iters=50)
+        plain_ms = cuda_ms(lambda: gn.greedy_keep_ref(over, valid), iters=3, warmup=1)
+        k_ops, k_dev = profile_launches(lambda: gn.greedy_keep(over, valid))
+        p_ops, p_dev = profile_launches(lambda: gn.greedy_keep_ref(over, valid))
+        torch.cuda.synchronize()
+        nbytes = rows * n * n + 2 * rows * n  # the relation and valid read, keep written
+        b_ms, bound_by = bound_ms(nbytes, 0, "f32")
+        row = {"name": "greedy_keep", "route": "cuda",
+               "source": "robustpointclouds_tpu_torch/csrc/greedy_nms.cu",
+               "replaces": "none (robustpointclouds_tpu/ops/nms.py:36, lax.fori_loop)",
+               "case": tag, "shape": [rows, n, n], "valid": int(valid.sum()),
+               "kept": int(keep.sum()), "mismatch": 0, "ms": kernel_ms, "device_ms": k_dev,
+               "device_ops": k_ops, "plain_ms": plain_ms, "plain_device_ms": p_dev,
+               "plain_device_ops": p_ops, "bound_ms": b_ms, "bound_by": bound_by,
+               "library_ms": None}
+        print(f"phase 18 greedy_keep {tag} [{rows}, {n}, {n}]: bit-identical, "
+              f"{row['valid']} valid, {row['kept']} kept; kernel {_fmt(kernel_ms)} ms "
+              f"[device {_fmt(k_dev)}, {k_ops} ops], plain loop {_fmt(plain_ms)} ms "
+              f"[device {_fmt(p_dev)}, {p_ops} ops], bound {b_ms:.5f} ms ({bound_by}) "
+              f"[{card}]", flush=True)
+        out.append(row)
+    out[0]["serve_host_ms"] = serve_ms
+    print(f"phase 18: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5509,7 +5684,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     t0 = time.time()
     sources = ("sparse_conv_tc", "sparse_conv_tf32", "sparse_conv", "gather_probe",
-               "masked_stats")
+               "masked_stats", "greedy_nms")
     handles = [(n, *_build.start_build(n)) for n in sources]  # one nvcc per source
     for _, handle, so in handles:
         _build.finish_build(handle, so)
@@ -5997,6 +6172,9 @@ def main() -> int:
     tools = run_tools(dev, card, args.seed)
     tl = tools["launches_a_step"]
 
+    # ---- phase 18: the greedy NMS keep-mask
+    gn_rows = run_greedy_nms(dev, card, args.seed)
+
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
     tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
@@ -6084,6 +6262,7 @@ def main() -> int:
     kernels.extend(pp_rows)
     kernels.extend(st_rows)
     kernels.extend(vr_rows)
+    kernels.extend(gn_rows)
     for row in (*kernels, *(r["scale"] for r in kernels if "scale" in r)):
         for key in ("device_ms", "prev_device_ms"):
             if key in row and row[key] is None:  # the profiles did not hold their set

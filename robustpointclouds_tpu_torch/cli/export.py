@@ -18,10 +18,11 @@ is clean, as JAX's export is).
 `export_program(...)` exports the same module with torch.export, the weights
 baked in, at a fixed batch size and point count; `save_exported` writes the
 `.pt2` file and a `.json` meta file beside it; `load_exported(path)` gives a
-callable of the same contract. The artifact's graph holds the two kernels of
-the serving path as operators (rpc::sparse_conv_fwd, kernels/sparse_conv.py;
-rpc::masked_bn_apply, kernels/masked_stats.py), so on the card the loaded
-program launches them as the eager serve does. An artifact runs on the
+callable of the same contract. The artifact's graph holds the three kernels
+of the serving path as operators (rpc::sparse_conv_fwd, kernels/sparse_conv.py;
+rpc::masked_bn_apply, kernels/masked_stats.py; the NMS keep-mask
+rpc::greedy_keep, kernels/greedy_nms.py), so on the card the loaded program
+launches them as the eager serve does. An artifact runs on the
 device type it was exported on: export on the card to serve on the card,
 with --cpu for the CPU.
 
@@ -180,9 +181,9 @@ def load_exported(path: str) -> Tuple[Callable, Dict[str, Any]]:
     """Load an artifact -> (callable, meta). The callable runs the exported
     graph under no_grad on the device type it was exported on. Raises,
     naming the device, when it is not there."""
-    # registers rpc::sparse_conv_fwd and rpc::masked_bn_apply, which the
-    # graph names, before the graph is read
-    from ..kernels import masked_stats, sparse_conv  # noqa: F401
+    # registers rpc::sparse_conv_fwd, rpc::masked_bn_apply and
+    # rpc::greedy_keep, which the graph names, before the graph is read
+    from ..kernels import greedy_nms, masked_stats, sparse_conv  # noqa: F401
 
     meta: Dict[str, Any] = {}
     if os.path.isfile(path + ".json"):

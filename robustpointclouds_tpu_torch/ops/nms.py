@@ -2,11 +2,14 @@
 
 Counterpart of robustpointclouds_tpu/ops/nms.py (`rotated_nms`,
 `circle_nms`, `topk_nms_3d`). The JAX version runs one `fori_loop` sweep per
-(sample, class) under vmap; here one Python loop of N steps sweeps every
-leading row (sample, class or task) at once, so a request costs N small
-launches instead of B x classes x N. `top_k` is lax.top_k's order (ties to
-the lower index) through a stable sort. `CIRCLE_NMS_CALLS["sweep"]` counts
-the circle-NMS sweeps run (a host-side program counter).
+(sample, class) under vmap; here every leading row (sample, class or task)
+is swept by one call of the operator rpc::greedy_keep (kernels/greedy_nms.py):
+on the card one kernel launch a call, whatever N, on the CPU the plain loop
+of N rounds; `greedy_nms.KERNEL_LAUNCHES` counts the calls by route. The
+suppression relation is built here by torch ops. `top_k` is lax.top_k's
+order (ties to the lower index) through a stable sort.
+`CIRCLE_NMS_CALLS["sweep"]` counts the circle-NMS sweeps run (a host-side
+program counter).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Tuple, Union
 
 import torch
 
+from ..kernels.greedy_nms import greedy_keep
 from . import boxes as box_ops
 
 CIRCLE_NMS_CALLS: collections.Counter = collections.Counter()
@@ -30,15 +34,10 @@ def _greedy_keep(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Greedy keep-mask from a pairwise suppression relation [..., N, N]:
     boxes are sorted by descending score along the last axis of `valid`
     [..., N]; box i is suppressed when over[..., j, i] holds for an earlier
-    *kept* box j."""
+    *kept* box j. The leading dimensions go to the operator as one."""
     n = over.shape[-1]
-    idx = torch.arange(n, device=over.device)
-    keep = torch.zeros_like(valid)
-    for i in range(n):
-        earlier = (idx < i) & keep
-        suppressed = torch.any(earlier & over[..., :, i], dim=-1)
-        keep[..., i] = valid[..., i] & ~suppressed
-    return keep
+    keep = greedy_keep(over.reshape(-1, n, n).contiguous(), valid.reshape(-1, n).contiguous())
+    return keep.reshape(valid.shape)
 
 
 def _suppression_sweep(affinity: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:

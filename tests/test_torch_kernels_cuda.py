@@ -1644,3 +1644,43 @@ def test_exported_serving_on_the_card_launches_the_kernels(cuda_device, tmp_path
         assert int(want[3].sum()) > 0
         for g, w in zip(got, want):
             assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+# ---- the greedy NMS keep-mask (rpc::greedy_keep, csrc/greedy_nms.cu)
+
+@pytest.mark.parametrize("rows,n,symmetric", [
+    (24, 500, True), (18, 100, True), (24, 500, False), (3, 1, True), (5, 65, False),
+    (2, 612, False), (2, 613, True), (2, 2048, False), (1, 2100, True)])
+def test_greedy_keep_kernel_is_the_plain_loop(cuda_device, rows, n, symmetric):
+    """Bit-identical to the plain loop, in shared memory (N <= 612) and in
+    the global scratch beyond it (613, 2048, and 2100: more than 32 words)."""
+    from robustpointclouds_tpu_torch.kernels import greedy_nms
+
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    over = torch.rand(rows, n, n, device=cuda_device, generator=g) < 8.0 / n
+    if symmetric:
+        over = over | over.transpose(1, 2)
+    valid = torch.rand(rows, n, device=cuda_device, generator=g) < 0.8
+    valid[1::3] = False
+    before = dict(greedy_nms.KERNEL_LAUNCHES)
+    keep = greedy_nms.greedy_keep(over, valid)
+    torch.cuda.synchronize()
+    assert greedy_nms.KERNEL_LAUNCHES["kernel"] == before.get("kernel", 0) + 1
+    assert greedy_nms.KERNEL_LAUNCHES["plain"] == before.get("plain", 0)
+    ref = greedy_nms.greedy_keep_ref(over, valid)
+    assert keep.dtype == torch.bool and keep.shape == valid.shape
+    assert torch.equal(keep, ref)
+    assert torch.equal(keep.cpu(), greedy_nms.greedy_keep(over.cpu(), valid.cpu()))
+
+
+def test_greedy_keep_kernel_rejects_what_it_cannot_take(cuda_device):
+    from robustpointclouds_tpu_torch.kernels import greedy_nms
+
+    over = torch.zeros(2, 8, 8, dtype=torch.bool, device=cuda_device)
+    valid = torch.ones(2, 8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):  # not contiguous
+        greedy_nms.greedy_keep(over.transpose(1, 2), valid)
+    with pytest.raises(ValueError):  # two devices
+        greedy_nms.greedy_keep(over, valid.cpu())
+    with pytest.raises(TypeError):
+        greedy_nms.greedy_keep(over.float(), valid)
