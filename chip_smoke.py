@@ -8,7 +8,7 @@ Phases (any failure exits non-zero and prints no result):
      sparse convs -- the bf16 tensor-core kernels, the float32 3xTF32
      tensor-core kernels and the first design's CUDA-core ones, kept as a
      yardstick --, the gather probes and the masked statistics / fused
-     MaskedBatchNorm and the greedy NMS keep-mask with nvcc into
+     MaskedBatchNorm, the greedy NMS keep-mask and the deformable conv with nvcc into
      build/torch_kernels/, one nvcc per
      source, started together); the count of bf16 HMMA instructions in the
      bf16 library's SASS and of TF32 HMMA instructions in the float32
@@ -317,6 +317,17 @@ Phases (any failure exits non-zero and prints no result):
      bit-identical to the plain loop's on the card, each case synchronised,
      with CUDA-event ms, device ms and launches of both; each serve's host
      ms with the sweep on the kernel and on the plain loop, in turns.
+ 19. the deformable conv (run_deform_conv; rpc::deform_conv2d,
+     csrc/deform_conv.cu): the kernel against its plain twin at the DCN
+     head's [4, 64, 128, 128], groups 4, with zero (also against cuDNN's
+     grouped conv), integer and fractional offsets, and at a ragged map,
+     two deform groups with a group wider than a chunk, and 5x5 taps: within
+     1e-5 of the twin's scale, one launch a call, bit-identical on a repeat;
+     CUDA-event ms, device ms and launches of kernel and twin, the twin's
+     einsum alone and the operation bound; a full-width CenterPoint head on
+     the kernel route against the twin route; 3 CenterPoint B=4 requests,
+     eager and through the loaded `.pt2`, 12 kernel launches each and
+     bit-equal outputs; `correct` of the benchmark's CenterPoint cell.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Needs one card; imports nothing of JAX.
 """
@@ -5524,6 +5535,252 @@ def run_greedy_nms(dev, card: str, seed: int):
     return out
 
 
+# phase 19: the deformable conv (rpc::deform_conv2d, csrc/deform_conv.cu)
+# CenterPoint's DCN head at B=4: 64 channels on the 128 x 128 map, groups 4
+DC_SHAPE, DC_GROUPS = (CP_BATCH, 64, 128, 128), 4
+# more shapes (B, C, H, W, Cout, k, groups, deform_groups): a map that is no
+# multiple of the 128-pixel tile, a group wider than a contraction chunk with
+# two deform groups, 5x5 taps
+DC_OTHERS = ((2, 64, 37, 53, 64, 3, 4, 1), (1, 96, 20, 30, 32, 3, 1, 2),
+             (2, 16, 33, 17, 24, 5, 2, 2))
+# float32 sums of the same products in another order, with bilinear weights
+# rounded apart: within 1e-5 of the output's scale; the head's maps after
+# BN, ReLU and two float32 convs within 1e-4 of each map's scale
+DC_RTOL, DC_HEAD_RTOL = 1e-5, 1e-4
+DC_ADAPTATIONS = 12  # the head's: feature_adapt_cls and _reg of six tasks
+DC_SERVES = 3  # CenterPoint requests, eager and through the artifact each
+
+
+def _dc_offsets(torch, dev, gen, shape, kind, k=3, deform_groups=1):
+    """Offsets [B, dg * 2 * k * k, H, W]: zero, whole cells (-2 .. 2), or
+    fractional, a tenth of them thrown past the map's borders."""
+    b, _, h, w = shape
+    oshape = (b, deform_groups * 2 * k * k, h, w)
+    if kind == "zero":
+        return torch.zeros(oshape, device=dev)
+    if kind == "integer":
+        return torch.randint(-2, 3, oshape, device=dev, generator=gen).float()
+    off = torch.randn(oshape, device=dev, generator=gen) * 1.5
+    far = torch.rand(oshape, device=dev, generator=gen) < 0.1
+    return torch.where(far, off * max(h, w), off)
+
+
+def run_deform_conv(dev, card: str, seed: int):
+    """Phase 19: the DCN kernel against its plain twin on the card.
+    (a) At the head's shape with zero, integer and fractional offsets, and at
+    DC_OTHERS: within DC_RTOL of the twin's scale (zero offsets: of cuDNN's
+    grouped conv too, TF32 off), one kernel launch a call and none of the
+    twin's operator, bit-identical on a repeat call; (b) CUDA-event ms of the
+    kernel, the twin, the twin's einsum alone on its col (the library
+    yardstick) and cuDNN's grouped conv at zero offsets, the device
+    operations and ms of one call each, and the operation bound; (c) a
+    full-width CenterPoint B=4 head (random weights, offset convs
+    randomised) on the kernel route against the twin's, map by map; (d)
+    DC_SERVES CenterPoint requests, eager and through the loaded `.pt2`
+    (phase 12's export_program on the card), DC_ADAPTATIONS kernel launches
+    each, the outputs bit-equal; (e) `correct` of the benchmark's CenterPoint
+    cell (benchmark/run.py, a 10 s window). Returns the kernels line's rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from robustpointclouds_tpu_torch.cli import export
+    from robustpointclouds_tpu_torch.data.nuscenes import synthetic_nuscenes_batch
+    from robustpointclouds_tpu_torch.kernels import deform_conv as kdc
+    from robustpointclouds_tpu_torch.models import centerpoint as mcp
+    from robustpointclouds_tpu_torch.models import voxelnet as mvn
+    from robustpointclouds_tpu_torch.nn import deform_conv as ndc
+
+    t_phase = time.time()
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-12))
+
+    def check(tag, x, off, wt, groups, dg):
+        before = dict(kdc.KERNEL_LAUNCHES)
+        got = kdc.deform_conv2d(x, off, wt, groups, dg)
+        torch.cuda.synchronize()
+        again = kdc.deform_conv2d(x, off, wt, groups, dg)
+        ref = kdc.deform_conv2d_ref(x, off, wt, groups, dg)
+        torch.cuda.synchronize()
+        if (kdc.KERNEL_LAUNCHES["kernel"] != before.get("kernel", 0) + 2
+                or kdc.KERNEL_LAUNCHES["plain"] != before.get("plain", 0)):
+            raise RuntimeError(f"phase 19 {tag}: launches {dict(kdc.KERNEL_LAUNCHES)} after "
+                               f"{before}; each call must launch the kernel once")
+        err = rel(got, ref)
+        if not (err <= DC_RTOL and torch.equal(got, again) and got.is_contiguous()):
+            raise RuntimeError(f"phase 19 {tag}: kernel vs twin {err:.3e} (limit {DC_RTOL}), "
+                               f"repeat equal {torch.equal(got, again)}")
+        return got, ref, err
+
+    # (a) + (b) at the head's shape
+    b, c, h, w = DC_SHAPE
+    x = torch.randn(DC_SHAPE, device=dev, generator=gen)
+    wt = torch.randn(c, c // DC_GROUPS, 3, 3, device=dev, generator=gen) / 12.0
+    out = []
+    for kind in ("zero", "integer", "fractional"):
+        off = _dc_offsets(torch, dev, gen, DC_SHAPE, kind)
+        got, _, err = check(f"{list(DC_SHAPE)} {kind}", x, off, wt, DC_GROUPS, 1)
+        extra = {}
+        if kind == "zero":
+            conv = F.conv2d(x, wt, padding=1, groups=DC_GROUPS)
+            extra["vs_cudnn_grouped_conv"] = rel(got, conv)
+            if extra["vs_cudnn_grouped_conv"] > DC_RTOL:
+                raise RuntimeError(f"phase 19 zero offsets: kernel vs cuDNN's grouped conv "
+                                   f"{extra['vs_cudnn_grouped_conv']:.3e}")
+            extra["cudnn_grouped_conv_ms"] = cuda_ms(
+                lambda: F.conv2d(x, wt, padding=1, groups=DC_GROUPS), iters=20)
+        kernel_ms = cuda_ms(lambda: kdc.deform_conv2d(x, off, wt, DC_GROUPS, 1), iters=50)
+        plain_ms = cuda_ms(lambda: kdc.deform_conv2d_ref(x, off, wt, DC_GROUPS, 1), iters=5,
+                           warmup=1)
+        k_ops, k_dev = profile_launches(lambda: kdc.deform_conv2d(x, off, wt, DC_GROUPS, 1))
+        p_ops, p_dev = profile_launches(lambda: kdc.deform_conv2d_ref(x, off, wt, DC_GROUPS, 1))
+        # the library yardstick: the twin's product alone, one einsum on its col
+        col = torch.randn(b * h * w, 9, DC_GROUPS, c // DC_GROUPS, device=dev, generator=gen)
+        wg = wt.reshape(DC_GROUPS, c // DC_GROUPS, c // DC_GROUPS, 9)
+        lib_ms = cuda_ms(lambda: torch.einsum("nkgc,gock->ngo", col, wg), iters=10)
+        del col
+        flops = 2.0 * b * h * w * c * (c // DC_GROUPS) * 9
+        nbytes = 4.0 * (x.numel() + off.numel() + wt.numel() + got.numel())
+        b_ms, bound_by = bound_ms(nbytes, flops, "f32")
+        row = {"name": "deform_conv2d", "route": "cuda",
+               "source": "robustpointclouds_tpu_torch/csrc/deform_conv.cu",
+               "replaces": "none (robustpointclouds_tpu/nn/deform_conv.py, plain XLA)",
+               "case": f"offsets {kind}", "shape": [*DC_SHAPE, DC_GROUPS], "max_rel_err": err,
+               "ms": kernel_ms, "device_ms": k_dev, "device_ops": k_ops, "plain_ms": plain_ms,
+               "plain_device_ms": p_dev, "plain_device_ops": p_ops, "bound_ms": b_ms,
+               "bound_by": bound_by, "library_ms": lib_ms, **extra}
+        print(f"phase 19 deform_conv2d {list(DC_SHAPE)} groups {DC_GROUPS} offsets {kind}: "
+              f"vs twin {err:.2e}; kernel {_fmt(kernel_ms)} ms [device {_fmt(k_dev)}, {k_ops} "
+              f"ops], twin {_fmt(plain_ms)} ms [device {_fmt(p_dev)}, {p_ops} ops], einsum "
+              f"{_fmt(lib_ms)} ms, bound {b_ms:.5f} ms ({bound_by})"
+              + (f", cuDNN grouped conv {_fmt(extra['cudnn_grouped_conv_ms'])} ms"
+                 if extra else "") + f" [{card}]", flush=True)
+        out.append(row)
+    for bb, cc, hh, ww, cout, k, groups, dg in DC_OTHERS:
+        xs = torch.randn(bb, cc, hh, ww, device=dev, generator=gen)
+        off = _dc_offsets(torch, dev, gen, (bb, cc, hh, ww), "fractional", k, dg)
+        ws = torch.randn(cout, cc // groups, k, k, device=dev, generator=gen)
+        _, _, err = check(f"[{bb}, {cc}, {hh}, {ww}] -> {cout} k {k} groups {groups} dg {dg}",
+                          xs, off, ws, groups, dg)
+        print(f"phase 19 deform_conv2d [{bb}, {cc}, {hh}, {ww}] -> {cout}, k {k}, groups "
+              f"{groups}, deform groups {dg}: vs twin {err:.2e} [{card}]", flush=True)
+        out[-1].setdefault("other_shapes_max_rel_err", 0.0)
+        out[-1]["other_shapes_max_rel_err"] = max(out[-1]["other_shapes_max_rel_err"], err)
+    del x, off
+    torch.cuda.empty_cache()
+
+    # (c) a full-width CenterPoint head, kernel route against the twin's
+    cfg = mcp.CenterPointConfig(use_dcn_head=True)
+    model = mcp.AdversarialCenterPoint(cfg)
+    mvn.init_weights(model, torch.Generator().manual_seed(seed))
+    cpu_gen = torch.Generator().manual_seed(seed + 19)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, ndc.DeformConv2d):
+                m.conv_offset.weight.copy_(torch.randn(m.conv_offset.weight.shape,
+                                                       generator=cpu_gen) * 0.02)
+                m.conv_offset.bias.copy_(torch.randn(m.conv_offset.bias.shape, generator=cpu_gen))
+    model.to(dev).eval()
+    head = model.pts_bbox_head
+    neck = torch.randn(CP_BATCH, head.shared_conv.conv.weight.shape[1], 128, 128, device=dev,
+                       generator=gen)
+    kdc.KERNEL_LAUNCHES.clear()
+    with torch.no_grad():
+        fused = head(neck)
+        n_head = dict(kdc.KERNEL_LAUNCHES)
+        ndc.deform_conv2d, fn = (lambda *a: kdc.deform_conv2d_ref(*a)), ndc.deform_conv2d
+        try:
+            twin = head(neck)
+        finally:
+            ndc.deform_conv2d = fn
+    torch.cuda.synchronize()
+    if n_head != {"kernel": DC_ADAPTATIONS}:
+        raise RuntimeError(f"phase 19 head: launches {n_head}, not {DC_ADAPTATIONS} kernel ones")
+    head_err = max(rel(f[key], t[key]) for f, t in zip(fused, twin) for key in t)
+    if head_err > DC_HEAD_RTOL:
+        raise RuntimeError(f"phase 19 head: kernel route vs twin route {head_err:.3e}")
+    with torch.no_grad():
+        head_ms = {"kernel": cuda_ms(lambda: head(neck), iters=5, warmup=1)}
+        ndc.deform_conv2d = lambda *a: kdc.deform_conv2d_ref(*a)
+        try:
+            head_ms["twin"] = cuda_ms(lambda: head(neck), iters=5, warmup=1)
+        finally:
+            ndc.deform_conv2d = fn
+    print(f"phase 19 CenterPoint head B={CP_BATCH} (twelve DCNs): kernel route vs twin route "
+          f"{head_err:.2e} of each map's scale; head ms kernel {head_ms['kernel']:.3f}, twin "
+          f"{head_ms['twin']:.3f} [{card}]", flush=True)
+    del neck, fused, twin
+    torch.cuda.empty_cache()
+
+    # (d) CenterPoint requests, eager and through the loaded artifact
+    head_cfg = cfg.head._replace(score_thr=0.0)
+    serve = export.export_serving(model, None, None, head_cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dcn_")
+    path = os.path.join(tmp, "centerpoint_dcn.pt2")
+    kdc.KERNEL_LAUNCHES.clear()
+    ep, meta = export.export_program(model, None, head_cfg, CP_BATCH, CP_POINTS)
+    export.save_exported(ep, meta, path)
+    n_nodes = sum(str(n.target) == "rpc.deform_conv2d.default" for n in ep.graph.nodes)
+    if n_nodes != DC_ADAPTATIONS or kdc.KERNEL_LAUNCHES:
+        raise RuntimeError(f"phase 19 export: {n_nodes} rpc.deform_conv2d nodes, launches "
+                           f"{dict(kdc.KERNEL_LAUNCHES)} while exporting")
+    del ep
+    call, _ = export.load_exported(path)
+    rng = np.random.RandomState(seed + 19)
+    serve_launches = []
+    for i in range(DC_SERVES):
+        fr, _ = synthetic_nuscenes_batch(rng, batch_size=CP_BATCH, num_points=CP_POINTS,
+                                         max_gt=cfg.head.max_objs,
+                                         point_range=cfg.voxelizer.point_cloud_range)
+        pts = torch.from_numpy(np.asarray(fr.points)).to(dev)
+        msk = torch.from_numpy(np.asarray(fr.points_mask)).to(dev)
+        res = {}
+        for which, fn_ in (("eager", serve), ("artifact", call)):
+            kdc.KERNEL_LAUNCHES.clear()
+            res[which] = fn_(pts, msk)
+            torch.cuda.synchronize()
+            res[which + "_launches"] = dict(kdc.KERNEL_LAUNCHES)
+        launches = (res["eager_launches"], res["artifact_launches"])
+        if launches != ({"kernel": DC_ADAPTATIONS},) * 2:
+            raise RuntimeError(f"phase 19 request {i}: launches eager / artifact {launches}")
+        if not outputs_equal(tuple(res["artifact"]), tuple(res["eager"])):
+            raise RuntimeError(f"phase 19 request {i}: the artifact differs from the eager serve")
+        if int(res["eager"][3].sum()) == 0:
+            raise RuntimeError(f"phase 19 request {i}: no detection to compare")
+        serve_launches.append(launches[0]["kernel"])
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 19 CenterPoint B={CP_BATCH} requests: kernel launches a request eager "
+          f"{serve_launches}, through the loaded .pt2 the same, outputs bit-equal [{card}]",
+          flush=True)
+    del model, serve, call
+    torch.cuda.empty_cache()
+
+    # (e) the benchmark's CenterPoint cell
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "benchmark/run.py", "--workload",
+                          "centerpoint-nuscenes.attack-eval-inline", "--seed", str(seed + 19),
+                          "--seconds", "10", "--trace", "0"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if res.returncode == 0 and lines else {}
+    if line.get("correct") is not True:
+        raise RuntimeError(f"phase 19 benchmark cell: rc {res.returncode}, correct "
+                           f"{line.get('correct')}\n{res.stderr[-3000:]}")
+    checks = [ln for ln in res.stderr.splitlines() if ln.startswith("check ")]
+    print(f"phase 19 benchmark centerpoint-nuscenes.attack-eval-inline: correct, eval_fps "
+          f"{line.get('eval_fps')}, {'; '.join(checks)} ({time.time() - t0:.1f} s) [{card}]",
+          flush=True)
+    out[0]["request_launches"] = {"eager": serve_launches[0], "artifact": serve_launches[0]}
+    out[0]["head_ms"] = head_ms
+    out[0]["head_max_rel_err"] = head_err
+    print(f"phase 19: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5611,7 +5868,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     t0 = time.time()
     sources = ("sparse_conv_tc", "sparse_conv_tf32", "gather_probe", "masked_stats",
-               "greedy_nms")
+               "greedy_nms", "deform_conv")
     handles = [(n, *_build.start_build(n)) for n in sources]  # one nvcc per source
     for _, handle, so in handles:
         _build.finish_build(handle, so)
@@ -6098,6 +6355,9 @@ def main() -> int:
     # ---- phase 18: the greedy NMS keep-mask
     gn_rows = run_greedy_nms(dev, card, args.seed)
 
+    # ---- phase 19: the deformable conv
+    dc_rows = run_deform_conv(dev, card, args.seed)
+
     k2 = stats_rows[0]
     conv_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tc.cu"
     tf32_src = "robustpointclouds_tpu_torch/csrc/sparse_conv_tf32.cu"
@@ -6185,6 +6445,7 @@ def main() -> int:
     kernels.extend(st_rows)
     kernels.extend(vr_rows)
     kernels.extend(gn_rows)
+    kernels.extend(dc_rows)
     for row in (*kernels, *(r["scale"] for r in kernels if "scale" in r)):
         for key in ("device_ms", "prev_device_ms"):
             if key in row and row[key] is None:  # the profiles did not hold their set

@@ -35,8 +35,8 @@ from robustpointclouds_tpu_torch.kernels import masked_stats as km
 from robustpointclouds_tpu_torch.kernels import sparse_conv as sc
 from robustpointclouds_tpu_torch.models import detection as tdet
 from robustpointclouds_tpu_torch.nn.center_head import NUSCENES_TASKS, CenterHead
-from robustpointclouds_tpu_torch.nn.deform_conv import (DeformConv2d, bilinear_gather,
-                                                        dcn_kernel_to_weight)
+from robustpointclouds_tpu_torch.kernels.deform_conv import bilinear_gather
+from robustpointclouds_tpu_torch.nn.deform_conv import DeformConv2d, dcn_kernel_to_weight
 from robustpointclouds_tpu_torch.ops import losses as tlosses
 from robustpointclouds_tpu_torch.ops import nms as tnms
 from robustpointclouds_tpu_torch.tools.convert import center_head_to_state_dict

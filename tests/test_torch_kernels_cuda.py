@@ -1679,3 +1679,111 @@ def test_greedy_keep_kernel_rejects_what_it_cannot_take(cuda_device):
         greedy_nms.greedy_keep(over, valid.cpu())
     with pytest.raises(TypeError):
         greedy_nms.greedy_keep(over.float(), valid)
+
+
+# ---- the deformable conv (rpc::deform_conv2d, csrc/deform_conv.cu)
+
+# float32 sums of the same products in another order, with the bilinear
+# weights rounded apart: within 1e-5 of the output's scale
+DCN_RTOL = 1e-5
+
+
+def _dcn_case(dev, shape, cout, k, groups, deform_groups, kind, seed):
+    """x, offsets (zero, whole cells, or fractional with a tenth thrown past
+    the borders) and weights on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, c, h, w = shape
+    x = torch.randn(shape, device=dev, generator=g)
+    oshape = (b, deform_groups * 2 * k * k, h, w)
+    if kind == "zero":
+        off = torch.zeros(oshape, device=dev)
+    elif kind == "integer":
+        off = torch.randint(-2, 3, oshape, device=dev, generator=g).float()
+    else:
+        off = torch.randn(oshape, device=dev, generator=g) * 1.5
+        far = torch.rand(oshape, device=dev, generator=g) < 0.1
+        off = torch.where(far, off * max(h, w), off)
+    wt = torch.randn(cout, c // groups, k, k, device=dev, generator=g) / (3.0 * k)
+    return x, off, wt
+
+
+def _dcn_rel(a, b):
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+@pytest.mark.parametrize("kind", ["zero", "integer", "fractional"])
+@pytest.mark.parametrize("shape", [(4, 64, 128, 128), (3, 64, 37, 53)], ids=["head", "ragged"])
+def test_deform_conv_kernel_is_the_twin(cuda_device, monkeypatch, shape, kind):
+    """CenterPoint's DCN (groups 4, 3x3) at the head's shape and on a map
+    that is no multiple of the 128-pixel tile: one launch, the twin's
+    output, deterministic."""
+    from robustpointclouds_tpu_torch.kernels import deform_conv as kdc
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, off, wt = _dcn_case(cuda_device, shape, 64, 3, 4, 1, kind, sum(shape))
+    before = dict(kdc.KERNEL_LAUNCHES)
+    got = kdc.deform_conv2d(x, off, wt, 4, 1)
+    torch.cuda.synchronize()
+    assert kdc.KERNEL_LAUNCHES["kernel"] == before.get("kernel", 0) + 1
+    assert kdc.KERNEL_LAUNCHES["plain"] == before.get("plain", 0)
+    assert got.dtype == torch.float32 and got.shape == shape and got.is_contiguous()
+    ref = kdc.deform_conv2d_ref(x, off, wt, 4, 1)
+    assert _dcn_rel(got, ref) <= DCN_RTOL
+    assert torch.equal(kdc.deform_conv2d(x, off, wt, 4, 1), got)
+    if kind == "zero":  # a grouped 3x3 conv
+        conv = torch.nn.functional.conv2d(x, wt, padding=1, groups=4)
+        assert _dcn_rel(got, conv) <= DCN_RTOL
+
+
+@pytest.mark.parametrize("shape,cout,k,groups,deform_groups", [
+    ((2, 8, 16, 16), 8, 3, 1, 1), ((1, 96, 20, 30), 32, 3, 1, 2), ((2, 16, 33, 17), 24, 5, 2, 2),
+    ((1, 5, 7, 9), 10, 1, 5, 1), ((2, 12, 3, 50), 6, 3, 3, 4)])
+def test_deform_conv_kernel_other_groups(cuda_device, monkeypatch, shape, cout, k, groups,
+                                         deform_groups):
+    """Groups, deform groups, kernel sizes, a group wider than a chunk."""
+    from robustpointclouds_tpu_torch.kernels import deform_conv as kdc
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x, off, wt = _dcn_case(cuda_device, shape, cout, k, groups, deform_groups, "fractional", k)
+    got = kdc.deform_conv2d(x, off, wt, groups, deform_groups)
+    ref = kdc.deform_conv2d_ref(x, off, wt, groups, deform_groups)
+    assert _dcn_rel(got, ref) <= DCN_RTOL
+    cpu = kdc.deform_conv2d(x.cpu(), off.cpu(), wt.cpu(), groups, deform_groups)
+    assert _dcn_rel(got.cpu(), cpu) <= DCN_RTOL
+
+
+def test_deform_conv_kernel_rejects_what_it_cannot_take(cuda_device):
+    from robustpointclouds_tpu_torch.kernels import deform_conv as kdc
+
+    x, off, wt = _dcn_case(cuda_device, (1, 8, 6, 6), 8, 3, 4, 1, "fractional", 0)
+    with pytest.raises(TypeError):  # the kernel takes float32 alone
+        kdc.deform_conv2d(x.double(), off.double(), wt.double(), 4, 1)
+    with pytest.raises(ValueError):  # not contiguous
+        kdc.deform_conv2d(x.transpose(2, 3), off, wt, 4, 1)
+    with pytest.raises(ValueError):  # two devices
+        kdc.deform_conv2d(x, off, wt.cpu(), 4, 1)
+
+
+def test_dcn_head_launches_the_kernel_under_no_grad(cuda_device, monkeypatch):
+    """CenterHead(use_dcn=True) on the card: 12 launches a forward under
+    no_grad; with gradients the twin, and no launch."""
+    from robustpointclouds_tpu_torch.kernels import deform_conv as kdc
+    from robustpointclouds_tpu_torch.nn.center_head import CenterHead
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    head = CenterHead(in_channels=32, use_dcn=True).to(cuda_device).eval()
+    for p in head.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    x = torch.randn(2, 32, 24, 40, device=cuda_device)
+    before = kdc.KERNEL_LAUNCHES["kernel"]
+    with torch.no_grad():
+        fused = head(x)
+    assert kdc.KERNEL_LAUNCHES["kernel"] == before + 12
+    twin = head(x)
+    assert kdc.KERNEL_LAUNCHES["kernel"] == before + 12
+    for f, t in zip(fused, twin):
+        for key in t:
+            assert _dcn_rel(f[key], t[key].detach()) <= 1e-4, key
