@@ -3092,8 +3092,7 @@ def run_inline(dev, card: str, seed: int, zero_counts, read_counts, expect_bf16_
                 out_in = srv(b.points, b.points_mask, attack=attack)
                 torch.cuda.synchronize()
             n_in = read_counts()
-            if not isinstance(model, mpp.AdversarialPointPillars):  # no sparse plan
-                expect_plan_replays(f"{tag} attack={attack}", graph_calls, 1)
+            expect_plan_replays(f"{tag} attack={attack}", graph_calls, 1)
             if hp.calls or plain.calls:
                 raise RuntimeError(f"phase 11 {tag}: {hp.calls} host builds, {plain.calls} "
                                    f"plain versions")

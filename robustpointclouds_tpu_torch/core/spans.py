@@ -15,7 +15,8 @@ The spans, outermost first:
   rpc.serve       export_serving's `serve`, the whole request (root)
   rpc.plan        the model's plan: the inline build and the sparse grid
   rpc.adversary   the voxel adversary
-  rpc.encoder     the VFE and the sparse encoder (K1, K2)
+  rpc.encoder     the VFE and the sparse encoder (K1, K2); PointPillars'
+                  pillar feature net (K2) and BEV scatter
   rpc.dense       backbone, neck and head
   rpc.loss        the detection loss (with the inline anchor assignment),
                   the adversary's own terms and the NaN guard

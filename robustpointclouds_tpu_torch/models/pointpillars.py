@@ -2,7 +2,8 @@
 
 Forward: pillar plan (data/native_plan.build_pillar_plan_native on the
 host, or `build_pillar_plan` in torch ops on the points' device when
-`plan=None`: voxels on a single-z grid, the merged (batch, y, x) BEV grid)
+`plan=None`, on the card one replay of a CUDA graph a shape: voxels on a
+single-z grid, the merged (batch, y, x) BEV grid)
 -> (learned VoxelPerturber on the raw pillar points behind the gradient-reversal
 `grad_scale`) -> PillarFeatureNet (9 decorated features -> Linear ->
 MaskedBatchNorm + ReLU -> masked max over the pillar) -> BEV scatter
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.registry import MODELS
+from ..core.spans import span
 from ..nn.anchor_head import Anchor3DHead
 from ..nn.layers import MaskedBatchNorm
 from ..nn.perturber import VoxelPerturber
@@ -42,7 +44,7 @@ from ..ops.sparse import SparseGrid, scatter_to_dense, with_batch_axis
 from ..ops.voxelize import VoxelizerConfig, voxelize_batch
 from .detection import AnchorHeadConfig
 from .voxelnet import (_ADV_AUX_KEYS, ModelOutputs, adversary_reads_points, apply_voxel_adversary,
-                       inline_inputs)
+                       graphed_plan, inline_inputs)
 
 
 class PointPillarsConfig(NamedTuple):
@@ -158,13 +160,20 @@ class PillarFeatureNet(nn.Module):
 def build_pillar_plan(points: torch.Tensor, points_mask: torch.Tensor,
                       cfg: PointPillarsConfig) -> Dict[str, Any]:
     """The plan of AdversarialPointPillars over the 4 point features, built
-    in torch ops on the points' device: the voxels, the merged (batch, y, x)
-    BEV grid with its `order`, and `dense`, the grid row of each of the
-    B * ny * nx BEV cells (B * V when empty), bit for bit as JAX's
-    `build_pillar_plan` and the native host plan
+    on the points' device (`pillar_plan_eager`; on the card one replay of a
+    CUDA graph a shape, models/voxelnet.graphed_plan under the builder
+    "pillar")."""
+    return graphed_plan("pillar", pillar_plan_eager, points, points_mask, cfg.voxelizer, 4)
+
+
+def pillar_plan_eager(points: torch.Tensor, points_mask: torch.Tensor, vz: VoxelizerConfig,
+                      num_features: int = 4) -> Dict[str, Any]:
+    """The pillar plan in torch ops on the points' device: the voxels, the
+    merged (batch, y, x) BEV grid with its `order`, and `dense`, the grid
+    row of each of the B * ny * nx BEV cells (B * V when empty), bit for
+    bit as JAX's `build_pillar_plan` and the native host plan
     (data/native_plan.build_pillar_plan_native) hold them."""
-    vz = cfg.voxelizer
-    res = voxelize_batch(points[..., :4].float(), points_mask.bool(), vz)
+    res = voxelize_batch(points[..., :num_features].float(), points_mask.bool(), vz)
     nx, ny, _ = vz.grid_size
     grid, order = with_batch_axis(res.coords[..., 1:], res.voxel_mask, (ny, nx))
     n = grid.flat_ids.shape[0]
@@ -217,25 +226,30 @@ class AdversarialPointPillars(nn.Module):
         points_mask may then be None; only the compact adversary reads the
         points), or with plan=None on the plan `build_pillar_plan` builds
         from the points on their device."""
-        if plan is None:
-            points, points_mask = inline_inputs(points, points_mask, self)
-            plan = build_pillar_plan(points, points_mask, self.cfg)
-        if train != self.training:
-            self.train(train)
+        with span("rpc.plan"):
+            if plan is None:
+                points, points_mask = inline_inputs(points, points_mask, self)
+                plan = build_pillar_plan(points, points_mask, self.cfg)
+            if train != self.training:
+                self.train(train)
         voxels = plan["voxels"]
         point_mask = plan["point_mask"]
         zero = voxels.new_zeros(())
         adv_aux = {k: zero for k in _ADV_AUX_KEYS}
         if self.adversary is not None and (train or attack):
-            voxels, adv_aux = apply_voxel_adversary(
-                self.adversary, points, voxels, plan, attack, epoch,
-                self.cfg.adversary_start_epoch, adv_grad_scale)
-        feats = self.voxel_encoder(voxels, point_mask, plan["vox_coords"])  # [B, V, C]
-        nx, ny, _ = self.cfg.voxelizer.grid_size
-        b = voxels.shape[0]
-        grid = SparseGrid(plan["grid_ids"], plan["grid_coords"], plan["grid_mask"], (b, ny, nx))
-        rows = feats.reshape(-1, feats.shape[-1])[plan["order"].long()]
-        bev = scatter_to_dense(rows, grid)  # [B, ny, nx, C]
-        fused = self.neck(self.backbone(bev.permute(0, 3, 1, 2).contiguous()))
-        cls_scores, bbox_preds, dir_preds = self.bbox_head(fused)
+            with span("rpc.adversary"):
+                voxels, adv_aux = apply_voxel_adversary(
+                    self.adversary, points, voxels, plan, attack, epoch,
+                    self.cfg.adversary_start_epoch, adv_grad_scale)
+        with span("rpc.encoder"):
+            feats = self.voxel_encoder(voxels, point_mask, plan["vox_coords"])  # [B, V, C]
+            nx, ny, _ = self.cfg.voxelizer.grid_size
+            b = voxels.shape[0]
+            grid = SparseGrid(plan["grid_ids"], plan["grid_coords"], plan["grid_mask"],
+                              (b, ny, nx))
+            rows = feats.reshape(-1, feats.shape[-1])[plan["order"].long()]
+            bev = scatter_to_dense(rows, grid)  # [B, ny, nx, C]
+        with span("rpc.dense"):
+            fused = self.neck(self.backbone(bev.permute(0, 3, 1, 2).contiguous()))
+            cls_scores, bbox_preds, dir_preds = self.bbox_head(fused)
         return ModelOutputs(cls_scores, bbox_preds, dir_preds, adv_aux)

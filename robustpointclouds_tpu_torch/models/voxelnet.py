@@ -20,7 +20,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -278,33 +278,43 @@ def inline_inputs(points, points_mask, module: nn.Module):
     return points, points_mask.bool()
 
 
-# the inline plan's CUDA graphs, one a (device, shape, features, voxelizer)
+# the inline plan's CUDA graphs, one a (builder, device, shape, features, voxelizer)
 PLAN_GRAPHS = graphs.GraphCache(capacity=4)
 PLAN_GRAPH_CALLS = PLAN_GRAPHS.calls  # "capture" / "replay" / "eager" -> calls
 
 
 def plan_graph_key(points: torch.Tensor, points_mask: torch.Tensor, vz: VoxelizerConfig,
-                   num_features: int) -> tuple:
+                   num_features: int, builder: str = "sparse") -> tuple:
     """What the plan's graph depends on, for `points` as the plan reads them
-    (`[..., :num_features]` in float32, whatever the caller's dtype)."""
-    return points.device, tuple(points.shape), num_features, tuple(points_mask.shape), vz
+    (`[..., :num_features]` in float32, whatever the caller's dtype), and
+    the builder that makes it ("sparse": `sparse_plan_eager`, "pillar":
+    models/pointpillars.pillar_plan_eager), so that two builders' plans of
+    the same points never share a graph."""
+    return builder, points.device, tuple(points.shape), num_features, tuple(points_mask.shape), vz
+
+
+def graphed_plan(builder: str, eager: Callable[..., Dict[str, Any]], points: torch.Tensor,
+                 points_mask: torch.Tensor, vz: VoxelizerConfig,
+                 num_features: int) -> Dict[str, Any]:
+    """`eager(points, points_mask, vz, num_features)`'s plan. On the card it
+    is one replay of a CUDA graph captured on the first call of each input
+    signature and builder (core/graphs.py; `PLAN_GRAPH_CALLS` counts
+    captures and replays), with fresh output tensors each call; on the CPU,
+    under torch.compile or torch.export, inside another capture, or where
+    autograd records through the points, the eager body runs (counted
+    "eager")."""
+    pts, mask = points[..., :num_features].float(), points_mask.bool()
+    if not graphs.replayable(pts, mask):
+        PLAN_GRAPH_CALLS["eager"] += 1
+        return eager(pts, mask, vz, num_features)
+    return PLAN_GRAPHS(plan_graph_key(pts, mask, vz, num_features, builder),
+                       functools.partial(eager, vz=vz, num_features=num_features), (pts, mask))
 
 
 def sparse_plan_core(points: torch.Tensor, points_mask: torch.Tensor, vz: VoxelizerConfig,
                      num_features: int) -> Dict[str, Any]:
-    """`sparse_plan_eager`'s plan. On the card it is one replay of a CUDA
-    graph captured on the first call of each input signature
-    (core/graphs.py; `PLAN_GRAPH_CALLS` counts captures and replays), with
-    fresh output tensors each call; on the CPU, under torch.compile or
-    torch.export, inside another capture, or where autograd records
-    through the points, the eager body runs (counted "eager")."""
-    pts, mask = points[..., :num_features].float(), points_mask.bool()
-    if not graphs.replayable(pts, mask):
-        PLAN_GRAPH_CALLS["eager"] += 1
-        return sparse_plan_eager(pts, mask, vz, num_features)
-    return PLAN_GRAPHS(plan_graph_key(pts, mask, vz, num_features),
-                       functools.partial(sparse_plan_eager, vz=vz, num_features=num_features),
-                       (pts, mask))
+    """`sparse_plan_eager`'s plan, through `graphed_plan`."""
+    return graphed_plan("sparse", sparse_plan_eager, points, points_mask, vz, num_features)
 
 
 def sparse_plan_eager(points: torch.Tensor, points_mask: torch.Tensor, vz: VoxelizerConfig,

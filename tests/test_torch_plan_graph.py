@@ -1,12 +1,13 @@
-"""The inline plan's CUDA graph (core/graphs.py, models/voxelnet.sparse_plan_core).
+"""The inline plan's CUDA graph (core/graphs.py, models/voxelnet.graphed_plan).
 
 On the CPU: CPU tensors take the eager body, counted, with the eager
-function's plan key for key; the cache key separates shape, features and
-voxelizer, and the cache keeps to its bound (a CPU stand-in for the
-captured call); the route is eager while torch.compile / torch.export
-traces, while the current stream is being captured and where autograd
-records through the points; `fresh_copies` hands out equal tensors that
-share no memory.
+function's plan key for key (SECOND's sparse plan and the pillar plan
+alike); the cache key separates shape, features, voxelizer and builder, so
+a pillar plan and a sparse plan of the same points never share a graph,
+and the cache keeps to its bound (a CPU stand-in for the captured call);
+the route is eager while torch.compile / torch.export traces, while the
+current stream is being captured and where autograd records through the
+points; `fresh_copies` hands out equal tensors that share no memory.
 
 On the card (marked `cuda`, skipped elsewhere; this file imports torch and
 numpy only, so it runs where JAX is not installed):
@@ -14,9 +15,10 @@ numpy only, so it runs where JAX is not installed):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_plan_graph.py
 
 the graphed SECOND plan equals the eager one bit for bit at full width on
-the benchmark's seeded traffic, as does CenterPoint's at its own shapes;
-a kept plan is unchanged by a later call; one capture and N - 1 replays
-for N calls.
+the benchmark's seeded traffic, as does CenterPoint's at its own shapes and
+PointPillars' (equal to the native host plan too); a kept plan is
+unchanged by a later call; one capture and N - 1 replays for N calls, for
+the sparse plan and the pillar plan.
 """
 import json
 import os
@@ -27,13 +29,16 @@ import pytest
 import torch
 
 import torch_cpu_threads  # noqa: F401  (a share of the cores for torch under xdist)
-from robustpointclouds_tpu_torch.cli.common import tiny_voxelnet_cfg
+from robustpointclouds_tpu_torch.cli.common import tiny_pointpillars_cfg, tiny_voxelnet_cfg
 from robustpointclouds_tpu_torch.core import graphs
+from robustpointclouds_tpu_torch.data.native_plan import build_pillar_plan_native
 from robustpointclouds_tpu_torch.data.synthetic import synthetic_kitti_batch
+from robustpointclouds_tpu_torch.models import pointpillars as tpp
 from robustpointclouds_tpu_torch.models import voxelnet as tvn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = tiny_voxelnet_cfg().voxelizer
+PILLARS = tiny_pointpillars_cfg()
 
 
 def flat(plan, prefix=""):
@@ -91,6 +96,32 @@ def test_cpu_plan_runs_eager_and_counts_it():
     got = tvn.sparse_plan_core(pts, mask, TINY, 4)
     assert tvn.PLAN_GRAPH_CALLS["eager"] == before + 1
     assert_plans_equal(got, tvn.sparse_plan_eager(pts, mask, TINY, 4))
+
+
+def test_cpu_pillar_plan_runs_eager_and_counts_it():
+    pts, mask = tiny_points(6)
+    before = tvn.PLAN_GRAPH_CALLS["eager"]
+    got = tpp.build_pillar_plan(pts, mask, PILLARS)
+    assert tvn.PLAN_GRAPH_CALLS["eager"] == before + 1
+    assert_plans_equal(got, tpp.pillar_plan_eager(pts, mask, PILLARS.voxelizer))
+    assert "dense" in got and "enc" not in got
+
+
+def test_pillar_and_sparse_plans_of_the_same_points_get_two_graphs(stand_in):
+    """On one voxelizer only the builder tells the two keys apart; each
+    builder's calls capture and replay its own graph."""
+    pts, mask = tiny_points(7)
+    vz = PILLARS.voxelizer
+    assert tvn.plan_graph_key(pts, mask, vz, 4, "sparse") == tvn.plan_graph_key(pts, mask, vz, 4)
+    assert tvn.plan_graph_key(pts, mask, vz, 4, "pillar") != tvn.plan_graph_key(pts, mask, vz, 4)
+    for _ in range(2):
+        sparse = tvn.sparse_plan_core(pts, mask, TINY, 4)
+        pillar = tpp.build_pillar_plan(pts, mask, PILLARS)
+    assert dict(stand_in.calls) == {"capture": 2, "replay": 2}
+    assert list(stand_in.entries) == [tvn.plan_graph_key(pts, mask, TINY, 4),
+                                      tvn.plan_graph_key(pts, mask, vz, 4, "pillar")]
+    assert_plans_equal(sparse, tvn.sparse_plan_eager(pts, mask, TINY, 4))
+    assert_plans_equal(pillar, tpp.pillar_plan_eager(pts, mask, vz))
 
 
 @pytest.mark.parametrize("change", ["batch", "points", "features", "voxelizer"])
@@ -253,3 +284,22 @@ def test_one_capture_then_replays(cuda_device, monkeypatch):
         got = tvn.build_plan(pts, mask, vz)
     assert dict(cache.calls) == {"capture": 1, "replay": len(batches) - 1}
     assert_plans_equal(got, tvn.sparse_plan_eager(*batches[-1], vz, 4))
+
+
+@pytest.mark.cuda
+def test_graphed_pillar_plan_equals_eager_and_native_once_captured(cuda_device, monkeypatch):
+    """PointPillars at full width on the train traffic: one capture, then
+    replays, each plan bit-equal to the eager build and to the native host
+    plan of the same frames."""
+    cache = graphs.GraphCache(capacity=2)
+    monkeypatch.setattr(tvn, "PLAN_GRAPHS", cache)
+    monkeypatch.setattr(tvn, "PLAN_GRAPH_CALLS", cache.calls)
+    cfg = tpp.PointPillarsConfig()
+    batches = bench_batches("kitti-b6-train", 2 ** 31 + 13, 3)
+    for b in batches:
+        pts, mask = on_card(b, cuda_device)
+        got = tpp.build_pillar_plan(pts, mask, cfg)
+        assert_plans_equal(got, tpp.pillar_plan_eager(pts, mask, cfg.voxelizer))
+        native = build_pillar_plan_native(b["points"], b["points_mask"], cfg.voxelizer, 4)
+        assert_plans_equal(got, {k: torch.as_tensor(v) for k, v in native.items()})
+    assert dict(cache.calls) == {"capture": 1, "replay": len(batches) - 1}
